@@ -1,0 +1,141 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch port's headline query on one GPU.
+
+    python3 profile_torch.py [--batches 16] [--out build/profile.txt]
+
+Runs chip_smoke.py's main path (bench.py's headline query over 16,777,216
+rows cached as ``--batches`` batches), warms it, then measures:
+
+* the collect wall: median of 7 collects, each ending in a synchronize;
+* the host syncs of one collect, as ``torch.cuda.set_sync_debug_mode``
+  reports them;
+* per layer: every operator of the physical plan driven on its own, bottom
+  up, each drive ending in ``torch.cuda.synchronize()``; the layer's time is
+  its drive minus its child's (execution is eager, so a drive re-runs what
+  lies below it; the cached scan hands out device batches);
+* one whole collect under ``torch.profiler`` (CPU and CUDA activity): the
+  wall, the device busy time (sum of the device-side events' self time),
+  the idle share (1 - busy / wall) and the kernels by device time.
+
+Prints one JSON line; the profiler's table goes to ``--out``.  Needs a CUDA
+device.
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+import warnings
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_torch: needs a CUDA device", file=sys.stderr)
+        return 2
+    from chip_smoke import ROWS, SETTINGS, card_line, headline_data, \
+        headline_query
+    from spark_rapids_tpu_torch.batch import HostBatch
+    from spark_rapids_tpu_torch.config import RapidsConf
+    from spark_rapids_tpu_torch.dataframe import DataFrame
+    from spark_rapids_tpu_torch.kernels import cuda_tier
+    from spark_rapids_tpu_torch.plan.logical import InMemoryScan
+    from spark_rapids_tpu_torch.plan.physical import ExecContext
+    from spark_rapids_tpu_torch.session import GpuSparkSession
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batches", type=int, default=16)
+    ap.add_argument("--out", default="build/profile.txt")
+    args = ap.parse_args()
+
+    cuda_tier.build_all()
+    data = headline_data(ROWS)
+    per = ROWS // args.batches
+    parts = [HostBatch.from_pydict({
+        k: (t, v[s:s + per]) for k, (t, v) in data.items()})
+        for s in range(0, ROWS, per)]
+    session = GpuSparkSession(RapidsConf(SETTINGS))
+    df = DataFrame(InMemoryScan(parts, parts[0].schema, 1), session).cache()
+    query = headline_query(df)
+    for _ in range(3):  # materialize the cache, warm the allocator
+        query.collect()
+    walls = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        query.collect()
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+    collect_ms = sorted(walls)[len(walls) // 2] * 1e3
+
+    # ---- host syncs: torch flags every synchronizing call in one collect -
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            query.collect()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message).splitlines()[0][:120] for w in caught
+             if "synchroniz" in str(w.message)]
+
+    # ---- per layer: drive each operator alone, bottom up -----------------
+    ctx = ExecContext(session.conf, session.device)
+    chain, op = [], session.last_physical_plan
+    while op is not None:
+        chain.append(op)
+        op = op.children[0] if op.children else None
+    layers = []
+    below = 0.0
+    for op in reversed(chain):
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            for part in op.partitions(ctx):
+                for _b in part:
+                    pass
+            torch.cuda.synchronize()
+            walls.append(time.monotonic() - t0)
+        walls.sort()
+        wall = walls[len(walls) // 2]
+        layers.append({"op": op.describe(), "cumulative_ms": wall * 1e3,
+                       "layer_ms": (wall - below) * 1e3})
+        below = wall
+
+    # ---- one collect under the profiler ----------------------------------
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.monotonic()
+        rows = query.collect()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    events = prof.key_averages()
+    # device-side events only (kernels, copies): the operators that
+    # launched them report the same time again
+    on_device = [e for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in on_device)
+    kernels = sorted(((e.key, e.self_device_time_total, e.count)
+                      for e in on_device), key=lambda x: -x[1])
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        f.write(events.table(sort_by="self_device_time_total",
+                             row_limit=40))
+    print(json.dumps({
+        "card": card_line(), "batches": args.batches, "rows": len(rows),
+        "collect_median_ms": collect_ms, "profiled_collect_ms": wall * 1e3,
+        "host_syncs": len(syncs), "host_sync_kinds": sorted(set(syncs)),
+        "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1.0 - (busy_us / 1e3) / (wall * 1e3),
+        "layers": layers,
+        "top_kernels": [{"name": k[:80], "device_ms": t / 1e3, "calls": c}
+                        for k, t, c in kernels[:12]],
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,167 @@
+"""Lazy DataFrame frontend over the logical plan (port of the part of
+``spark_rapids_tpu/dataframe.py`` the slice needs): filter, with_column,
+group_by().agg(), order_by, cache, collect."""
+
+from __future__ import annotations
+
+from typing import List
+
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.exprs.aggregates import (
+    AggregateExpression, AggregateFunction,
+)
+from spark_rapids_tpu_torch.exprs.base import (
+    Alias, ColumnRef, Expression, Literal, SortOrder, output_name, resolve,
+)
+from spark_rapids_tpu_torch.plan import logical as L
+
+
+class Column:
+    """Expression wrapper with operator sugar (pyspark Column analogue)."""
+
+    def __init__(self, expr: Expression):
+        self.expr = expr
+
+    def _bin(self, other, cls):
+        return Column(cls(self.expr, _to_expr(other)))
+
+    def __mul__(self, other):
+        from spark_rapids_tpu_torch.exprs.arithmetic import Multiply
+        return self._bin(other, Multiply)
+
+    def __eq__(self, other):  # type: ignore[override]
+        from spark_rapids_tpu_torch.exprs.predicates import Equals
+        return self._bin(other, Equals)
+
+    def __lt__(self, other):
+        from spark_rapids_tpu_torch.exprs.predicates import LessThan
+        return self._bin(other, LessThan)
+
+    def __gt__(self, other):
+        from spark_rapids_tpu_torch.exprs.predicates import GreaterThan
+        return self._bin(other, GreaterThan)
+
+    def __and__(self, other):
+        from spark_rapids_tpu_torch.exprs.predicates import And
+        return self._bin(other, And)
+
+    def alias(self, name: str) -> "Column":
+        return Column(Alias(self.expr, name))
+
+    def __repr__(self):
+        return f"Column({self.expr!r})"
+
+    def __hash__(self):
+        return id(self)
+
+
+def _to_expr(v) -> Expression:
+    if isinstance(v, Column):
+        return v.expr
+    if isinstance(v, Expression):
+        return v
+    return Literal(v)
+
+
+def _to_order(v) -> SortOrder:
+    if isinstance(v, SortOrder):
+        return v
+    if isinstance(v, str):
+        return SortOrder(ColumnRef(v), True)
+    if isinstance(v, Column):
+        return SortOrder(v.expr, True)
+    raise TypeError(f"cannot order by {v!r}")
+
+
+class DataFrame:
+    def __init__(self, plan: L.LogicalPlan, session):
+        self.plan = plan
+        self.session = session
+
+    @property
+    def schema(self) -> T.Schema:
+        return self.plan.schema
+
+    @property
+    def columns(self) -> List[str]:
+        return self.plan.schema.names
+
+    def __getitem__(self, name: str) -> Column:
+        f = self.schema.field(name)
+        return Column(ColumnRef(name, f.dtype, f.nullable))
+
+    def _resolve(self, e: Expression) -> Expression:
+        return resolve(e, self.schema)
+
+    def with_column(self, name: str, col) -> "DataFrame":
+        exprs, names = [], []
+        replaced = False
+        for f in self.schema.fields:
+            if f.name == name:
+                exprs.append(self._resolve(_to_expr(col)))
+                replaced = True
+            else:
+                exprs.append(ColumnRef(f.name, f.dtype, f.nullable))
+            names.append(f.name)
+        if not replaced:
+            exprs.append(self._resolve(_to_expr(col)))
+            names.append(name)
+        return DataFrame(L.Project(exprs, names, self.plan), self.session)
+
+    def filter(self, condition) -> "DataFrame":
+        e = self._resolve(_to_expr(condition))
+        return DataFrame(L.Filter(e, self.plan), self.session)
+
+    def group_by(self, *cols) -> "GroupedData":
+        keys, names = [], []
+        for i, c in enumerate(cols):
+            e = self._resolve(_to_expr(self[c] if isinstance(c, str) else c))
+            keys.append(e)
+            names.append(output_name(e, i))
+        return GroupedData(self, keys, names)
+
+    def order_by(self, *cols) -> "DataFrame":
+        orders = []
+        for c in cols:
+            o = _to_order(c)
+            orders.append(SortOrder(self._resolve(o.child), o.ascending,
+                                    o.nulls_first))
+        return DataFrame(L.Sort(orders, True, self.plan), self.session)
+
+    def collect(self) -> List[tuple]:
+        hb = self.session.execute(self.plan)
+        cols = [c.to_list() for c in hb.columns]
+        return [tuple(c[i] for c in cols) for i in range(hb.num_rows)]
+
+    def cache(self) -> "DataFrame":
+        """Mark for caching: the first execution keeps the device batches
+        for every later query over this DataFrame."""
+        if isinstance(self.plan, L.CachedRelation):
+            return self
+        return DataFrame(L.CachedRelation(self.plan, L.CacheHolder()),
+                         self.session)
+
+
+class GroupedData:
+    def __init__(self, df: DataFrame, keys: List[Expression],
+                 names: List[str]):
+        self.df = df
+        self.keys = keys
+        self.names = names
+
+    def agg(self, *aggs) -> DataFrame:
+        out: List[AggregateExpression] = []
+        for i, a in enumerate(aggs):
+            if isinstance(a, AggregateExpression):
+                out.append(a)
+                continue
+            e, name = a.expr if isinstance(a, Column) else a, None
+            if isinstance(e, Alias):
+                name, e = e.alias_name, e.children[0]
+            if not isinstance(e, AggregateFunction):
+                raise TypeError(f"not an aggregate: {a!r}")
+            e = e.with_children([resolve(e.child, self.df.schema)])
+            out.append(AggregateExpression(
+                e, name or f"{e.name.lower()}_{i}"))
+        return DataFrame(L.Aggregate(self.keys, self.names, out,
+                                     self.df.plan), self.df.session)

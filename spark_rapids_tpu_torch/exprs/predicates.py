@@ -1,0 +1,64 @@
+"""Comparison and boolean predicates (port of
+``spark_rapids_tpu/exprs/predicates.py``).
+
+Comparisons are NULL when either side is NULL; ``And`` implements Kleene
+three-valued logic exactly as Spark does (FALSE AND NULL is FALSE).  String
+operands are not ported yet (:meth:`_Comparison.gpu_supported`).
+"""
+
+from __future__ import annotations
+
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.exprs.base import (
+    BinaryExpression, DevVal, promote_dev,
+)
+
+
+class _Comparison(BinaryExpression):
+    def _resolve_type(self):
+        self.dtype = T.BOOLEAN
+        self.nullable = self.left.nullable or self.right.nullable
+
+    def _compute(self, x, y):
+        raise NotImplementedError
+
+    def gpu_supported(self, conf):
+        if self.left.dtype.is_string or self.right.dtype.is_string:
+            return f"{self.name}: string comparisons are not ported yet"
+        return None
+
+    def gpu_eval(self, ctx) -> DevVal:
+        a, b, _ = promote_dev(self.left.gpu_eval(ctx),
+                              self.right.gpu_eval(ctx))
+        return DevVal(T.BOOLEAN, self._compute(a.data, b.data),
+                      a.validity & b.validity)
+
+
+class Equals(_Comparison):
+    def _compute(self, x, y):
+        return x == y
+
+
+class LessThan(_Comparison):
+    def _compute(self, x, y):
+        return x < y
+
+
+class GreaterThan(_Comparison):
+    def _compute(self, x, y):
+        return x > y
+
+
+class And(BinaryExpression):
+    def _resolve_type(self):
+        self.dtype = T.BOOLEAN
+        self.nullable = self.left.nullable or self.right.nullable
+
+    def gpu_eval(self, ctx) -> DevVal:
+        a, b = self.left.gpu_eval(ctx), self.right.gpu_eval(ctx)
+        x = a.data & a.validity  # NULL is "not definitely true"
+        y = b.data & b.validity
+        false_a = a.validity & ~a.data
+        false_b = b.validity & ~b.data
+        validity = (a.validity & b.validity) | false_a | false_b
+        return DevVal(T.BOOLEAN, x & y, validity)

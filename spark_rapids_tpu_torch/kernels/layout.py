@@ -1,0 +1,145 @@
+"""Row-movement kernels: gather, filter compaction, head, k-way concat.
+
+Port of ``spark_rapids_tpu/kernels/layout.py``.  Plain functions over
+:class:`ColumnBatch`; output capacities are host ints, live row counts stay
+0-d tensors on the device.  ``jnp`` gathers clamp out-of-range indices
+silently while a CUDA gather with a bad index kills the context, so every
+index here is clamped or masked explicitly before it is used.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from spark_rapids_tpu_torch.batch import (
+    ColumnBatch, DeviceColumn, device_scalar,
+)
+from spark_rapids_tpu_torch.kernels import cuda_tier
+
+
+def _count(n, device) -> torch.Tensor:
+    """A live-row count as a 0-d int32 device tensor."""
+    if isinstance(n, torch.Tensor):
+        return n.reshape(()).to(torch.int32)
+    return device_scalar(n, device)
+
+
+def _at(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``t[i]`` for a 0-d device index, as a gather (no host sync)."""
+    return t.index_select(0, i.reshape(1).to(torch.int64)).reshape(())
+
+
+def gather_rows(batch: ColumnBatch, indices: torch.Tensor, num_rows,
+                out_capacity: Optional[int] = None) -> ColumnBatch:
+    """New batch whose row r is ``batch`` row ``indices[r]`` for
+    r < num_rows; rows past num_rows are zero/invalid.  ``indices`` has
+    ``out_capacity`` entries (default: the input capacity).  String columns
+    are not ported yet."""
+    out_cap = out_capacity if out_capacity is not None else batch.capacity
+    dev = batch.device
+    num_rows = _count(num_rows, dev)
+    live = torch.arange(out_cap, dtype=torch.int32, device=dev) < num_rows
+    idx = indices.to(torch.int64).clamp(0, batch.capacity - 1)
+    idx = idx.masked_fill(~live, 0)
+    cols = []
+    for f, col in zip(batch.schema.fields, batch.columns):
+        if col.is_varlen:
+            raise NotImplementedError(
+                f"gather of string column {f.name!r} is not ported yet")
+        data = col.data[idx].masked_fill(~live, 0)
+        validity = col.validity[idx] & live
+        cols.append(DeviceColumn(col.dtype, data, validity))
+    return ColumnBatch(batch.schema, cols, num_rows, out_cap)
+
+
+def compaction_indices(mask: torch.Tensor, num_rows):
+    """(indices, count): stable order of rows where mask is True and live.
+
+    ``indices`` is int32[cap], kept rows first then zeros.  A cumsum ranks
+    the kept rows and one scatter inverts the ranking.  Dropped row i is
+    aimed at its own scratch slot ``cap + i``, cut off after: one shared
+    scratch slot would take every dropped row's store at one address,
+    which the card serializes.  ``torch.nonzero`` would sync the host."""
+    cap = int(mask.shape[0])
+    dev = mask.device
+    iota = torch.arange(cap, dtype=torch.int32, device=dev)
+    keep = mask & (iota < num_rows)
+    csum = torch.cumsum(keep.to(torch.int32), 0, dtype=torch.int32)
+    count = csum[cap - 1] if cap else device_scalar(0, dev)
+    target = torch.where(keep, csum - 1, cap + iota).to(torch.int64)
+    idx = torch.zeros(2 * cap, dtype=torch.int32, device=dev)
+    idx.index_copy_(0, target, iota)
+    return idx[:cap], count
+
+
+def compact(batch: ColumnBatch, mask: torch.Tensor) -> ColumnBatch:
+    """Filter: keep rows where mask (bool[cap]) is True.  The output keeps
+    the input capacity (a filter can only shrink)."""
+    indices, count = compaction_indices(mask, batch.num_rows)
+    return gather_rows(batch, indices, count)
+
+
+def take_head(batch: ColumnBatch, limit) -> ColumnBatch:
+    """LocalLimit: clamp the live-row count (no data movement)."""
+    n = torch.minimum(batch.num_rows, _count(limit, batch.device))
+    return ColumnBatch(batch.schema, batch.columns, n, batch.capacity)
+
+
+def _pack_kway(vals_list, los, his, out_cap: int) -> torch.Tensor:
+    """K-way segment pack: input j's window ``[los[j], his[j])`` lands at
+    the running output offset ``sum(his[:j] - los[:j])``; zeros elsewhere.
+    Every element width goes through the gatherScatter kernel on CUDA."""
+    return cuda_tier.pack_segments(vals_list, los, his, out_cap)
+
+
+def concat_kway(batches: Sequence[ColumnBatch], out_capacity: int,
+                out_byte_caps: Optional[Sequence[int]] = None
+                ) -> ColumnBatch:
+    """Concatenate k batches (same schema) into ONE output allocation:
+    every input's live rows (and, for strings, live bytes) are written once
+    at their running offset.  Output rows past the live total are zeros;
+    string offsets are rebuilt from one cumsum of the packed live lengths.
+    ``out_byte_caps`` defaults to the summed input byte capacities."""
+    if not batches:
+        raise ValueError("concat_kway needs at least one batch")
+    if len(batches) == 1:
+        return batches[0]
+    schema = batches[0].schema
+    for b in batches[1:]:
+        if b.schema != schema:
+            raise ValueError(f"{b.schema} != {schema}")
+    dev = batches[0].device
+    ns = [b.num_rows for b in batches]
+    total = torch.stack(ns).sum().to(torch.int32)
+    zeros_lo = [device_scalar(0, dev)] * len(batches)
+
+    def pack_rows(values_per_batch):
+        return _pack_kway(values_per_batch, zeros_lo, ns, out_capacity)
+
+    cols = []
+    str_i = 0
+    for ci, f in enumerate(schema.fields):
+        parts = [b.columns[ci] for b in batches]
+        validity = pack_rows([c.validity for c in parts])
+        if parts[0].is_varlen:
+            bcap = (out_byte_caps[str_i] if out_byte_caps is not None
+                    else sum(int(c.data.shape[0]) for c in parts))
+            str_i += 1
+            lens = pack_rows([(c.offsets[1:] - c.offsets[:-1]) for c in parts])
+            new_offsets = torch.cat([
+                torch.zeros(1, dtype=torch.int32, device=dev),
+                torch.cumsum(lens, 0, dtype=torch.int32)])
+            # LIVE bytes only (offsets[num_rows], not offsets[-1]):
+            # take_head lowers num_rows without repacking, so dead rows'
+            # bytes must neither advance the cursor nor be copied
+            data = _pack_kway([c.data for c in parts], zeros_lo,
+                              [_at(c.offsets, n) for c, n in zip(parts, ns)],
+                              bcap)
+            cols.append(DeviceColumn(f.dtype, data, validity, new_offsets))
+        else:
+            cols.append(DeviceColumn(f.dtype, pack_rows([c.data
+                                                         for c in parts]),
+                                     validity))
+    return ColumnBatch(schema, cols, total, out_capacity)

@@ -1,0 +1,29 @@
+"""Multi-column sort over a ColumnBatch (port of
+``spark_rapids_tpu/kernels/sort.py``)."""
+
+from __future__ import annotations
+
+from typing import List
+
+from spark_rapids_tpu_torch.batch import ColumnBatch
+from spark_rapids_tpu_torch.exprs.base import DevVal
+from spark_rapids_tpu_torch.kernels.layout import gather_rows
+from spark_rapids_tpu_torch.kernels.sortkeys import (
+    argsort_by_words, encode_sort_keys,
+)
+
+
+def argsort_batch(key_vals: List[DevVal], ascendings: List[bool],
+                  nulls_firsts: List[bool], num_rows, groupings=None):
+    """Stable permutation sorting rows by the evaluated key columns."""
+    cap = int(key_vals[0].validity.shape[0])
+    words = encode_sort_keys(key_vals, ascendings, nulls_firsts, num_rows,
+                             groupings=groupings)
+    return argsort_by_words(words, cap)
+
+
+def sort_batch(batch: ColumnBatch, key_vals: List[DevVal],
+               ascendings: List[bool], nulls_firsts: List[bool]
+               ) -> ColumnBatch:
+    perm = argsort_batch(key_vals, ascendings, nulls_firsts, batch.num_rows)
+    return gather_rows(batch, perm, batch.num_rows)

@@ -1,0 +1,125 @@
+"""Order-preserving sort-key words (port of
+``spark_rapids_tpu/kernels/sortkeys.py``, fixed-width types).
+
+Every key column is encoded into 32-bit words whose lexicographic order is
+the SQL order (ascending/descending, nulls first/last, padding rows last),
+exactly the JAX package's uint32 words.  ``torch.uint32`` lacks sorts,
+shifts and comparisons on CUDA, so each word lives in an int64 tensor
+holding the u32 value (always in ``[0, 2^32)``).
+
+Encodings: int8/16/32/date one word (value ^ sign bit); int64/timestamp two
+words (biased hi, raw lo); float/double with NaN canonicalized (sorts
+greatest) and -0.0 == 0.0, then the IEEE flip (negative: all bits flipped,
+else sign bit set); boolean 0/1.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.exprs.base import DevVal
+
+_M32 = 0xFFFFFFFF
+_SIGN32 = 1 << 31
+
+
+def _flip_float_bits(bits: torch.Tensor) -> torch.Tensor:
+    """u32 IEEE order word from u32 float bits (held in int64)."""
+    neg = (bits & _SIGN32) != 0
+    return torch.where(neg, ~bits & _M32, bits | _SIGN32)
+
+
+def _encode_fixed_words(v: DevVal) -> List[torch.Tensor]:
+    """Order-preserving u32 words (int64 tensors) of a fixed-width column."""
+    dt = v.dtype
+    if dt == T.BOOLEAN:
+        return [v.data.to(torch.int64)]
+    if dt in (T.BYTE, T.SHORT, T.INT, T.DATE):
+        return [(v.data.to(torch.int64) & _M32) ^ _SIGN32]
+    if dt in (T.LONG, T.TIMESTAMP):
+        x = v.data.to(torch.int64)
+        return [((x >> 32) & _M32) ^ _SIGN32, x & _M32]
+    if dt == T.FLOAT:
+        x = v.data.to(torch.float32)
+        x = torch.where(torch.isnan(x), float("nan"), x)
+        x = torch.where(x == 0.0, 0.0, x)
+        return [_flip_float_bits(x.view(torch.int32).to(torch.int64) & _M32)]
+    if dt == T.DOUBLE:
+        x = v.data.to(torch.float64)
+        x = torch.where(torch.isnan(x), float("nan"), x)
+        x = torch.where(x == 0.0, 0.0, x)
+        bits = x.view(torch.int64)
+        hi = (bits >> 32) & _M32
+        lo = bits & _M32
+        neg = (hi & _SIGN32) != 0
+        return [torch.where(neg, ~hi & _M32, hi | _SIGN32),
+                torch.where(neg, ~lo & _M32, lo)]
+    raise NotImplementedError(f"sort keys of type {dt} are not ported yet")
+
+
+def encode_sort_keys(vals: List[DevVal], ascendings: List[bool],
+                     nulls_firsts: List[bool], num_rows,
+                     groupings: Optional[List[bool]] = None,
+                     liveness: bool = True) -> List[torch.Tensor]:
+    """Full u32 key-word list for a multi-column sort.
+
+    With ``liveness`` a leading word sends padding rows (row >= num_rows)
+    to the end; it is folded into the first key's null-rank word (both are
+    un-negated 1-bit ranks).  Each key contributes a null-rank word then
+    its value words; NULL values all encode as 0 so NULLs compare equal.
+    ``groupings`` only matters for strings, which are not ported yet."""
+    cap = int(vals[0].validity.shape[0]) if vals else 0
+    words: List[torch.Tensor] = []
+    if liveness:
+        dev = vals[0].validity.device
+        live = torch.arange(cap, dtype=torch.int32, device=dev) < num_rows
+        words.append((~live).to(torch.int64))
+    for v, asc, nf in zip(vals, ascendings, nulls_firsts):
+        null_rank = v.validity if nf else ~v.validity
+        words.append(null_rank.to(torch.int64))
+        for w in _encode_fixed_words(v):
+            w = w.masked_fill(~v.validity, 0)
+            words.append(w if asc else ~w & _M32)
+    if liveness and len(words) >= 2:
+        words = [(words[0] << 1) | words[1]] + words[2:]
+    return words
+
+
+def argsort_by_words(words: List[torch.Tensor], cap: int) -> torch.Tensor:
+    """Stable permutation (int64[cap]) ordering rows by the word tuple —
+    the permutation ``jax.lax.sort(..., is_stable=True)`` gives.
+
+    Words are packed pairwise into one int64 key, ``(hi - 2^31) * 2^32 +
+    lo``, which orders as the (hi, lo) pair does; then a least-significant-
+    key-first chain of stable sorts, each pass keeping the order of the
+    passes before it."""
+    if not words:
+        raise ValueError("argsort_by_words needs at least one word")
+    keys = [words[0]] if len(words) % 2 else []
+    for i in range(len(words) % 2, len(words), 2):
+        keys.append((words[i] - _SIGN32) * (1 << 32) + words[i + 1])
+    perm = None
+    for key in reversed(keys):
+        k = key if perm is None else key[perm]
+        _, order = torch.sort(k, stable=True)
+        perm = order if perm is None else perm[order]
+    return perm
+
+
+def keys_equal_prev(vals: List[DevVal]) -> torch.Tensor:
+    """bool[cap]: row i's key tuple exactly equals row i-1's (False at 0)."""
+    cap = int(vals[0].validity.shape[0])
+    eq = torch.ones(cap, dtype=torch.bool, device=vals[0].validity.device)
+
+    def shift_ne(x):
+        return x != torch.cat([x[:1], x[:-1]])
+
+    for v in vals:
+        eq = eq & ~shift_ne(v.validity)
+        for w in _encode_fixed_words(v):
+            eq = eq & (~shift_ne(w) | ~v.validity)
+    eq[0] = False
+    return eq

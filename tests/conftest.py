@@ -59,6 +59,10 @@ def pytest_configure(config):
         "markers",
         "slow: long-running integration tests excluded from the quick "
         "(-m 'not slow') tier-1 pass; still run by a direct invocation")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (and nvcc) — the port's hand-written "
+        "kernels have no CPU mode; skipped where there is no card")
 
 
 # Per-test wall-clock bound (ci/run_ci.sh exports PYTEST_PER_TEST_TIMEOUT):
