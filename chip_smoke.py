@@ -7,18 +7,31 @@ Phases, in order; any failure exits non-zero:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build every hand-written kernel from ``spark_rapids_tpu_torch/csrc`` with
-   nvcc (into ``build/kernels``);
+   nvcc, one process per source, all started together (into
+   ``build/kernels``);
 3. kernel phase: every kernel against its plain PyTorch version on the card
-   (``torch.equal`` on the raw output) over a case matrix, then timed with
-   CUDA events (median of 30 after warm-up): the wrapper call as the main
-   path makes it, and the kernel alone replayed from a CUDA graph;
-4. main path: bench.py's headline query (filter, project, group by two keys
-   with sum/count/avg/min/max, order by) over 16,777,216 rows cached as 16
-   batches of ``reader.batchSizeRows`` rows, collected twice, checked
-   against an independent numpy group-by; then the one-batch cached form
-   bench.py itself runs.  The launch counts are zeroed just before each
-   collect and read just after: the multi-batch query must launch every
-   kernel of its path.
+   (``torch.equal`` on the raw output) over a case matrix: gatherScatter
+   over input counts, widths and windows; stringHash over capacities 1,
+   511, 512, 513 and 2^20, an all-empty column, a 64 KiB row, multi-byte
+   UTF-8, NULL rows, rows past ``num_rows`` and garbage past
+   ``offsets[-1]``; contains over needles of 1, 5, 16 and 70 bytes,
+   matches at a row's first and last byte, needles spanning a row boundary
+   and a match ending exactly at ``offsets[-1]``;
+4. main paths, each collected twice with the launch counts zeroed just
+   before each collect and read just after, rows checked against an
+   independent numpy reference:
+   * bench.py's headline query (filter, project, group by two int keys,
+     order by) over 16,777,216 rows cached as 16 batches of
+     ``reader.batchSizeRows`` rows, then as bench.py's one batch;
+   * TPC-H Q1 (group and order by the string keys l_returnflag,
+     l_linestatus) over lineitem at 6,000,000 rows, 6 batches;
+   * the part query (``p_name LIKE '%green%'``, group and order by
+     p_brand, p_type) over part at 2,000,000 rows, 2 batches;
+   each query must launch every kernel of its path;
+5. timings at the main paths' own shapes, medians of CUDA-event timings:
+   the wrapper call as the path makes it, the kernel alone replayed from a
+   CUDA graph, the plain version, the library call where one computes the
+   same function, and the bound (bytes moved / 3.35 TB/s).
 
 Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -33,9 +46,15 @@ import time
 import numpy as np
 
 ROWS = 1 << 24
+LINEITEM_SF = 100   # 6,000,000 rows: TPC-H SF1's lineitem count
+PART_SF = 1000      # 2,000,000 rows: TPC-H SF10's part count
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
-REPLACES = "spark_rapids_tpu/kernels/pallas_tier.py:232"
-SOURCE = "spark_rapids_tpu_torch/csrc/pack_segments.cu"
+#: kernel -> the TPU kernel it replaces (its pallas_call entry)
+REPLACES = {
+    "gatherScatter": "spark_rapids_tpu/kernels/pallas_tier.py:232",
+    "stringHash": "spark_rapids_tpu/kernels/pallas_tier.py:397",
+    "strings": "spark_rapids_tpu/kernels/pallas_strings.py:81",
+}
 SETTINGS = {"spark.rapids.sql.variableFloatAgg.enabled": True,
             "spark.sql.shuffle.partitions": 1}
 
@@ -286,6 +305,311 @@ def merge_partials(session, device):
     return [b for part in update.partitions(ctx) for b in part]
 
 
+# ---------------------------------------------------------------------------
+# kernel phase: stringHash and strings (contains)
+# ---------------------------------------------------------------------------
+
+_WORDS = ["a", "green", "\u00e9", "\u4e2d\u6587", "\U0001f642x",
+          "greengreen", "lemon navy", "Brand#13", "g", "n", "ee"]
+
+
+def string_case(seed, cap, num_rows, long_row=0, empty=False):
+    """(data u8, offsets int32[cap+1]) as the device holds a string
+    column: rows of 0-30 bytes (multi-byte UTF-8 among them, some empty
+    as NULL rows are), offsets constant past ``num_rows``, random garbage
+    past ``offsets[-1]`` up to a power-of-two byte capacity; row 1 is
+    ``long_row`` bytes when that is set."""
+    rng = np.random.RandomState(seed)
+    rows = []
+    for r in range(num_rows):
+        if empty or rng.rand() < 0.15:
+            rows.append(b"")
+        elif r == 1 and long_row:
+            rows.append(bytes(rng.randint(32, 127, long_row, dtype=np.uint8)))
+        else:
+            rows.append(" ".join(rng.choice(_WORDS, rng.randint(1, 5)))
+                        .encode()[:30])
+    lens = np.array([len(b) for b in rows] + [0] * (cap - num_rows))
+    offsets = np.zeros(cap + 1, dtype=np.int32)
+    np.cumsum(lens, out=offsets[1:])
+    total = int(offsets[-1])
+    nbytes = max(16, 1 << max(total + 7, 1).bit_length())
+    data = rng.randint(0, 256, nbytes).astype(np.uint8)
+    data[:total] = np.frombuffer(b"".join(rows), dtype=np.uint8)
+    return data, offsets
+
+
+def big_string_case(seed, cap, num_rows):
+    """A ``string_case`` built by numpy alone, for large capacities: rows
+    of 0-30 random bytes (every byte value, so multi-byte UTF-8 sequences
+    among them), 15% empty, offsets constant past ``num_rows``, garbage
+    past ``offsets[-1]``."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(1, 31, cap)
+    lens[rng.rand(cap) < 0.15] = 0
+    lens[num_rows:] = 0
+    offsets = np.zeros(cap + 1, dtype=np.int32)
+    np.cumsum(lens, out=offsets[1:])
+    nbytes = 1 << (int(offsets[-1]) + 7).bit_length()
+    return rng.randint(0, 256, nbytes).astype(np.uint8), offsets
+
+
+def needle_case():
+    """Rows around the needle edge cases: "green" at a row's first and
+    last byte, "gre"+"en" spanning a row boundary, the last row's "green"
+    ending exactly at offsets[-1] before garbage that would extend it."""
+    rows = [b"green", b"xgreen", b"greenx", b"gre", b"en", b"",
+            b"abcdeabcde", b"abcd", b"eabcd", b"g" * 16, b"g" * 15,
+            b"q" * 70, b"q" * 69, b"zzgreen"]
+    offsets = np.zeros(len(rows) + 1, dtype=np.int32)
+    np.cumsum([len(r) for r in rows], out=offsets[1:])
+    data = np.frombuffer(b"".join(rows) + b"een" + b"q" * 80,
+                         dtype=np.uint8).copy()
+    return data, offsets
+
+
+NEEDLES = [b"g", b"green", b"g" * 16, b"q" * 70, b"greene", b"deab",
+           "\u00e9".encode()]
+
+
+def check_string_matrix(device, big_columns) -> int:
+    """stringHash and contains against their plain versions, raw outputs
+    equal (torch.equal).  ``big_columns`` are 2^20-row (data, offsets)
+    pairs from the main paths' cached batches.  Returns the case count."""
+    import torch
+    from spark_rapids_tpu_torch.kernels import cuda_tier
+    columns = [("cap1-empty", string_case(1, 1, 1, empty=True)),
+               ("cap511", string_case(2, 511, 500)),
+               ("cap512", string_case(3, 512, 512)),
+               ("cap513", string_case(4, 513, 300)),
+               ("all-empty", string_case(5, 64, 40, empty=True)),
+               ("row-64KiB", string_case(6, 16, 9, long_row=1 << 16)),
+               ("cap2^20", big_string_case(7, 1 << 20, (1 << 20) - 1000)),
+               ("needles", needle_case())]
+    columns = [(n, (torch.from_numpy(d).to(device),
+                    torch.from_numpy(o).to(device))) for n, (d, o) in columns]
+    columns += list(big_columns)
+    cases = 0
+    for name, (data, offsets) in columns:
+        got = cuda_tier.string_hash_rows(data, offsets)
+        want = cuda_tier.string_hash_rows_reference(data, offsets)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and
+                torch.equal(got[1], want[1])):
+            raise AssertionError(f"stringHash != plain version on {name}")
+        cases += 1
+        for needle in NEEDLES:
+            got = cuda_tier.rows_with_match(data, offsets, needle)
+            want = cuda_tier.rows_with_match_reference(data, offsets, needle)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"contains != plain version on {name} "
+                                     f"needle {needle!r}")
+            cases += 1
+    data, offsets = needle_case()
+    rows = [data[offsets[i]:offsets[i + 1]].tobytes()
+            for i in range(len(offsets) - 1)]
+    td, to = torch.from_numpy(data).to(device), \
+        torch.from_numpy(offsets).to(device)
+    for needle in NEEDLES:  # and against Python's own `in`, row by row
+        got = cuda_tier.rows_with_match(td, to, needle).cpu().tolist()
+        if got != [needle in r for r in rows]:
+            raise AssertionError(f"contains wrong for {needle!r}")
+    return cases
+
+
+def kernel_numbers(call, plain, nbytes: int) -> dict:
+    """Wrapper ms (as the path calls it), the kernel alone (one captured
+    launch replayed from a CUDA graph), the plain version's ms and the
+    bytes bound, each a median of CUDA-event timings."""
+    import torch
+    call()  # warm: builds, caches the needle on the device
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        call()
+    return {"ms": time_ms(call), "kernel_only_ms": time_ms(graph.replay),
+            "plain_ms": time_ms(plain, reps=10, warmup=2),
+            "library_ms": None,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
+
+
+def hash_numbers(data, offsets, label: str) -> dict:
+    """stringHash at a main-path shape.  Bytes: the live bytes and the
+    cap+1 offsets read once, two int64 words per row written once."""
+    from spark_rapids_tpu_torch.kernels import cuda_tier
+    cap = int(offsets.numel()) - 1
+    live = int(offsets[-1])
+    out = kernel_numbers(
+        lambda: cuda_tier.string_hash_rows(data, offsets),
+        lambda: cuda_tier.string_hash_rows_reference(data, offsets),
+        live + 4 * (cap + 1) + 16 * cap)
+    out["shape"] = f"{label}: {cap} rows, {live} live bytes"
+    return out
+
+
+def contains_numbers(data, offsets, needle: bytes, label: str) -> dict:
+    """contains at a main-path shape.  Bytes: the live bytes, the cap+1
+    offsets and the needle read once, one bool per row written once."""
+    from spark_rapids_tpu_torch.kernels import cuda_tier
+    cap = int(offsets.numel()) - 1
+    live = int(offsets[-1])
+    out = kernel_numbers(
+        lambda: cuda_tier.rows_with_match(data, offsets, needle),
+        lambda: cuda_tier.rows_with_match_reference(data, offsets, needle),
+        live + 4 * (cap + 1) + len(needle) + cap)
+    out["shape"] = (f"{label}: {cap} rows, {live} live bytes, needle "
+                    f"{needle!r}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# main paths: TPC-H Q1 and the part query
+# ---------------------------------------------------------------------------
+
+
+def q1_query(df):
+    """TPC-H Q1 as the repo defines it (benchmarks/tpch_like.py Q1)."""
+    from spark_rapids_tpu_torch import functions as F
+    return (df
+            .filter(df["l_shipdate"] <= 10471)
+            .group_by("l_returnflag", "l_linestatus")
+            .agg(F.sum("l_quantity").alias("sum_qty"),
+                 F.sum("l_extendedprice").alias("sum_base_price"),
+                 F.avg("l_quantity").alias("avg_qty"),
+                 F.avg("l_extendedprice").alias("avg_price"),
+                 F.avg("l_discount").alias("avg_disc"),
+                 F.count("*").alias("count_order"))
+            .order_by("l_returnflag", "l_linestatus"))
+
+
+def part_query(df):
+    """Q9's part predicate with Q16's part grouping."""
+    from spark_rapids_tpu_torch import functions as F
+    return (df
+            .filter(df["p_name"].like("%green%"))
+            .group_by("p_brand", "p_type")
+            .agg(F.count("*").alias("cnt"),
+                 F.avg("p_retailprice").alias("avg_price"),
+                 F.min("p_size").alias("min_size"),
+                 F.max("p_size").alias("max_size"))
+            .order_by("p_brand", "p_type"))
+
+
+def _groups(keys):
+    """Group ids of string key arrays, ordered as the keys' bytes order
+    (UTF-8 keeps code point order), and each group's key values."""
+    codes, uniq = [], []
+    for k in keys:
+        u, inv = np.unique(k, return_inverse=True)
+        codes.append(inv.astype(np.int64))
+        uniq.append(u)
+    g = codes[0]
+    for c, u in zip(codes[1:], uniq[1:]):
+        g = g * len(u) + c
+    present, gid = np.unique(g, return_inverse=True)
+    key_vals = []
+    rest = present
+    for u in reversed(uniq):
+        key_vals.append(u[rest % len(u)])
+        rest = rest // len(u)
+    return gid, len(present), key_vals[::-1]
+
+
+def q1_reference(data):
+    col = {k: np.asarray(v) for k, (_, v) in data.items()}
+    keep = col["l_shipdate"] <= 10471
+    gid, n, keys = _groups([col["l_returnflag"][keep],
+                            col["l_linestatus"][keep]])
+    cnt = np.bincount(gid, minlength=n)
+
+    def total(name):
+        return np.bincount(gid, weights=col[name][keep], minlength=n)
+
+    return {"keys": keys, "exact": {"count_order": cnt}, "approx": {
+        "sum_qty": total("l_quantity"),
+        "sum_base_price": total("l_extendedprice"),
+        "avg_qty": total("l_quantity") / cnt,
+        "avg_price": total("l_extendedprice") / cnt,
+        "avg_disc": total("l_discount") / cnt}}
+
+
+def part_reference(data):
+    col = {k: np.asarray(v) for k, (_, v) in data.items()}
+    keep = np.char.find(col["p_name"], "green") >= 0
+    gid, n, keys = _groups([col["p_brand"][keep], col["p_type"][keep]])
+    cnt = np.bincount(gid, minlength=n)
+    size = col["p_size"][keep]
+    lo = np.full(n, np.iinfo(np.int32).max)
+    hi = np.full(n, np.iinfo(np.int32).min)
+    np.minimum.at(lo, gid, size)
+    np.maximum.at(hi, gid, size)
+    return {"keys": keys,
+            "exact": {"cnt": cnt, "min_size": lo, "max_size": hi},
+            "approx": {"avg_price": np.bincount(
+                gid, weights=col["p_retailprice"][keep], minlength=n) / cnt}}
+
+
+def check_string_rows(rows, names, ref, label: str) -> None:
+    """Keys (in byte order), counts, min and max exact; sums and averages
+    within 1e-9 relative: the merge sums floats with atomics in another
+    order than numpy, and every summed value is >= 0."""
+    got = {name: [r[i] for r in rows] for i, name in enumerate(names)}
+    nk = len(ref["keys"])
+    if len(rows) != len(ref["keys"][0]):
+        raise AssertionError(f"{label}: {len(rows)} rows, numpy has "
+                             f"{len(ref['keys'][0])}")
+    for name, want in zip(names[:nk], ref["keys"]):
+        if got[name] != [str(w) for w in want]:
+            raise AssertionError(f"{label}: key {name} differs from numpy")
+    for name, want in ref["exact"].items():
+        if not np.array_equal(np.array(got[name]), want):
+            raise AssertionError(f"{label}: {name} differs from numpy")
+    for name, want in ref["approx"].items():
+        g = np.array(got[name], dtype=np.float64)
+        if not np.all(np.isfinite(g)):
+            raise AssertionError(f"{label}: non-finite {name}")
+        np.testing.assert_allclose(g, want, rtol=1e-9, atol=0,
+                                   err_msg=f"{label}: {name}")
+
+
+def run_path(df, query, check, label: str) -> dict:
+    """Two collects of one query, launch counts zeroed just before each
+    and read just after; rows checked after each."""
+    import torch
+    from spark_rapids_tpu_torch.kernels import cuda_tier
+    out = {}
+    for i in range(2):
+        cuda_tier.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        rows = query(df).collect()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {n: cuda_tier.launch_count(n) for n in cuda_tier.SOURCES}
+        check(rows)
+        print(f"main path [{label}] collect {i + 1}: {len(rows)} rows, "
+              f"{wall:.4f} s, launches {launches}", flush=True)
+        out[f"collect{i + 1}"] = {"rows": len(rows), "wall_s": wall,
+                                  "launches": launches}
+    return out
+
+
+def _require(path: dict, label: str, names) -> None:
+    for i in (1, 2):
+        launches = path[f"collect{i}"]["launches"]
+        for name in names:
+            if launches[name] == 0:
+                raise AssertionError(f"{label} collect {i} never launched "
+                                     f"{name}")
+
+
+def cached_column(df, name: str):
+    """(data, offsets) of a string column of the first cached batch."""
+    batch = df.plan.holder.partitions[0][0]
+    col = batch.column(name)
+    return col.data, col.offsets
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -293,10 +617,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from spark_rapids_tpu_torch.batch import HostBatch
+    from spark_rapids_tpu_torch.benchmarks import datagen
     from spark_rapids_tpu_torch.config import (
         READER_BATCH_SIZE_ROWS, RapidsConf,
     )
     from spark_rapids_tpu_torch.dataframe import DataFrame
+    from spark_rapids_tpu_torch.interop import host_batches
     from spark_rapids_tpu_torch.kernels import cuda_tier
     from spark_rapids_tpu_torch.plan.logical import InMemoryScan
     from spark_rapids_tpu_torch.session import GpuSparkSession
@@ -310,12 +636,14 @@ def main() -> int:
     t0 = time.monotonic()
     built = cuda_tier.build_all()
     print(f"build: {time.monotonic() - t0:.1f} s {built}", flush=True)
+    for name in cuda_tier.SOURCES:  # every library built and loadable
+        cuda_tier.load(name)
 
     cases = check_pack_matrix(device)
     print(f"kernel phase: gatherScatter == plain version over {cases} "
           "cases", flush=True)
 
-    # ---- main path -------------------------------------------------------
+    # ---- main path: the headline query -----------------------------------
     conf = RapidsConf(SETTINGS)
     batch_rows = READER_BATCH_SIZE_ROWS.get(conf)
     data = headline_data(ROWS)
@@ -328,12 +656,9 @@ def main() -> int:
         raise AssertionError(f"session resolved to {session.device}")
     df = DataFrame(InMemoryScan(parts, parts[0].schema, 1), session).cache()
     multi = run_query(df, f"{len(parts)} batches", ref)
-    launches = multi["collect2"]["launches"]
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"main path never launched {name}")
+    _require(multi, "headline", ["gatherScatter"])
 
-    # the kernel at the main path's own shapes: the merge's partials
+    # gatherScatter at the headline's own shapes: the merge's partials
     partials = merge_partials(session, device)
     ns = [int(p.num_rows) for p in partials]
     out_cap = max(8, 1 << (sum(ns) - 1).bit_length())
@@ -369,18 +694,96 @@ def main() -> int:
     # ---- bench.py's own form: one cached batch ---------------------------
     df1 = session.create_dataframe(data).cache()
     single = run_query(df1, "1 batch", ref)
+    del df, df1, data, parts, partials, bw_arrays
 
-    kernels = [{
-        "name": "gatherScatter", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches["gatherScatter"],
-        "max_abs_err": max_err, "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"], "bound_by": "bytes",
-        "library_ms": main_shape["library_ms"],
-        "shape": main_shape["shape"], "bandwidth": bandwidth,
-    }]
-    summary = {"main_path": {"multi_batch": multi, "one_batch": single},
-               "card": card}
+    # ---- main path: TPC-H Q1 over lineitem -------------------------------
+    t0 = time.monotonic()
+    lineitem = datagen.gen_lineitem(LINEITEM_SF)
+    q1_ref = q1_reference(lineitem)
+    li_parts = host_batches(lineitem, batch_rows)
+    li_df = DataFrame(InMemoryScan(li_parts, li_parts[0].schema, 1),
+                      session).cache()
+    print(f"lineitem: {len(lineitem['l_orderkey'][1])} rows in "
+          f"{len(li_parts)} batches, generated and referenced in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    q1_names = ["l_returnflag", "l_linestatus", "sum_qty", "sum_base_price",
+                "avg_qty", "avg_price", "avg_disc", "count_order"]
+    q1 = run_path(li_df, q1_query, lambda rows: check_string_rows(
+        rows, q1_names, q1_ref, "Q1"), "Q1")
+    _require(q1, "Q1", ["gatherScatter", "stringHash"])
+    del lineitem, li_parts
+
+    # ---- main path: the part query ----------------------------------------
+    t0 = time.monotonic()
+    part = datagen.gen_part(PART_SF)
+    part_ref = part_reference(part)
+    p_parts = host_batches(part, batch_rows)
+    p_df = DataFrame(InMemoryScan(p_parts, p_parts[0].schema, 1),
+                     session).cache()
+    print(f"part: {len(part['p_partkey'][1])} rows in {len(p_parts)} "
+          f"batches, generated and referenced in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    part_names = ["p_brand", "p_type", "cnt", "avg_price", "min_size",
+                  "max_size"]
+    part_path = run_path(p_df, part_query, lambda rows: check_string_rows(
+        rows, part_names, part_ref, "part"), "part")
+    _require(part_path, "part query",
+             ["gatherScatter", "stringHash", "strings"])
+    del part, p_parts
+
+    # ---- string kernels: matrix and timings at the main paths' shapes ----
+    p_type = cached_column(p_df, "p_type")
+    p_name = cached_column(p_df, "p_name")
+    flag = cached_column(li_df, "l_returnflag")
+    cases = check_string_matrix(device, [
+        ("p_type batch", p_type), ("p_name batch", p_name),
+        ("l_returnflag batch", flag)])
+    print(f"kernel phase: stringHash and contains == plain versions over "
+          f"{cases} cases", flush=True)
+    hash_main = hash_numbers(*p_type, "p_type batch")
+    hash_flag = hash_numbers(*flag, "l_returnflag batch")
+    contains_main = contains_numbers(*p_name, b"green", "p_name batch")
+    h_err = max(int((a - b).abs().max()) for a, b in zip(
+        cuda_tier.string_hash_rows(*p_type),
+        cuda_tier.string_hash_rows_reference(*p_type)))
+    c_err = int((cuda_tier.rows_with_match(*p_name, b"green") !=
+                 cuda_tier.rows_with_match_reference(*p_name, b"green"))
+                .sum())
+    for label, nums in (("stringHash p_type", hash_main),
+                        ("stringHash l_returnflag", hash_flag),
+                        ("contains p_name", contains_main)):
+        print(f"{label}: {json.dumps(nums)}", flush=True)
+
+    paths = {"headline": multi["collect2"]["launches"],
+             "Q1": q1["collect2"]["launches"],
+             "part": part_path["collect2"]["launches"]}
+
+    def by_path(name):
+        return {p: launches[name] for p, launches in paths.items()}
+
+    def entry(name, nums, err, launches, **extra):
+        return dict({
+            "name": name, "route": "cuda",
+            "source": ("spark_rapids_tpu_torch/csrc/" +
+                       cuda_tier.SOURCES[name]),
+            "replaces": REPLACES[name], "launches": launches,
+            "launches_by_path": by_path(name), "max_abs_err": float(err),
+            "ms": nums["ms"], "kernel_only_ms": nums["kernel_only_ms"],
+            "plain_ms": nums["plain_ms"], "bound_ms": nums["bound_ms"],
+            "bound_by": "bytes", "library_ms": nums["library_ms"],
+            "shape": nums["shape"]}, **extra)
+
+    kernels = [
+        entry("gatherScatter", main_shape, max_err,
+              paths["headline"]["gatherScatter"], bandwidth=bandwidth),
+        entry("stringHash", hash_main, h_err,
+              paths["Q1"]["stringHash"] + paths["part"]["stringHash"],
+              l_returnflag=hash_flag),
+        entry("strings", contains_main, c_err,
+              paths["part"]["strings"]),
+    ]
+    summary = {"main_path": {"multi_batch": multi, "one_batch": single,
+                             "q1": q1, "part": part_path}, "card": card}
     print(f"summary: {json.dumps(summary)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

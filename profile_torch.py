@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's headline query on one GPU.
+"""Where the time goes in one of the PyTorch port's main paths on one GPU.
 
-    python3 profile_torch.py [--batches 16] [--out build/profile.txt]
+    python3 profile_torch.py [--query headline|q1|part] [--batches 16]
+                             [--out build/profile.txt]
 
-Runs chip_smoke.py's main path (bench.py's headline query over 16,777,216
-rows cached as ``--batches`` batches), warms it, then measures:
+Runs one of chip_smoke.py's main paths, cached and warmed: ``headline``
+(bench.py's headline query over 16,777,216 rows cached as ``--batches``
+batches), ``q1`` (TPC-H Q1 over lineitem, 6,000,000 rows) or ``part`` (the
+``LIKE '%green%'`` part query, 2,000,000 rows); the last two are cached as
+batches of ``reader.batchSizeRows`` rows.  Then it measures:
 
 * the collect wall: median of 7 collects, each ending in a synchronize;
 * the host syncs of one collect, as ``torch.cuda.set_sync_debug_mode``
@@ -34,30 +38,41 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch: needs a CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import ROWS, SETTINGS, card_line, headline_data, \
-        headline_query
-    from spark_rapids_tpu_torch.batch import HostBatch
-    from spark_rapids_tpu_torch.config import RapidsConf
+    import chip_smoke as C
+    from spark_rapids_tpu_torch.benchmarks import datagen
+    from spark_rapids_tpu_torch.config import (
+        READER_BATCH_SIZE_ROWS, RapidsConf,
+    )
     from spark_rapids_tpu_torch.dataframe import DataFrame
+    from spark_rapids_tpu_torch.interop import host_batches
     from spark_rapids_tpu_torch.kernels import cuda_tier
     from spark_rapids_tpu_torch.plan.logical import InMemoryScan
     from spark_rapids_tpu_torch.plan.physical import ExecContext
     from spark_rapids_tpu_torch.session import GpuSparkSession
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--batches", type=int, default=16)
+    ap.add_argument("--query", choices=("headline", "q1", "part"),
+                    default="headline")
+    ap.add_argument("--batches", type=int, default=16,
+                    help="headline only: batches the table is cached as")
     ap.add_argument("--out", default="build/profile.txt")
     args = ap.parse_args()
 
     cuda_tier.build_all()
-    data = headline_data(ROWS)
-    per = ROWS // args.batches
-    parts = [HostBatch.from_pydict({
-        k: (t, v[s:s + per]) for k, (t, v) in data.items()})
-        for s in range(0, ROWS, per)]
-    session = GpuSparkSession(RapidsConf(SETTINGS))
+    conf = RapidsConf(C.SETTINGS)
+    if args.query == "headline":
+        data, build = C.headline_data(C.ROWS), C.headline_query
+        batch_rows = C.ROWS // args.batches
+    elif args.query == "q1":
+        data, build = datagen.gen_lineitem(C.LINEITEM_SF), C.q1_query
+        batch_rows = READER_BATCH_SIZE_ROWS.get(conf)
+    else:
+        data, build = datagen.gen_part(C.PART_SF), C.part_query
+        batch_rows = READER_BATCH_SIZE_ROWS.get(conf)
+    parts = host_batches(data, batch_rows)
+    session = GpuSparkSession(conf)
     df = DataFrame(InMemoryScan(parts, parts[0].schema, 1), session).cache()
-    query = headline_query(df)
+    query = build(df)
     for _ in range(3):  # materialize the cache, warm the allocator
         query.collect()
     walls = []
@@ -107,6 +122,7 @@ def main() -> int:
     # ---- one collect under the profiler ----------------------------------
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    cuda_tier.reset_launch_counts()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.monotonic()
         rows = query.collect()
@@ -125,8 +141,11 @@ def main() -> int:
         f.write(events.table(sort_by="self_device_time_total",
                              row_limit=40))
     print(json.dumps({
-        "card": card_line(), "batches": args.batches, "rows": len(rows),
+        "card": C.card_line(), "query": args.query, "batches": len(parts),
+        "rows": len(rows),
         "collect_median_ms": collect_ms, "profiled_collect_ms": wall * 1e3,
+        "launches": {n: cuda_tier.launch_count(n)
+                     for n in cuda_tier.SOURCES},
         "host_syncs": len(syncs), "host_sync_kinds": sorted(set(syncs)),
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - (busy_us / 1e3) / (wall * 1e3),

@@ -61,10 +61,13 @@ class HostColumn:
 
     @staticmethod
     def from_list(dtype: T.DataType, items: Sequence[Any]) -> "HostColumn":
-        if isinstance(items, np.ndarray) and items.dtype != object \
-                and not dtype.is_string:
-            # dense numpy input has no NULLs: skip the per-row walk
-            return HostColumn(dtype, items.astype(dtype.np_dtype, copy=False),
+        if isinstance(items, np.ndarray) and items.dtype != object:
+            # dense numpy input has no NULLs: skip the per-row walk (a
+            # string column stays a numpy str array, see
+            # _string_host_to_buffers)
+            values = items if dtype.is_string else \
+                items.astype(dtype.np_dtype, copy=False)
+            return HostColumn(dtype, values,
                               np.ones(len(items), dtype=np.bool_))
         validity = np.array([x is not None for x in items], dtype=np.bool_)
         if dtype.is_string:
@@ -184,20 +187,47 @@ def device_scalar(value: int, device) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
+def _ascii_rows(values: np.ndarray, validity: np.ndarray):
+    """(lengths, bytes) of a numpy str array whose characters are all
+    ASCII, by numpy alone: each character is its own UTF-8 byte.  None if
+    the array is not a str array or holds a non-ASCII character."""
+    if values.dtype.kind != "U":
+        return None
+    n, width = len(values), values.dtype.itemsize // 4
+    if width == 0:
+        return np.zeros(n, dtype=np.int64), np.zeros(0, dtype=np.uint8)
+    codes = np.ascontiguousarray(values).view(np.uint32).reshape(n, width)
+    if n and int(codes.max()) >= 128:
+        return None
+    # numpy pads with NUL: the length runs to the last non-NUL character
+    nonzero = codes != 0
+    lengths = np.where(nonzero.any(axis=1),
+                       width - np.argmax(nonzero[:, ::-1], axis=1), 0)
+    lengths = np.where(validity, lengths, 0).astype(np.int64)
+    keep = np.arange(width) < lengths[:, None]
+    return lengths, codes[keep].astype(np.uint8)
+
+
 def _string_host_to_buffers(values: np.ndarray, validity: np.ndarray
                             ) -> Tuple[np.ndarray, np.ndarray]:
-    """Encode strings to (offsets int32[n+1], bytes uint8[byte cap])."""
-    encoded = [str(v).encode("utf-8") if ok else b""
-               for v, ok in zip(values, validity)]
-    lengths = np.fromiter((len(e) for e in encoded), dtype=np.int64,
-                          count=len(encoded))
-    offsets = np.zeros(len(encoded) + 1, dtype=np.int32)
+    """Encode strings to (offsets int32[n+1], bytes uint8[byte cap]).
+    NULL rows are empty.  An all-ASCII numpy str array is encoded by
+    numpy without a Python step per row; anything else row by row."""
+    ascii_rows = _ascii_rows(values, validity)
+    if ascii_rows is not None:
+        lengths, raw = ascii_rows
+    else:
+        encoded = [str(v).encode("utf-8") if ok else b""
+                   for v, ok in zip(values, validity)]
+        lengths = np.fromiter((len(e) for e in encoded), dtype=np.int64,
+                              count=len(encoded))
+        raw = np.frombuffer(b"".join(encoded), dtype=np.uint8)
+    offsets = np.zeros(len(lengths) + 1, dtype=np.int32)
     np.cumsum(lengths, out=offsets[1:])
     total = int(offsets[-1])
     data = np.zeros(round_up_capacity(max(total, 1), MIN_BYTE_CAPACITY),
                     dtype=np.uint8)
-    if total:
-        data[:total] = np.frombuffer(b"".join(encoded), dtype=np.uint8)
+    data[:total] = raw
     return offsets, data
 
 

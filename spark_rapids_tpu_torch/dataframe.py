@@ -1,6 +1,7 @@
 """Lazy DataFrame frontend over the logical plan (port of the part of
-``spark_rapids_tpu/dataframe.py`` the slice needs): filter, with_column,
-group_by().agg(), order_by, cache, collect."""
+``spark_rapids_tpu/dataframe.py`` the port runs): filter, with_column,
+group_by().agg(), order_by, cache, collect, and the string predicates
+contains, like, startswith and endswith."""
 
 from __future__ import annotations
 
@@ -37,6 +38,10 @@ class Column:
         from spark_rapids_tpu_torch.exprs.predicates import LessThan
         return self._bin(other, LessThan)
 
+    def __le__(self, other):
+        from spark_rapids_tpu_torch.exprs.predicates import LessThanOrEqual
+        return self._bin(other, LessThanOrEqual)
+
     def __gt__(self, other):
         from spark_rapids_tpu_torch.exprs.predicates import GreaterThan
         return self._bin(other, GreaterThan)
@@ -47,6 +52,22 @@ class Column:
 
     def alias(self, name: str) -> "Column":
         return Column(Alias(self.expr, name))
+
+    def startswith(self, prefix: str) -> "Column":
+        from spark_rapids_tpu_torch.exprs.strings import StringStartsWith
+        return Column(StringStartsWith(self.expr, Literal(prefix)))
+
+    def endswith(self, suffix: str) -> "Column":
+        from spark_rapids_tpu_torch.exprs.strings import StringEndsWith
+        return Column(StringEndsWith(self.expr, Literal(suffix)))
+
+    def contains(self, needle: str) -> "Column":
+        from spark_rapids_tpu_torch.exprs.strings import StringContains
+        return Column(StringContains(self.expr, Literal(needle)))
+
+    def like(self, pattern: str) -> "Column":
+        from spark_rapids_tpu_torch.exprs.strings import Like
+        return Column(Like(self.expr, pattern))
 
     def __repr__(self):
         return f"Column({self.expr!r})"

@@ -86,7 +86,9 @@ class Expression:
         raise NotImplementedError(f"{self.name}.gpu_eval")
 
     def gpu_supported(self, conf) -> Optional[str]:
-        """None if the port can evaluate this node, else the reason."""
+        """None if the port can evaluate this node, else the reason.  A
+        string result is refused unless the node says otherwise: column
+        references, string literals and aliases carry strings through."""
         if self.dtype.is_string:
             return f"{self.name}: string results are not ported yet"
         return None
@@ -112,6 +114,9 @@ class ColumnRef(Expression):
     def __repr__(self):
         return f"`{self.column}`"
 
+    def gpu_supported(self, conf) -> Optional[str]:
+        return None
+
     def gpu_eval(self, ctx: GpuEvalCtx) -> DevVal:
         return DevVal.from_column(ctx.batch.column(self.column))
 
@@ -131,6 +136,9 @@ class BoundRef(Expression):
 
     def __repr__(self):
         return f"input[{self.ordinal}]"
+
+    def gpu_supported(self, conf) -> Optional[str]:
+        return None
 
     def gpu_eval(self, ctx: GpuEvalCtx) -> DevVal:
         return DevVal.from_column(ctx.batch.columns[self.ordinal])
@@ -163,15 +171,39 @@ class Literal(Expression):
     def __repr__(self):
         return f"lit({self.value!r})"
 
+    def gpu_supported(self, conf) -> Optional[str]:
+        return None
+
     def gpu_eval(self, ctx: GpuEvalCtx) -> DevVal:
         cap, dev = ctx.capacity, ctx.device
         tdt = self.dtype.torch_dtype
+        if self.dtype.is_string:
+            return self._string_eval(cap, dev)
         if self.value is None:
             return DevVal(self.dtype, torch.zeros(cap, dtype=tdt, device=dev),
                           torch.zeros(cap, dtype=torch.bool, device=dev))
         return DevVal(self.dtype,
                       torch.full((cap,), self.value, dtype=tdt, device=dev),
                       torch.ones(cap, dtype=torch.bool, device=dev))
+
+    def _string_eval(self, cap: int, dev) -> DevVal:
+        """Every row holds the literal: its bytes tiled ``cap`` times
+        into a ``cap * len`` byte buffer (16 bytes for NULL)."""
+        if self.value is None:
+            return DevVal(self.dtype, torch.zeros(16, dtype=torch.uint8,
+                                                  device=dev),
+                          torch.zeros(cap, dtype=torch.bool, device=dev),
+                          torch.zeros(cap + 1, dtype=torch.int32, device=dev))
+        raw = str(self.value).encode("utf-8")
+        data = torch.zeros(cap * max(len(raw), 1), dtype=torch.uint8,
+                           device=dev)
+        if raw:
+            data[:cap * len(raw)] = torch.frombuffer(
+                bytearray(raw), dtype=torch.uint8).to(dev).repeat(cap)
+        offsets = torch.arange(cap + 1, dtype=torch.int32,
+                               device=dev) * len(raw)
+        return DevVal(self.dtype, data,
+                      torch.ones(cap, dtype=torch.bool, device=dev), offsets)
 
 
 class Alias(Expression):
@@ -186,6 +218,9 @@ class Alias(Expression):
 
     def __repr__(self):
         return f"{self.children[0]!r} AS {self.alias_name}"
+
+    def gpu_supported(self, conf) -> Optional[str]:
+        return None  # the child answers for itself
 
     def gpu_eval(self, ctx):
         return self.children[0].gpu_eval(ctx)

@@ -2,8 +2,11 @@
 ``spark_rapids_tpu/exprs/predicates.py``).
 
 Comparisons are NULL when either side is NULL; ``And`` implements Kleene
-three-valued logic exactly as Spark does (FALSE AND NULL is FALSE).  String
-operands are not ported yet (:meth:`_Comparison.gpu_supported`).
+three-valued logic exactly as Spark does (FALSE AND NULL is FALSE).  A DATE
+compared with an integer literal compares as INT days since the epoch, the
+type :func:`types.promote` gives the pair, as in the JAX package (TPC-H
+Q1's ``l_shipdate <= 10471``).  String operands are not ported yet
+(:meth:`_Comparison.gpu_supported`).
 """
 
 from __future__ import annotations
@@ -42,6 +45,11 @@ class Equals(_Comparison):
 class LessThan(_Comparison):
     def _compute(self, x, y):
         return x < y
+
+
+class LessThanOrEqual(_Comparison):
+    def _compute(self, x, y):
+        return x <= y
 
 
 class GreaterThan(_Comparison):

@@ -7,7 +7,7 @@ and hand the same arrays to both packages, so both compute on one table.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 
@@ -40,3 +40,14 @@ def host_batch_from_numpy(fields: Sequence, columns: Sequence) -> HostBatch:
         out_fields.append(T.Field(name, dtype))
         cols.append(HostColumn(dtype, values, validity))
     return HostBatch(T.Schema(out_fields), cols)
+
+
+def host_batches(data: Dict, batch_rows: int) -> List[HostBatch]:
+    """Cut a generator's table (``{name: (type, values)}``, as
+    :mod:`spark_rapids_tpu_torch.benchmarks.datagen` returns it) into host
+    batches of ``batch_rows`` rows, the size a scan hands over."""
+    n = len(next(iter(data.values()))[1])
+    cols = {k: (t, np.asarray(v)) for k, (t, v) in data.items()}
+    return [HostBatch.from_pydict({k: (t, v[s:s + batch_rows])
+                                   for k, (t, v) in cols.items()})
+            for s in range(0, n, batch_rows)]

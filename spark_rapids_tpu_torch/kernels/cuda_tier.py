@@ -18,7 +18,10 @@ Contract of every wrapper here:
   run can show that its path went through the kernel.
 
 Kernels: ``gatherScatter`` (:func:`pack_segments`), the k-way segment pack
-behind ``layout.concat_kway``.
+behind ``layout.concat_kway``; ``stringHash`` (:func:`string_hash_rows`),
+the dual polynomial row hashes behind string grouping, equality and sort
+tie-breaks; ``strings`` (:func:`rows_with_match`), the contains scan behind
+``LIKE '%needle%'``.
 """
 
 from __future__ import annotations
@@ -40,14 +43,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 #: kernel name -> CUDA source under ``csrc/``
-SOURCES = {"gatherScatter": "pack_segments.cu"}
+SOURCES = {"gatherScatter": "pack_segments.cu",
+           "stringHash": "string_hash.cu",
+           "strings": "contains.cu"}
 
 #: inputs one gatherScatter launch takes (the kernel's by-value pointer
 #: table, ``kMaxInputs`` in pack_segments.cu); more are packed in groups
 PACK_MAX_INPUTS = 64
 
+#: bases of the two row hashes and the length mix (the JAX package's
+#: ``exprs/strings.py`` ``_HASH_BASES`` and ``0x9E3779B9``)
+HASH_BASES = (31, 131)
+HASH_GOLDEN = 0x9E3779B9
+_M32 = 0xFFFFFFFF
+
 _launches: Dict[str, int] = {name: 0 for name in SOURCES}
 _libs: Dict[str, ctypes.CDLL] = {}
+_needles: Dict[tuple, torch.Tensor] = {}  # (needle, device) -> u8 tensor
 _build_lock = threading.Lock()
 
 
@@ -116,7 +128,8 @@ def build_all(names: Sequence[str] = None) -> Dict[str, float]:
         return took
 
 
-def _lib(name: str) -> ctypes.CDLL:
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library of ``name``, built first if it is stale."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
@@ -134,6 +147,18 @@ def _lib(name: str) -> ctypes.CDLL:
         if lib.srt_max_inputs() != PACK_MAX_INPUTS:
             raise RuntimeError("pack_segments.cu and cuda_tier disagree on "
                                "the inputs one launch takes")
+    elif name == "stringHash":
+        lib.srt_string_hash.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        lib.srt_string_hash.restype = ctypes.c_int
+    elif name == "strings":
+        lib.srt_contains.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p]
+        lib.srt_contains.restype = ctypes.c_int
     _libs[name] = lib
     return lib
 
@@ -259,7 +284,7 @@ def pack_segments(arrays: Sequence[torch.Tensor], los, his,
     lo_ptrs = _bound_pointers(los, sizes, device, True, keep)
     hi_ptrs = _bound_pointers(his, sizes, device, False, keep)
     void_k = ctypes.c_void_p * k
-    lib = _lib("gatherScatter")
+    lib = load("gatherScatter")
     with torch.cuda.device(device):
         err = lib.srt_pack_segments(
             out.data_ptr(), out_cap, width,
@@ -269,4 +294,199 @@ def pack_segments(arrays: Sequence[torch.Tensor], los, his,
     if err != 0:
         raise RuntimeError(f"gatherScatter launch failed: CUDA error {err}")
     _launches["gatherScatter"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# stringHash and strings (contains): per-row work over a string column
+# ---------------------------------------------------------------------------
+
+
+def _check_string_column(fn: str, data: torch.Tensor,
+                         offsets: torch.Tensor) -> None:
+    if data.dim() != 1 or data.dtype != torch.uint8:
+        raise ValueError(f"{fn}: data must be a 1-D uint8 byte buffer, got "
+                         f"{data.dtype} {tuple(data.shape)}")
+    if offsets.dim() != 1 or offsets.dtype != torch.int32 or \
+            offsets.numel() < 1:
+        raise ValueError(f"{fn}: offsets must be 1-D int32[cap+1], got "
+                         f"{offsets.dtype} {tuple(offsets.shape)}")
+    if data.device != offsets.device:
+        raise ValueError(f"{fn}: data on {data.device}, offsets on "
+                         f"{offsets.device}")
+
+
+def _checked_cuda(fn: str, *tensors: torch.Tensor) -> None:
+    device = tensors[0].device
+    if device.type != "cuda":
+        raise ValueError(f"{fn} has no kernel for {device}")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{fn} inputs must be contiguous")
+
+
+def rows_of_positions(offsets: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """int32[nbytes]: the row owning each byte position (cap for bytes
+    past ``offsets[-1]``), one ``searchsorted`` over the offsets."""
+    pos = torch.arange(nbytes, dtype=torch.int32, device=offsets.device)
+    return torch.searchsorted(offsets[1:].contiguous(), pos, right=True,
+                              out_int32=True)
+
+
+def _mul32(a: torch.Tensor, b) -> torch.Tensor:
+    """``a * b mod 2^32`` for u32 values held in int64, split into 16-bit
+    halves of ``a`` so that no product leaves int64's range."""
+    lo = (a & 0xFFFF) * b
+    hi = (((a >> 16) * b) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _pow_table(base: int, n: int, device) -> torch.Tensor:
+    """int64[n+1]: ``base^k mod 2^32`` for k in [0, n], by binary
+    exponentiation (one multiply per bit of k)."""
+    k = torch.arange(n + 1, dtype=torch.int64, device=device)
+    out = torch.ones(n + 1, dtype=torch.int64, device=device)
+    sq = base & _M32
+    for j in range(max(n, 1).bit_length()):
+        bit = ((k >> j) & 1) == 1
+        out = _mul32(out, torch.where(bit, sq, 1))
+        sq = (sq * sq) & _M32
+    return out
+
+
+def string_hash_rows_reference(data: torch.Tensor, offsets: torch.Tensor
+                               ) -> tuple:
+    """Plain PyTorch dual row hashes: the port of the JAX package's XLA
+    formulation in ``exprs/strings.py`` ``string_hash2``.  Each byte
+    contributes ``byte * base^(end-1-pos)`` to its row (a weighted
+    segment sum), then the row's length times ``0x9E3779B9`` is added,
+    all mod 2^32.  Returns (h1, h2), int64[cap] holding u32 values."""
+    cap = int(offsets.numel()) - 1
+    nbytes = int(data.numel())
+    device = data.device
+    lens = (offsets[1:] - offsets[:-1]).to(torch.int64) & _M32
+    mix = _mul32(lens, HASH_GOLDEN)
+    if cap < 1 or nbytes < 1:
+        return mix, mix.clone()
+    rows_c = rows_of_positions(offsets, nbytes).clamp(0, cap - 1).long()
+    ends = offsets[rows_c + 1].long()
+    pos = torch.arange(nbytes, dtype=torch.int64, device=device)
+    in_data = pos < offsets[-1].long()
+    exp = (ends - 1 - pos).clamp(0, nbytes)
+    byte = torch.where(in_data, data.long(), 0)
+    out = []
+    for base in HASH_BASES:
+        contrib = (byte * _pow_table(base, nbytes, device)[exp]) & _M32
+        h = torch.zeros(cap, dtype=torch.int64, device=device)
+        h.index_add_(0, rows_c, contrib)
+        out.append((h + mix) & _M32)
+    return out[0], out[1]
+
+
+def string_hash_rows(data: torch.Tensor, offsets: torch.Tensor) -> tuple:
+    """Dual 32-bit polynomial hashes (bases 31 and 131) of every row of a
+    string column, each plus ``len * 0x9E3779B9``, mod 2^32.
+
+    ``data`` is the u8 byte buffer, ``offsets`` the int32[cap+1] row
+    offsets.  Returns (h1, h2), int64[cap] holding u32 values, the form of
+    the port's sort words.  CPU tensors take
+    :func:`string_hash_rows_reference`; CUDA tensors launch the kernel,
+    which reads the offsets itself: one launch, no host sync."""
+    _check_string_column("string_hash_rows", data, offsets)
+    if data.device.type == "cpu":
+        return string_hash_rows_reference(data, offsets)
+    _checked_cuda("string_hash_rows", data, offsets)
+    cap = int(offsets.numel()) - 1
+    h1 = torch.empty(cap, dtype=torch.int64, device=data.device)
+    h2 = torch.empty(cap, dtype=torch.int64, device=data.device)
+    if cap == 0:
+        return h1, h2
+    lib = load("stringHash")
+    with torch.cuda.device(data.device):
+        err = lib.srt_string_hash(
+            data.data_ptr(), int(data.numel()), offsets.data_ptr(), cap,
+            HASH_BASES[0], HASH_BASES[1], HASH_GOLDEN, h1.data_ptr(),
+            h2.data_ptr(), torch.cuda.current_stream(data.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"stringHash launch failed: CUDA error {err}")
+    _launches["stringHash"] += 1
+    return h1, h2
+
+
+def _find_matches(data: torch.Tensor, offsets: torch.Tensor,
+                 needle: bytes) -> torch.Tensor:
+    """bool[nbytes]: a match of ``needle`` (non-empty) starts at this
+    byte position and ends inside the row owning it (the JAX package's
+    ``exprs/strings.py`` ``_find_matches``)."""
+    cap = int(offsets.numel()) - 1
+    nbytes = int(data.numel())
+    rows_c = rows_of_positions(offsets, nbytes).clamp(0, cap - 1).long()
+    ends = offsets[rows_c + 1]
+    pos = torch.arange(nbytes, dtype=torch.int32, device=data.device)
+    match = (pos + len(needle)) <= ends
+    for k, b in enumerate(needle):
+        idx = (pos + k).clamp(0, nbytes - 1).long()
+        match = match & (data[idx] == b)
+    return match
+
+
+def rows_with_match_reference(data: torch.Tensor, offsets: torch.Tensor,
+                              needle: bytes) -> torch.Tensor:
+    """Plain PyTorch contains scan: the port of the JAX package's XLA
+    formulation (``exprs/strings.py`` ``_rows_with_match``): per-byte
+    matches, segment-summed per owning row."""
+    cap = int(offsets.numel()) - 1
+    nbytes = int(data.numel())
+    if len(needle) == 0:
+        return torch.ones(cap, dtype=torch.bool, device=data.device)
+    counts = torch.zeros(cap, dtype=torch.int32, device=data.device)
+    if cap < 1 or nbytes < 1:
+        return counts > 0
+    rows_c = rows_of_positions(offsets, nbytes).clamp(0, cap - 1).long()
+    counts.index_add_(0, rows_c,
+                      _find_matches(data, offsets, needle).to(torch.int32))
+    return counts > 0
+
+
+def _device_needle(needle: bytes, device: torch.device) -> torch.Tensor:
+    """The needle's bytes on ``device``, copied there once per needle and
+    device, so a scan makes no host-to-device copy."""
+    key = (needle, device)
+    t = _needles.get(key)
+    if t is None:
+        t = torch.frombuffer(bytearray(needle), dtype=torch.uint8).to(device)
+        _needles[key] = t
+    return t
+
+
+def rows_with_match(data: torch.Tensor, offsets: torch.Tensor,
+                    needle: bytes) -> torch.Tensor:
+    """bool[cap]: row r of the string column holds ``needle`` (a literal
+    byte string).  An empty needle matches every row without a launch.
+    CPU tensors take :func:`rows_with_match_reference`; CUDA tensors
+    launch the kernel, one thread per row over its own byte window."""
+    _check_string_column("rows_with_match", data, offsets)
+    needle = bytes(needle)
+    cap = int(offsets.numel()) - 1
+    if len(needle) == 0:
+        return torch.ones(cap, dtype=torch.bool, device=data.device)
+    if data.device.type == "cpu":
+        return rows_with_match_reference(data, offsets, needle)
+    _checked_cuda("rows_with_match", data, offsets)
+    if len(needle) >= 2 ** 31:
+        raise ValueError("rows_with_match: needle too long")
+    out = torch.empty(cap, dtype=torch.bool, device=data.device)
+    if cap == 0:
+        return out
+    dev_needle = _device_needle(needle, data.device)
+    lib = load("strings")
+    with torch.cuda.device(data.device):
+        err = lib.srt_contains(
+            data.data_ptr(), int(data.numel()), offsets.data_ptr(), cap,
+            dev_needle.data_ptr(), len(needle), out.data_ptr(),
+            torch.cuda.current_stream(data.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"strings (contains) launch failed: CUDA error "
+                           f"{err}")
+    _launches["strings"] += 1
     return out

@@ -16,7 +16,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.batch import ColumnBatch, DeviceColumn
+from spark_rapids_tpu_torch.batch import ColumnBatch, device_scalar
 from spark_rapids_tpu_torch.exprs.base import DevVal
 from spark_rapids_tpu_torch.kernels.layout import (
     compaction_indices, gather_rows,
@@ -44,7 +44,10 @@ def group_segments(key_vals: List[DevVal], num_rows) -> GroupSegments:
                          groupings=[True] * n)
     live = torch.arange(cap, dtype=torch.int32,
                         device=perm.device) < num_rows
-    sorted_keys = [DevVal(v.dtype, v.data[perm], v.validity[perm])
+    # string keys need their bytes in sorted order for the adjacent
+    # equality test, which rehashes them
+    sorted_keys = [_gather_str_val(v, perm, cap) if v.dtype.is_string
+                   else DevVal(v.dtype, v.data[perm], v.validity[perm])
                    for v in key_vals]
     seg_start = live & ~keys_equal_prev(sorted_keys)
     seg_ids = (torch.cumsum(seg_start.to(torch.int64), 0) - 1).clamp(
@@ -66,13 +69,14 @@ def groupby_aggregate(batch: ColumnBatch, key_vals: List[DevVal],
     cap = batch.capacity
     segs = group_segments(key_vals, batch.num_rows)
     key_batch = ColumnBatch(
-        key_schema, [DeviceColumn(v.dtype, v.data, v.validity)
-                     for v in key_vals], batch.num_rows, cap)
+        key_schema, [v.to_column() for v in key_vals], batch.num_rows, cap)
     sorted_keys = gather_rows(key_batch, segs.perm, batch.num_rows)
     idx, _ = compaction_indices(segs.seg_start, cap)
     group_keys = gather_rows(sorted_keys, idx, segs.num_groups)
 
     def permuted(v: DevVal) -> DevVal:
+        if v.dtype.is_string:  # count over a string column
+            return _gather_str_val(v, segs.perm, cap)
         return DevVal(v.dtype, v.data[segs.perm], v.validity[segs.perm])
 
     out_buffers: List[List[DevVal]] = []
@@ -89,3 +93,11 @@ def groupby_aggregate(batch: ColumnBatch, key_vals: List[DevVal],
             out_buffers.append(fn.segment_update(permuted(v), segs.seg_ids,
                                                  cap, segs.live))
     return group_keys, out_buffers
+
+
+def _gather_str_val(v: DevVal, perm: torch.Tensor, cap: int) -> DevVal:
+    """A string value with every row (dead ones too) moved by ``perm``."""
+    b = ColumnBatch(T.Schema([("s", v.dtype)]), [v.to_column()],
+                    device_scalar(cap, v.validity.device), cap)
+    g = gather_rows(b, perm, cap).columns[0]
+    return DevVal(v.dtype, g.data, g.validity, g.offsets)

@@ -31,12 +31,43 @@ def _at(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return t.index_select(0, i.reshape(1).to(torch.int64)).reshape(())
 
 
+def _gather_string_column(col: DeviceColumn, idx: torch.Tensor,
+                          live: torch.Tensor, out_cap: int,
+                          out_byte_cap: int) -> DeviceColumn:
+    """Gather whole string rows: new row r = old row ``idx[r]`` (idx
+    already clamped, 0 on dead rows).  New offsets come from one cumsum of
+    the gathered lengths (0 on dead rows, so they stay constant past the
+    live rows); every output byte finds its row with one ``searchsorted``
+    over the new offsets and copies its source byte.  Bytes past the new
+    total are 0, as in the JAX package, so raw buffers compare equal."""
+    dev = col.data.device
+    src_lens = col.offsets[1:] - col.offsets[:-1]
+    new_lens = torch.where(live, src_lens[idx], 0)
+    new_offsets = torch.cat([
+        torch.zeros(1, dtype=torch.int32, device=dev),
+        torch.cumsum(new_lens, 0, dtype=torch.int32)])
+    pos = torch.arange(out_byte_cap, dtype=torch.int32, device=dev)
+    rows = cuda_tier.rows_of_positions(new_offsets, out_byte_cap)
+    rows_c = rows.clamp(0, out_cap - 1).long()
+    pos_in_row = pos - new_offsets[rows_c]
+    src_pos = col.offsets[idx[rows_c]] + pos_in_row
+    src_pos = src_pos.clamp(0, int(col.data.shape[0]) - 1).long()
+    in_range = pos < new_offsets[-1]
+    data = torch.where(in_range, col.data[src_pos], 0).to(col.data.dtype)
+    validity = col.validity[idx] & live
+    return DeviceColumn(col.dtype, data, validity, new_offsets)
+
+
 def gather_rows(batch: ColumnBatch, indices: torch.Tensor, num_rows,
-                out_capacity: Optional[int] = None) -> ColumnBatch:
+                out_capacity: Optional[int] = None,
+                out_byte_caps: Optional[Sequence[int]] = None
+                ) -> ColumnBatch:
     """New batch whose row r is ``batch`` row ``indices[r]`` for
     r < num_rows; rows past num_rows are zero/invalid.  ``indices`` has
-    ``out_capacity`` entries (default: the input capacity).  String columns
-    are not ported yet."""
+    ``out_capacity`` entries (default: the input capacity).
+    ``out_byte_caps`` gives each string column's output byte capacity, in
+    schema order (default: the input column's, valid whenever the gather
+    cannot grow the byte total: permutations and filters)."""
     out_cap = out_capacity if out_capacity is not None else batch.capacity
     dev = batch.device
     num_rows = _count(num_rows, dev)
@@ -44,10 +75,14 @@ def gather_rows(batch: ColumnBatch, indices: torch.Tensor, num_rows,
     idx = indices.to(torch.int64).clamp(0, batch.capacity - 1)
     idx = idx.masked_fill(~live, 0)
     cols = []
-    for f, col in zip(batch.schema.fields, batch.columns):
+    str_i = 0
+    for col in batch.columns:
         if col.is_varlen:
-            raise NotImplementedError(
-                f"gather of string column {f.name!r} is not ported yet")
+            bcap = (out_byte_caps[str_i] if out_byte_caps is not None
+                    else int(col.data.shape[0]))
+            str_i += 1
+            cols.append(_gather_string_column(col, idx, live, out_cap, bcap))
+            continue
         data = col.data[idx].masked_fill(~live, 0)
         validity = col.validity[idx] & live
         cols.append(DeviceColumn(col.dtype, data, validity))
@@ -82,7 +117,9 @@ def compact(batch: ColumnBatch, mask: torch.Tensor) -> ColumnBatch:
 
 
 def take_head(batch: ColumnBatch, limit) -> ColumnBatch:
-    """LocalLimit: clamp the live-row count (no data movement)."""
+    """LocalLimit: clamp the live-row count (no data movement).  String
+    offsets then keep growing past the new count; :func:`concat_kway`
+    reads each input's live bytes up to ``offsets[num_rows]``."""
     n = torch.minimum(batch.num_rows, _count(limit, batch.device))
     return ColumnBatch(batch.schema, batch.columns, n, batch.capacity)
 

@@ -1,5 +1,7 @@
 """Multi-column sort over a ColumnBatch (port of
-``spark_rapids_tpu/kernels/sort.py``)."""
+``spark_rapids_tpu/kernels/sort.py``).  String keys sort by their prefix
+words then (length, h1, h2); the batch's string columns move through
+:func:`gather_rows` with their bytes."""
 
 from __future__ import annotations
 
@@ -15,7 +17,9 @@ from spark_rapids_tpu_torch.kernels.sortkeys import (
 
 def argsort_batch(key_vals: List[DevVal], ascendings: List[bool],
                   nulls_firsts: List[bool], num_rows, groupings=None):
-    """Stable permutation sorting rows by the evaluated key columns."""
+    """Stable permutation sorting rows by the evaluated key columns.
+    ``groupings`` marks keys that only need equal values adjacent (see
+    :func:`encode_sort_keys`)."""
     cap = int(key_vals[0].validity.shape[0])
     words = encode_sort_keys(key_vals, ascendings, nulls_firsts, num_rows,
                              groupings=groupings)

@@ -1,5 +1,5 @@
 """Order-preserving sort-key words (port of
-``spark_rapids_tpu/kernels/sortkeys.py``, fixed-width types).
+``spark_rapids_tpu/kernels/sortkeys.py``).
 
 Every key column is encoded into 32-bit words whose lexicographic order is
 the SQL order (ascending/descending, nulls first/last, padding rows last),
@@ -10,7 +10,14 @@ holding the u32 value (always in ``[0, 2^32)``).
 Encodings: int8/16/32/date one word (value ^ sign bit); int64/timestamp two
 words (biased hi, raw lo); float/double with NaN canonicalized (sorts
 greatest) and -0.0 == 0.0, then the IEEE flip (negative: all bits flipped,
-else sign bit set); boolean 0/1.
+else sign bit set); boolean 0/1; string: the first
+``DEFAULT_STRING_PREFIX_BYTES`` bytes packed big-endian four to a word
+(zero-padded, so a shorter prefix sorts first, Spark's unsigned byte
+order), then (length, h1, h2) so that fully equal strings always land next
+to each other even past the prefix.  A grouping-only string key (the
+caller needs equal keys adjacent, not an order between distinct keys)
+encodes as (length, h1, h2) alone.  Order between distinct strings that
+share the 64-byte prefix is approximate, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,9 +28,11 @@ import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exprs.base import DevVal
+from spark_rapids_tpu_torch.exprs.strings import string_hash2
 
 _M32 = 0xFFFFFFFF
 _SIGN32 = 1 << 31
+DEFAULT_STRING_PREFIX_BYTES = 64
 
 
 def _flip_float_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -60,6 +69,33 @@ def _encode_fixed_words(v: DevVal) -> List[torch.Tensor]:
     raise NotImplementedError(f"sort keys of type {dt} are not ported yet")
 
 
+def string_prefix_words(v: DevVal, prefix_bytes: int
+                        ) -> List[torch.Tensor]:
+    """u32 words (int64) of each row's first ``prefix_bytes`` bytes,
+    packed big-endian four to a word, 0 past the row's end.  One gather of
+    a ``[cap, 4]`` byte block per word."""
+    offsets, data = v.offsets, v.data
+    nbytes = int(data.shape[0])
+    lens = (offsets[1:] - offsets[:-1]).long()
+    starts = offsets[:-1].long()
+    lane = torch.arange(4, dtype=torch.int64, device=data.device)
+    shifts = 24 - 8 * lane
+    words: List[torch.Tensor] = []
+    for w in range((prefix_bytes + 3) // 4):
+        j = 4 * w + lane
+        src = (starts[:, None] + j).clamp(0, nbytes - 1)
+        byte = torch.where(j < lens[:, None], data[src].long(), 0)
+        words.append((byte << shifts).sum(dim=1))
+    return words
+
+
+def _string_tail_words(v: DevVal) -> List[torch.Tensor]:
+    """(length, h1, h2) u32 words: equal strings share all three."""
+    h1, h2 = string_hash2(v)
+    lens = (v.offsets[1:] - v.offsets[:-1]).to(torch.int64) & _M32
+    return [lens, h1, h2]
+
+
 def encode_sort_keys(vals: List[DevVal], ascendings: List[bool],
                      nulls_firsts: List[bool], num_rows,
                      groupings: Optional[List[bool]] = None,
@@ -70,17 +106,27 @@ def encode_sort_keys(vals: List[DevVal], ascendings: List[bool],
     to the end; it is folded into the first key's null-rank word (both are
     un-negated 1-bit ranks).  Each key contributes a null-rank word then
     its value words; NULL values all encode as 0 so NULLs compare equal.
-    ``groupings`` only matters for strings, which are not ported yet."""
+    ``groupings[i]`` marks key i grouping-only: a string key then encodes
+    as (length, h1, h2) alone instead of prefix words + those three."""
     cap = int(vals[0].validity.shape[0]) if vals else 0
     words: List[torch.Tensor] = []
     if liveness:
         dev = vals[0].validity.device
         live = torch.arange(cap, dtype=torch.int32, device=dev) < num_rows
         words.append((~live).to(torch.int64))
-    for v, asc, nf in zip(vals, ascendings, nulls_firsts):
+    if groupings is None:
+        groupings = [False] * len(vals)
+    for v, asc, nf, grp in zip(vals, ascendings, nulls_firsts, groupings):
         null_rank = v.validity if nf else ~v.validity
         words.append(null_rank.to(torch.int64))
-        for w in _encode_fixed_words(v):
+        if v.dtype.is_string:
+            vwords = _string_tail_words(v)
+            if not grp:
+                vwords = string_prefix_words(
+                    v, DEFAULT_STRING_PREFIX_BYTES) + vwords
+        else:
+            vwords = _encode_fixed_words(v)
+        for w in vwords:
             w = w.masked_fill(~v.validity, 0)
             words.append(w if asc else ~w & _M32)
     if liveness and len(words) >= 2:
@@ -110,7 +156,10 @@ def argsort_by_words(words: List[torch.Tensor], cap: int) -> torch.Tensor:
 
 
 def keys_equal_prev(vals: List[DevVal]) -> torch.Tensor:
-    """bool[cap]: row i's key tuple exactly equals row i-1's (False at 0)."""
+    """bool[cap]: row i's key tuple exactly equals row i-1's (False at 0).
+    Strings compare by (length, h1, h2, 64-byte prefix words): unequal
+    strings that agree on all of them would need an engineered collision
+    of both 32-bit hashes."""
     cap = int(vals[0].validity.shape[0])
     eq = torch.ones(cap, dtype=torch.bool, device=vals[0].validity.device)
 
@@ -119,7 +168,12 @@ def keys_equal_prev(vals: List[DevVal]) -> torch.Tensor:
 
     for v in vals:
         eq = eq & ~shift_ne(v.validity)
-        for w in _encode_fixed_words(v):
+        if v.dtype.is_string:
+            cmp_words = _string_tail_words(v) + string_prefix_words(
+                v, DEFAULT_STRING_PREFIX_BYTES)
+        else:
+            cmp_words = _encode_fixed_words(v)
+        for w in cmp_words:
             eq = eq & (~shift_ne(w) | ~v.validity)
     eq[0] = False
     return eq

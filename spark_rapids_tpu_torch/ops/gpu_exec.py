@@ -2,6 +2,8 @@
 filter, sort, hash aggregate and cached scan).
 
 Each exec runs its per-batch work eagerly as torch ops on ``ctx.device``.
+String columns ride every operator as offsets + bytes; string group keys
+take the sort-based groupby (the slot aggregate needs integral keys).
 Host syncs happen only where the JAX package takes them: to size an output
 (:func:`shrink_to_fit`, :func:`_concat_all`) and to read the slot
 aggregate's fallback flags, each as ONE ``.tolist()`` for all batches.
@@ -43,12 +45,15 @@ def shrink_to_fit(batch: ColumnBatch, sizes: Optional[tuple] = None
     callers shrinking many batches pay one sync, not one per batch."""
     if sizes is None:
         sizes = host_sizes([batch])[0]
-    n = sizes[0]
+    n, str_totals = sizes
     cap = round_up_capacity(max(n, 1))
     if batch.capacity <= cap * 2:
         return batch
+    byte_caps = [round_up_capacity(max(t, 16), minimum=16)
+                 for t in str_totals]
     idx = torch.arange(cap, dtype=torch.int64, device=batch.device)
-    return gather_rows(batch, idx, batch.num_rows, out_capacity=cap)
+    return gather_rows(batch, idx, batch.num_rows, out_capacity=cap,
+                       out_byte_caps=byte_caps or None)
 
 
 def _concat_all(batches: List[ColumnBatch], schema: T.Schema,

@@ -3,7 +3,9 @@
 
 The port has no CPU twins of device operators yet, so there is nothing to
 fall back to: a node, expression or setting the port cannot run raises
-:class:`UnsupportedPlanError` naming the node and the reason.  The JAX
+:class:`UnsupportedPlanError` naming the node and the reason.  String
+columns pass through every operator; each expression says for itself
+whether it takes or returns strings (``Expression.gpu_supported``).  The JAX
 package would place such a node on the CPU instead.
 """
 
@@ -60,10 +62,6 @@ class GpuOverrides:
                                       child)
 
     def _convert(self, node: L.LogicalPlan) -> PhysicalOp:
-        strings = [f.name for f in node.schema.fields if f.dtype.is_string]
-        if strings:
-            self._refuse(node, f"string columns {strings} are not ported "
-                               "yet")
         if isinstance(node, L.InMemoryScan):
             return CpuInMemoryScanExec(node.batches, node.schema,
                                        node.num_partitions)

@@ -32,7 +32,9 @@ from spark_rapids_tpu_torch.kernels import groupby as PG
 from spark_rapids_tpu_torch.kernels import hashagg as PH
 from spark_rapids_tpu_torch.kernels import sort as PS
 
-from torch_port_util import assert_device_bits, port_host_batch
+from torch_port_util import (  # noqa: F401  (one_torch_thread: autouse)
+    assert_device_bits, one_torch_thread, port_host_batch,
+)
 
 AGGS = [("Sum", "v"), ("Sum", "f"), ("Count", "f"), ("Average", "f"),
         ("Average", "v"), ("Min", "m"), ("Max", "m"), ("Max", "v"),

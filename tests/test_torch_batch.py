@@ -19,7 +19,9 @@ from spark_rapids_tpu_torch import batch as PB
 from spark_rapids_tpu_torch.runtime.device import resolve_device
 from spark_rapids_tpu_torch.session import GpuSparkSession
 
-from torch_port_util import assert_device_bits, port_host_batch
+from torch_port_util import (  # noqa: F401  (one_torch_thread: autouse)
+    assert_device_bits, one_torch_thread, port_host_batch,
+)
 
 COLUMNS = {
     "int": (JT.INT, [3, None, -7, 2 ** 31 - 1, None, -(2 ** 31)]),
@@ -65,6 +67,24 @@ def test_dense_numpy_columns_stage_without_nulls():
     jb = JaxHostBatch.from_pydict({"x": (JT.INT, vals.tolist())})
     pb = PB.HostBatch.from_pydict({"x": (PB.T.INT, vals)})
     assert_device_bits(jax_h2d(jb), PB.host_to_device(pb, "cpu"))
+
+
+@pytest.mark.parametrize("vals", [
+    ["A", "N", "R", "A"],                   # 1-char codes (lineitem)
+    ["green navy", "", "a\x00b", "lemon"],  # empty row, interior NUL
+    ["", ""],                               # zero-width str array
+    ["h\u00e9llo", "ab", "\u4e2d"],          # non-ASCII: row by row
+], ids=["flags", "mixed", "all-empty", "utf8"])
+def test_numpy_string_columns_stage_as_jax(vals):
+    """A numpy str column (the generators' form) is encoded by numpy
+    alone when it is all ASCII; either way the bytes and offsets equal
+    the JAX package's staging of the same strings."""
+    jb = JaxHostBatch.from_pydict({"s": (JT.STRING, list(vals))})
+    pb = PB.HostBatch.from_pydict({"s": (PB.T.STRING, np.array(vals))})
+    assert pb.columns[0].values.dtype.kind == "U"
+    assert_device_bits(jax_h2d(jb), PB.host_to_device(pb, "cpu"))
+    assert PB.device_to_host(PB.host_to_device(pb, "cpu")).to_pydict() == \
+        {"s": list(vals)}
 
 
 def test_no_cuda_means_no_default_device(monkeypatch):

@@ -25,7 +25,9 @@ from spark_rapids_tpu_torch.batch import host_to_device
 from spark_rapids_tpu_torch.kernels import cuda_tier
 from spark_rapids_tpu_torch.kernels import layout as L
 
-from torch_port_util import assert_device_bits, port_host_batch
+from torch_port_util import (  # noqa: F401  (one_torch_thread: autouse)
+    assert_device_bits, one_torch_thread, port_host_batch,
+)
 
 DTYPES = ["bool", "uint8", "int32", "int64", "float32", "float64"]
 

@@ -34,8 +34,9 @@ from spark_rapids_tpu_torch.plan.logical import InMemoryScan
 from spark_rapids_tpu_torch.plan.overrides import UnsupportedPlanError
 from spark_rapids_tpu_torch.session import GpuSparkSession
 
-from torch_port_util import headline_data, headline_query, port_host_batch
-
+from torch_port_util import (  # noqa: F401  (one_torch_thread: autouse)
+    headline_data, headline_query, one_torch_thread, port_host_batch,
+)
 SETTINGS = {"spark.rapids.sql.variableFloatAgg.enabled": True,
             "spark.sql.shuffle.partitions": 1}
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -86,7 +87,8 @@ def test_float_sum_needs_variable_float_agg():
 
 
 def test_slice_runs_without_jax():
-    """The port runs the slice in a process that never imports jax or the
+    """The port runs the slice and the string path (its generator, a LIKE
+    filter, string group keys) in a process that never imports jax or the
     JAX package."""
     code = textwrap.dedent("""
         import sys
@@ -109,11 +111,19 @@ def test_slice_runs_without_jax():
                 .agg(F.sum("x").alias("s"), F.count("x").alias("c"))
                 .order_by("k").collect())
         assert [r[0] for r in rows] == sorted({r[0] for r in rows})
-        print(len(rows), "jax" in sys.modules,
+        from spark_rapids_tpu_torch.benchmarks.datagen import gen_part
+        from spark_rapids_tpu_torch.interop import host_batches
+        parts = host_batches(gen_part(0.5), 256)
+        df = DataFrame(InMemoryScan(parts, parts[0].schema, 1), s).cache()
+        brands = (df.filter(df["p_name"].like("%green%")).group_by("p_brand")
+                  .agg(F.count("*").alias("c")).order_by("p_brand")
+                  .collect())
+        assert [r[0] for r in brands] == sorted({r[0] for r in brands})
+        print(len(rows), len(brands), "jax" in sys.modules,
               any(m.split(".")[0] == "spark_rapids_tpu" for m in sys.modules))
     """)
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["5", "False", "False"]
+    assert out.stdout.split() == ["5", "25", "False", "False"]

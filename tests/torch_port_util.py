@@ -3,12 +3,26 @@ the same numpy inputs go through the JAX package and through the port."""
 
 import jax
 import numpy as np
+import pytest
+import torch
 
 from spark_rapids_tpu import types as JT
 from spark_rapids_tpu.batch import HostBatch as JaxHostBatch
 from spark_rapids_tpu.batch import _string_host_to_buffers
 
 from spark_rapids_tpu_torch.interop import host_batch_from_numpy
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run the port's CPU ops on one thread in the importing test module.
+    The suite's workers share the machine's cores; torch's intra-op
+    threads, one per core in every worker, then spin-wait against each
+    other and a query's small ops take seconds instead of milliseconds."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def port_host_batch(jb: JaxHostBatch):
