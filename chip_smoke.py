@@ -16,7 +16,11 @@ Phases, in order; any failure exits non-zero:
    UTF-8, NULL rows, rows past ``num_rows`` and garbage past
    ``offsets[-1]``; contains over needles of 1, 5, 16 and 70 bytes,
    matches at a row's first and last byte, needles spanning a row boundary
-   and a match ending exactly at ``offsets[-1]``;
+   and a match ending exactly at ``offsets[-1]``; joinProbe (all four
+   outputs) over INT, LONG, DATE, DOUBLE, STRING and two-column keys,
+   duplicates on both sides, NULL keys, a forced first-hash collision,
+   empty sides, pair capacities below the total, and 2^20 probe rows
+   against 2^22 build rows;
 4. main paths, each collected twice with the launch counts zeroed just
    before each collect and read just after, rows checked against an
    independent numpy reference:
@@ -27,11 +31,25 @@ Phases, in order; any failure exits non-zero:
      l_linestatus) over lineitem at 6,000,000 rows, 6 batches;
    * the part query (``p_name LIKE '%green%'``, group and order by
      p_brand, p_type) over part at 2,000,000 rows, 2 batches;
+   * TPC-H Q3 (``c_mktsegment = 'BUILDING'``, customer JOIN orders JOIN
+     lineitem, group by three keys, ORDER BY revenue DESC, LIMIT 10) over
+     customer 150,000, orders 1,500,000 and lineitem 6,000,000 rows
+     (TPC-H SF1's counts), cached as batches of ``reader.batchSizeRows``
+     rows, host-driven (shuffled hash joins) and fused on a one-device
+     mesh (``spark.rapids.shuffle.ici.enabled``: both joins through the
+     joinProbe kernel, and no overflow rerun); then, per way, every group
+     before the LIMIT against numpy;
+   * Q3 at generator sf 1 (1,500 / 15,000 / 60,000 rows), where both joins
+     plan as broadcast joins, fused on the one-device mesh, top 10 and all
+     groups against numpy;
    each query must launch every kernel of its path;
-5. timings at the main paths' own shapes, medians of CUDA-event timings:
+5. timings at the main paths' own shapes (joinProbe: the inputs Q3's two
+   joins handed it), medians of CUDA-event timings:
    the wrapper call as the path makes it, the kernel alone replayed from a
    CUDA graph, the plain version, the library call where one computes the
-   same function, and the bound (bytes moved / 3.35 TB/s).
+   same function, and the bound (bytes moved / 3.35 TB/s; where the
+   bytes depend on the data, as joinProbe's build-side reads do, what this
+   run's inputs need).
 
 Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -48,15 +66,21 @@ import numpy as np
 ROWS = 1 << 24
 LINEITEM_SF = 100   # 6,000,000 rows: TPC-H SF1's lineitem count
 PART_SF = 1000      # 2,000,000 rows: TPC-H SF10's part count
+Q3_SF = 100         # TPC-H SF1's customer, orders and lineitem counts
+Q3_BROADCAST_SF = 1  # 1,500 / 15,000 / 60,000 rows: both joins broadcast
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 #: kernel -> the TPU kernel it replaces (its pallas_call entry)
 REPLACES = {
     "gatherScatter": "spark_rapids_tpu/kernels/pallas_tier.py:232",
     "stringHash": "spark_rapids_tpu/kernels/pallas_tier.py:397",
     "strings": "spark_rapids_tpu/kernels/pallas_strings.py:81",
+    "joinProbe": "spark_rapids_tpu/kernels/pallas_tier.py:334",
 }
 SETTINGS = {"spark.rapids.sql.variableFloatAgg.enabled": True,
             "spark.sql.shuffle.partitions": 1}
+#: Q3's two ways: host-driven (the default) and fused on a one-device mesh
+Q3_MODES = {"host-driven": {},
+            "mesh-fused": {"spark.rapids.shuffle.ici.enabled": True}}
 
 
 def card_line() -> str:
@@ -610,6 +634,281 @@ def cached_column(df, name: str):
     return col.data, col.offsets
 
 
+
+# ---------------------------------------------------------------------------
+# kernel phase: joinProbe
+# ---------------------------------------------------------------------------
+
+#: two LONG keys whose first join hashes are equal and whose key words
+#: differ: a candidate the exact verify must reject
+COLLIDE = (110526240400, 994712892952)
+
+
+def _key_side(data, cap, device):
+    """(batch, key DevVals) of a pydict ``{name: (type, values)}`` on the
+    card at capacity ``cap``; every column is a key."""
+    from spark_rapids_tpu_torch.batch import HostBatch, host_to_device
+    from spark_rapids_tpu_torch.exprs.base import DevVal
+    batch = host_to_device(HostBatch.from_pydict(data), device, capacity=cap)
+    return batch, [DevVal.from_column(c) for c in batch.columns]
+
+
+def probe_args(lkeys, l_rows, rkeys, r_rows):
+    """joinProbe's inputs as ``join_pairs_static`` makes them."""
+    from spark_rapids_tpu_torch.kernels import join as J
+    l_h1, l_ok, l_live, perm, r_sorted = J._hashed_sides(
+        lkeys, l_rows, rkeys, r_rows)
+    a_words, a_valid = J._exact_words(lkeys)
+    b_words, b_valid = J._exact_words(rkeys)
+    return (l_h1, l_ok & l_live, r_sorted, perm, a_words, a_valid, b_words,
+            b_valid)
+
+
+def _pick(rng, values, n, null_frac):
+    idx = rng.randint(0, len(values), n)
+    return [None if rng.rand() < null_frac else values[i] for i in idx]
+
+
+def probe_cases(device):
+    """(name, args, pair_cap) of the joinProbe matrix: the CPU tests'
+    cases, on the card, plus 2^20 probe rows against 2^22 build rows."""
+    from spark_rapids_tpu_torch import types as T
+    rng = np.random.RandomState(5)
+    strs = ["", "a", "BUILDING", "MACHINERY", "\u00e9t\u00e9",
+            "p" * 64 + "-one", "p" * 64 + "-two"]
+    small = {
+        "long": ([(T.LONG, range(12))], 40, 24, 0.1),
+        "int": ([(T.INT, range(-8, 8))], 50, 30, 0.25),
+        "date": ([(T.DATE, range(9190, 9215))], 60, 20, 0.1),
+        "double": ([(T.DOUBLE, [0.0, -0.0, 1.5, -2.25, float("nan"),
+                                float("inf"), 1e300])], 40, 14, 0.1),
+        "string": ([(T.STRING, strs)], 40, 20, 0.1),
+        "two-column": ([(T.LONG, range(4)),
+                        (T.STRING, ["AIR", "RAIL", "", "TRUCK"])],
+                       40, 24, 0.05),
+    }
+    cases = []
+    for name, (cols, nl, nr, nulls) in small.items():
+        sides = []
+        for n in (nl, nr):
+            data = {f"k{i}": (t, _pick(rng, list(v), n, nulls))
+                    for i, (t, v) in enumerate(cols)}
+            sides.append(_key_side(data, 64, device))
+        (lb, lk), (rb, rk) = sides
+        for pair_cap in (128, 16):
+            cases.append((f"{name} pair_cap={pair_cap}", probe_args(
+                lk, lb.num_rows, rk, rb.num_rows), pair_cap))
+    edge = {"h1-collision": ([COLLIDE[0], 7, COLLIDE[0], None, 3],
+                             [COLLIDE[1], COLLIDE[1], 7, COLLIDE[0]]),
+            "empty-probe": ([], list(range(5)) * 4),
+            "empty-build": (list(range(5)) * 4, [])}
+    for name, (lv, rv) in edge.items():
+        lb, lk = _key_side({"k": (T.LONG, lv)}, 32, device)
+        rb, rk = _key_side({"k": (T.LONG, rv)}, 32, device)
+        cases.append((name, probe_args(lk, lb.num_rows, rk, rb.num_rows),
+                      64))
+    # 2^20 probes against 2^22 build rows, ~2 build rows per key, 20% of
+    # the probes without a partner
+    n_l, n_r, span = 1 << 20, 1 << 22, 1 << 21
+    lb, lk = _key_side({"k": (T.LONG, rng.randint(0, span * 5 // 4, n_l))},
+                       n_l, device)
+    rb, rk = _key_side({"k": (T.LONG, rng.randint(0, span, n_r))}, n_r,
+                       device)
+    args = probe_args(lk, lb.num_rows, rk, rb.num_rows)
+    cases.append(("2^20 x 2^22", args, 2 * n_l))
+    cases.append(("2^20 x 2^22 pair_cap below total", args, n_l))
+    return cases
+
+
+def check_probe(args, pair_cap: int, label: str) -> int:
+    """joinProbe against its plain version on the same inputs: all four
+    outputs equal (torch.equal).  Returns the largest absolute difference
+    of the outputs (0 when equal)."""
+    import torch
+    from spark_rapids_tpu_torch.kernels import cuda_tier
+    got = cuda_tier.probe_join(*args, pair_cap)
+    want = cuda_tier.probe_join_reference(*args, pair_cap)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("probe_row", "build_row", "match", "total"),
+                          got, want):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"joinProbe != plain version on {label}: "
+                                 f"{name}")
+    return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+               for g, w in zip(got, want))
+
+
+def probe_bytes(args, pair_cap: int) -> int:
+    """Bytes joinProbe must move on these inputs, counted from what this
+    data needs (as the port hands them over: int64 hashes and words, int32
+    permutation, bool masks): the probe mask of every row and the hash of
+    every live row; the sorted build hashes once; the key words and
+    validity of each probe row and each build row that fills one of the
+    first min(total, pair_cap) slots, and the permutation entry of each
+    such build row; every output written once (int32 probe and build rows,
+    bool match, int64 total).  Build rows that no probe reaches are not
+    read."""
+    import torch
+    from spark_rapids_tpu_torch.kernels import cuda_tier
+    l_h1, l_mask, r_sorted, perm, a_words, a_valid, b_words, b_valid = args
+    probe_row, build_row, _, total = cuda_tier.probe_join_reference(
+        *args, pair_cap)
+    slots = min(int(total), pair_cap)
+    n_probe = int(torch.unique(probe_row[:slots]).numel())
+    n_build = int(torch.unique(build_row[:slots]).numel())
+    w = int(a_words.shape[0])
+    return (l_mask.numel() * l_mask.element_size()
+            + int(l_mask.sum()) * l_h1.element_size()
+            + r_sorted.numel() * r_sorted.element_size()
+            + n_probe * (w * a_words.element_size() + a_valid.element_size())
+            + n_build * (w * b_words.element_size() + b_valid.element_size()
+                         + perm.element_size())
+            + pair_cap * (4 + 4 + 1) + 8)
+
+
+def probe_numbers(args, pair_cap: int, label: str) -> dict:
+    """joinProbe at one of Q3's join shapes: wrapper ms, kernel alone (the
+    call's four launches replayed from a CUDA graph), plain ms, bound."""
+    from spark_rapids_tpu_torch.kernels import cuda_tier
+    out = kernel_numbers(
+        lambda: cuda_tier.probe_join(*args, pair_cap),
+        lambda: cuda_tier.probe_join_reference(*args, pair_cap),
+        probe_bytes(args, pair_cap))
+    out["shape"] = (f"{label}: {int(args[0].numel())} probe rows, "
+                    f"{int(args[2].numel())} build rows, "
+                    f"{int(args[4].shape[0])} key words, pair_cap {pair_cap}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# main path: TPC-H Q3
+# ---------------------------------------------------------------------------
+
+
+def q3_groups_query(tables):
+    """TPC-H Q3 before its ORDER BY and LIMIT: every group's revenue."""
+    from spark_rapids_tpu_torch import functions as F
+    c = tables["customer"].filter(F.col("c_mktsegment") == "BUILDING")
+    o = tables["orders"].filter(F.col("o_orderdate") < 9204)
+    li = tables["lineitem"].filter(F.col("l_shipdate") > 9204)
+    return (c.join(o, F.col("c_custkey") == F.col("o_custkey"))
+            .join(li, F.col("o_orderkey") == F.col("l_orderkey"))
+            .group_by("o_orderkey", "o_orderdate", "o_shippriority")
+            .agg(F.sum("l_extendedprice").alias("revenue")))
+
+
+def q3_query(tables):
+    """TPC-H Q3 as the repo defines it (benchmarks/tpch_like.py Q3)."""
+    from spark_rapids_tpu_torch import functions as F
+    return (q3_groups_query(tables)
+            .order_by(F.col("revenue").desc(), "o_orderdate").limit(10))
+
+
+def q3_reference(customer, orders, lineitem):
+    """Independent Q3 over the same arrays.  The generators' keys are
+    dense (c_custkey and o_orderkey are 1..n), so each join is an index
+    lookup; a foreign key past n has no partner.  Returns the top 10
+    groups as (o_orderkey, o_orderdate, o_shippriority, revenue) arrays,
+    and under "groups" the same arrays for every group, by o_orderkey."""
+    c = {k: np.asarray(v) for k, (_, v) in customer.items()}
+    o = {k: np.asarray(v) for k, (_, v) in orders.items()}
+    li = {k: np.asarray(v) for k, (_, v) in lineitem.items()}
+    n_c, n_o = len(c["c_custkey"]), len(o["o_orderkey"])
+    c_ok = np.append(c["c_mktsegment"] == "BUILDING", False)
+    cust = np.minimum(o["o_custkey"] - 1, n_c)   # n_c: no partner
+    o_ok = np.append((o["o_orderdate"] < 9204) & c_ok[cust], False)
+    order = np.minimum(li["l_orderkey"] - 1, n_o)
+    l_ok = (li["l_shipdate"] > 9204) & o_ok[order]
+    revenue = np.bincount(order[l_ok], weights=li["l_extendedprice"][l_ok],
+                          minlength=n_o)
+    present = np.bincount(order[l_ok], minlength=n_o) > 0
+    idx = np.nonzero(present[:n_o])[0]
+    top = idx[np.lexsort((o["o_orderdate"][idx], -revenue[idx]))][:10]
+
+    def rows(sel):
+        return {"o_orderkey": o["o_orderkey"][sel],
+                "o_orderdate": o["o_orderdate"][sel],
+                "o_shippriority": o["o_shippriority"][sel],
+                "revenue": revenue[sel]}
+
+    return dict(rows(top), groups=rows(idx))
+
+
+def check_q3_rows(rows, ref, label: str) -> None:
+    """Keys and dates exact; revenue within 1e-9 relative: the aggregate
+    sums each group's prices in another order than numpy, and every price
+    is positive, so there is no cancellation to magnify."""
+    if len(rows) != len(ref["revenue"]):
+        raise AssertionError(f"{label}: {len(rows)} rows, numpy has "
+                             f"{len(ref['revenue'])}")
+    for i, name in enumerate(("o_orderkey", "o_orderdate",
+                              "o_shippriority")):
+        if [r[i] for r in rows] != [int(x) for x in ref[name]]:
+            raise AssertionError(f"{label}: {name} differs from numpy")
+    got = np.array([r[3] for r in rows], dtype=np.float64)
+    if not np.all(np.isfinite(got)):
+        raise AssertionError(f"{label}: non-finite revenue")
+    np.testing.assert_allclose(got, ref["revenue"], rtol=1e-9, atol=0,
+                               err_msg=f"{label}: revenue")
+
+
+def check_q3_joins(session, label: str, fused: bool) -> None:
+    """The last collect's joins ran the way its mode says: both fused and
+    none rerun host-driven (at these sizes the static pair capacity holds
+    every join, so a rerun would mean the fused output went unchecked),
+    or none fused."""
+    m = session.last_metrics
+    want = {"meshJoinsFused": 2 if fused else 0, "joinOverflowFallback": 0}
+    got = {k: m.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"{label}: joins {got}, expected {want}")
+
+
+def check_q3_groups(rows, ref, label: str) -> None:
+    """Every group before the LIMIT against numpy's, ordered by
+    o_orderkey, with check_q3_rows' tolerances: a pair the join dropped or
+    doubled anywhere changes a group's revenue or the group count."""
+    check_q3_rows(sorted(rows, key=lambda r: r[0]), ref["groups"],
+                  f"{label} (all groups)")
+
+
+def q3_tables(session, data, batch_rows):
+    from spark_rapids_tpu_torch.dataframe import DataFrame
+    from spark_rapids_tpu_torch.interop import host_batches
+    from spark_rapids_tpu_torch.plan.logical import InMemoryScan
+    out = {}
+    for name, table in data.items():
+        parts = host_batches(table, batch_rows)
+        out[name] = DataFrame(InMemoryScan(parts, parts[0].schema, 1),
+                              session).cache()
+    return out
+
+
+class ProbeRecorder:
+    """Wraps ``cuda_tier.probe_join`` while installed, keeping the inputs
+    of each call (the main path's own shapes for the timings); the calls
+    go through to the kernel unchanged."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from spark_rapids_tpu_torch.kernels import cuda_tier
+        self._real = cuda_tier.probe_join
+
+        def record(*args):
+            self.calls.append(args)
+            return self._real(*args)
+
+        cuda_tier.probe_join = record
+        return self
+
+    def __exit__(self, *exc):
+        from spark_rapids_tpu_torch.kernels import cuda_tier
+        cuda_tier.probe_join = self._real
+        return False
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -642,6 +941,15 @@ def main() -> int:
     cases = check_pack_matrix(device)
     print(f"kernel phase: gatherScatter == plain version over {cases} "
           "cases", flush=True)
+    probe_matrix = probe_cases(device)
+    for label, args, pair_cap in probe_matrix:
+        check_probe(args, pair_cap, label)
+    print(f"kernel phase: joinProbe == plain version over "
+          f"{len(probe_matrix)} cases", flush=True)
+    label, args, pair_cap = probe_matrix[-2]  # 2^20 x 2^22, no overflow
+    probe_large = probe_numbers(args, pair_cap, label)
+    print(f"joinProbe {label}: {json.dumps(probe_large)}", flush=True)
+    del probe_matrix, args
 
     # ---- main path: the headline query -----------------------------------
     conf = RapidsConf(SETTINGS)
@@ -731,6 +1039,91 @@ def main() -> int:
              ["gatherScatter", "stringHash", "strings"])
     del part, p_parts
 
+    # ---- main path: TPC-H Q3, host-driven and fused on a one-device mesh -
+    t0 = time.monotonic()
+    q3_data = {"customer": datagen.gen_customer(Q3_SF),
+               "orders": datagen.gen_orders(Q3_SF),
+               "lineitem": datagen.gen_lineitem(Q3_SF)}
+    q3_ref = q3_reference(**q3_data)
+    print("Q3 tables: " + ", ".join(
+        f"{k} {len(next(iter(v.values()))[1])} rows"
+        for k, v in q3_data.items()) +
+        f", generated and referenced in {time.monotonic() - t0:.1f} s",
+        flush=True)
+    q3_paths, q3_fallbacks = {}, {}
+    for mode, extra in Q3_MODES.items():
+        q3_session = GpuSparkSession(RapidsConf(dict(SETTINGS, **extra)))
+        tables = q3_tables(q3_session, q3_data, batch_rows)
+
+        def check(rows, m=mode, sess=q3_session):
+            check_q3_rows(rows, q3_ref, f"Q3 {m}")
+            check_q3_joins(sess, f"Q3 {m}", fused=bool(Q3_MODES[m]))
+
+        with ProbeRecorder() as recorder:
+            q3_paths[mode] = run_path(tables, q3_query, check, f"Q3 {mode}")
+        q3_fallbacks[mode] = q3_session.last_metrics.get(
+            "joinOverflowFallback", 0)
+        print(f"Q3 {mode}: plan\n{q3_session.last_physical_plan.tree_string()}"
+              f"metrics {q3_session.last_metrics}; overflow rerun "
+              f"{'fired' if q3_fallbacks[mode] else 'did not fire'}",
+              flush=True)
+        if mode == "mesh-fused":
+            probe_calls = recorder.calls[-2:]  # the second collect's joins
+        groups = q3_groups_query(tables).collect()
+        check_q3_groups(groups, q3_ref, f"Q3 {mode}")
+        check_q3_joins(q3_session, f"Q3 {mode} (all groups)",
+                       fused=bool(extra))
+        print(f"Q3 {mode}: all {len(groups)} groups before the LIMIT equal "
+              "numpy", flush=True)
+        del tables
+    _require(q3_paths["host-driven"], "Q3 host-driven",
+             ["gatherScatter", "stringHash"])
+    _require(q3_paths["mesh-fused"], "Q3 mesh-fused",
+             ["gatherScatter", "stringHash", "joinProbe"])
+    for i in (1, 2):
+        n = q3_paths["mesh-fused"][f"collect{i}"]["launches"]["joinProbe"]
+        if n < 2:
+            raise AssertionError(f"Q3 mesh-fused collect {i} launched "
+                                 f"joinProbe {n} times, not twice")
+        if q3_paths["host-driven"][f"collect{i}"]["launches"]["joinProbe"]:
+            raise AssertionError("Q3 host-driven launched joinProbe")
+    del q3_data
+
+    # ---- Q3 at a small size: both joins broadcast, fused on the mesh -----
+    bc_data = {"customer": datagen.gen_customer(Q3_BROADCAST_SF),
+               "orders": datagen.gen_orders(Q3_BROADCAST_SF),
+               "lineitem": datagen.gen_lineitem(Q3_BROADCAST_SF)}
+    bc_ref = q3_reference(**bc_data)
+    bc_session = GpuSparkSession(RapidsConf(dict(
+        SETTINGS, **Q3_MODES["mesh-fused"])))
+    bc_tables = q3_tables(bc_session, bc_data, batch_rows)
+
+    def check_bc(rows):
+        check_q3_rows(rows, bc_ref, "Q3 broadcast mesh-fused")
+        check_q3_joins(bc_session, "Q3 broadcast mesh-fused", fused=True)
+
+    bc_path = run_path(bc_tables, q3_query, check_bc,
+                       "Q3 broadcast mesh-fused")
+    bc_plan = bc_session.last_physical_plan.tree_string()
+    print(f"Q3 broadcast mesh-fused: plan\n{bc_plan}metrics "
+          f"{bc_session.last_metrics}", flush=True)
+    if bc_plan.count("GpuBroadcastHashJoin") != 2:
+        raise AssertionError("Q3 at the small size did not plan two "
+                             "broadcast joins")
+    _require(bc_path, "Q3 broadcast mesh-fused", ["stringHash", "joinProbe"])
+    for i in (1, 2):
+        n = bc_path[f"collect{i}"]["launches"]["joinProbe"]
+        if n < 2:
+            raise AssertionError(f"Q3 broadcast mesh-fused collect {i} "
+                                 f"launched joinProbe {n} times, not twice")
+    groups = q3_groups_query(bc_tables).collect()
+    check_q3_groups(groups, bc_ref, "Q3 broadcast mesh-fused")
+    check_q3_joins(bc_session, "Q3 broadcast mesh-fused (all groups)",
+                   fused=True)
+    print(f"Q3 broadcast mesh-fused: all {len(groups)} groups before the "
+          "LIMIT equal numpy", flush=True)
+    del bc_data, bc_tables
+
     # ---- string kernels: matrix and timings at the main paths' shapes ----
     p_type = cached_column(p_df, "p_type")
     p_name = cached_column(p_df, "p_name")
@@ -754,9 +1147,24 @@ def main() -> int:
                         ("contains p_name", contains_main)):
         print(f"{label}: {json.dumps(nums)}", flush=True)
 
+    # ---- joinProbe at Q3's two join shapes -------------------------------
+    probe_err = 0
+    probe_shapes = []
+    for label, (args, pair_cap) in zip(
+            ("Q3 customer x orders", "Q3 (customer x orders) x lineitem"),
+            ((c[:-1], c[-1]) for c in probe_calls)):
+        probe_err = max(probe_err, check_probe(args, pair_cap, label))
+        nums = probe_numbers(args, pair_cap, label)
+        print(f"joinProbe {label}: {json.dumps(nums)}", flush=True)
+        probe_shapes.append(nums)
+    del probe_calls
+
     paths = {"headline": multi["collect2"]["launches"],
              "Q1": q1["collect2"]["launches"],
-             "part": part_path["collect2"]["launches"]}
+             "part": part_path["collect2"]["launches"],
+             "Q3 host-driven": q3_paths["host-driven"]["collect2"]["launches"],
+             "Q3 mesh-fused": q3_paths["mesh-fused"]["collect2"]["launches"],
+             "Q3 broadcast mesh-fused": bc_path["collect2"]["launches"]}
 
     def by_path(name):
         return {p: launches[name] for p, launches in paths.items()}
@@ -777,13 +1185,20 @@ def main() -> int:
         entry("gatherScatter", main_shape, max_err,
               paths["headline"]["gatherScatter"], bandwidth=bandwidth),
         entry("stringHash", hash_main, h_err,
-              paths["Q1"]["stringHash"] + paths["part"]["stringHash"],
+              sum(paths[p]["stringHash"] for p in (
+                  "Q1", "part", "Q3 host-driven", "Q3 mesh-fused",
+                  "Q3 broadcast mesh-fused")),
               l_returnflag=hash_flag),
         entry("strings", contains_main, c_err,
               paths["part"]["strings"]),
+        entry("joinProbe", probe_shapes[1], probe_err,
+              paths["Q3 mesh-fused"]["joinProbe"],
+              first_join=probe_shapes[0], large=probe_large),
     ]
     summary = {"main_path": {"multi_batch": multi, "one_batch": single,
-                             "q1": q1, "part": part_path}, "card": card}
+                             "q1": q1, "part": part_path, "q3": q3_paths,
+                             "q3_broadcast_mesh_fused": bc_path},
+               "q3_overflow_reruns": q3_fallbacks, "card": card}
     print(f"summary: {json.dumps(summary)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

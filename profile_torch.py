@@ -1,22 +1,27 @@
 #!/usr/bin/env python3
 """Where the time goes in one of the PyTorch port's main paths on one GPU.
 
-    python3 profile_torch.py [--query headline|q1|part] [--batches 16]
-                             [--out build/profile.txt]
+    python3 profile_torch.py [--query headline|q1|part|q3] [--mesh]
+                             [--batches 16] [--out build/profile.txt]
 
 Runs one of chip_smoke.py's main paths, cached and warmed: ``headline``
 (bench.py's headline query over 16,777,216 rows cached as ``--batches``
-batches), ``q1`` (TPC-H Q1 over lineitem, 6,000,000 rows) or ``part`` (the
-``LIKE '%green%'`` part query, 2,000,000 rows); the last two are cached as
-batches of ``reader.batchSizeRows`` rows.  Then it measures:
+batches), ``q1`` (TPC-H Q1 over lineitem, 6,000,000 rows), ``part`` (the
+``LIKE '%green%'`` part query, 2,000,000 rows) or ``q3`` (TPC-H Q3 over
+customer, orders and lineitem at TPC-H SF1's counts; host-driven joins, or
+with ``--mesh`` both joins fused on a one-device mesh through joinProbe);
+all but the headline are cached as batches of ``reader.batchSizeRows``
+rows.  Then it measures:
 
 * the collect wall: median of 7 collects, each ending in a synchronize;
 * the host syncs of one collect, as ``torch.cuda.set_sync_debug_mode``
   reports them;
 * per layer: every operator of the physical plan driven on its own, bottom
-  up, each drive ending in ``torch.cuda.synchronize()``; the layer's time is
-  its drive minus its child's (execution is eager, so a drive re-runs what
-  lies below it; the cached scan hands out device batches);
+  up, each drive in a fresh execution context and ending in
+  ``torch.cuda.synchronize()``; the layer's time is its drive minus its
+  children's (execution is eager, so a drive re-runs what lies below it;
+  the cached scan hands out device batches); a join's layer is its build
+  sort, probe and output gathers;
 * one whole collect under ``torch.profiler`` (CPU and CUDA activity): the
   wall, the device busy time (sum of the device-side events' self time),
   the idle share (1 - busy / wall) and the kernels by device time.
@@ -51,28 +56,42 @@ def main() -> int:
     from spark_rapids_tpu_torch.session import GpuSparkSession
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--query", choices=("headline", "q1", "part"),
+    ap.add_argument("--query", choices=("headline", "q1", "part", "q3"),
                     default="headline")
+    ap.add_argument("--mesh", action="store_true",
+                    help="q3 only: install a one-device mesh "
+                         "(spark.rapids.shuffle.ici.enabled)")
     ap.add_argument("--batches", type=int, default=16,
                     help="headline only: batches the table is cached as")
     ap.add_argument("--out", default="build/profile.txt")
     args = ap.parse_args()
 
     cuda_tier.build_all()
-    conf = RapidsConf(C.SETTINGS)
-    if args.query == "headline":
-        data, build = C.headline_data(C.ROWS), C.headline_query
-        batch_rows = C.ROWS // args.batches
-    elif args.query == "q1":
-        data, build = datagen.gen_lineitem(C.LINEITEM_SF), C.q1_query
-        batch_rows = READER_BATCH_SIZE_ROWS.get(conf)
-    else:
-        data, build = datagen.gen_part(C.PART_SF), C.part_query
-        batch_rows = READER_BATCH_SIZE_ROWS.get(conf)
-    parts = host_batches(data, batch_rows)
+    conf = RapidsConf(dict(C.SETTINGS, **C.Q3_MODES[
+        "mesh-fused" if args.mesh else "host-driven"]))
     session = GpuSparkSession(conf)
-    df = DataFrame(InMemoryScan(parts, parts[0].schema, 1), session).cache()
-    query = build(df)
+    batch_rows = READER_BATCH_SIZE_ROWS.get(conf)
+    if args.query == "q3":
+        tables = C.q3_tables(session, {
+            "customer": datagen.gen_customer(C.Q3_SF),
+            "orders": datagen.gen_orders(C.Q3_SF),
+            "lineitem": datagen.gen_lineitem(C.Q3_SF)}, batch_rows)
+        n_batches = sum(len(t.plan.children[0].batches)
+                        for t in tables.values())
+        query = C.q3_query(tables)
+    else:
+        if args.query == "headline":
+            data, build = C.headline_data(C.ROWS), C.headline_query
+            batch_rows = C.ROWS // args.batches
+        elif args.query == "q1":
+            data, build = datagen.gen_lineitem(C.LINEITEM_SF), C.q1_query
+        else:
+            data, build = datagen.gen_part(C.PART_SF), C.part_query
+        parts = host_batches(data, batch_rows)
+        n_batches = len(parts)
+        df = DataFrame(InMemoryScan(parts, parts[0].schema, 1),
+                       session).cache()
+        query = build(df)
     for _ in range(3):  # materialize the cache, warm the allocator
         query.collect()
     walls = []
@@ -96,16 +115,16 @@ def main() -> int:
              if "synchroniz" in str(w.message)]
 
     # ---- per layer: drive each operator alone, bottom up -----------------
-    ctx = ExecContext(session.conf, session.device)
-    chain, op = [], session.last_physical_plan
-    while op is not None:
-        chain.append(op)
-        op = op.children[0] if op.children else None
+    mesh = session._shuffle_mesh()
     layers = []
-    below = 0.0
-    for op in reversed(chain):
+
+    def drive(op, depth):
+        """Median drive of ``op`` (ms); appends its layer after its
+        children's."""
+        below = sum(drive(c, depth + 1) for c in op.children)
         walls = []
         for _ in range(5):
+            ctx = ExecContext(session.conf, session.device, mesh)
             torch.cuda.synchronize()
             t0 = time.monotonic()
             for part in op.partitions(ctx):
@@ -114,10 +133,12 @@ def main() -> int:
             torch.cuda.synchronize()
             walls.append(time.monotonic() - t0)
         walls.sort()
-        wall = walls[len(walls) // 2]
-        layers.append({"op": op.describe(), "cumulative_ms": wall * 1e3,
-                       "layer_ms": (wall - below) * 1e3})
-        below = wall
+        wall = walls[len(walls) // 2] * 1e3
+        layers.append({"op": op.describe(), "depth": depth,
+                       "cumulative_ms": wall, "layer_ms": wall - below})
+        return wall
+
+    drive(session.last_physical_plan, 0)
 
     # ---- one collect under the profiler ----------------------------------
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -141,8 +162,9 @@ def main() -> int:
         f.write(events.table(sort_by="self_device_time_total",
                              row_limit=40))
     print(json.dumps({
-        "card": C.card_line(), "query": args.query, "batches": len(parts),
-        "rows": len(rows),
+        "card": C.card_line(), "query": args.query, "mesh": args.mesh,
+        "batches": n_batches, "rows": len(rows),
+        "metrics": session.last_metrics,
         "collect_median_ms": collect_ms, "profiled_collect_ms": wall * 1e3,
         "launches": {n: cuda_tier.launch_count(n)
                      for n in cuda_tier.SOURCES},

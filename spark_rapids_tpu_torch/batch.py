@@ -177,6 +177,26 @@ class ColumnBatch:
         return f"ColumnBatch({self.schema}, cap={self.capacity})"
 
 
+def empty_device_batch(schema: T.Schema, device) -> ColumnBatch:
+    """A batch of no rows at the least capacity: zero data, no valid row,
+    16 string bytes."""
+    capacity = MIN_CAPACITY
+    cols = []
+    for f in schema.fields:
+        validity = torch.zeros(capacity, dtype=torch.bool, device=device)
+        if f.dtype.is_string:
+            cols.append(DeviceColumn(
+                f.dtype, torch.zeros(MIN_BYTE_CAPACITY, dtype=torch.uint8,
+                                     device=device), validity,
+                torch.zeros(capacity + 1, dtype=torch.int32,
+                            device=device)))
+        else:
+            cols.append(DeviceColumn(
+                f.dtype, torch.zeros(capacity, dtype=f.dtype.torch_dtype,
+                                     device=device), validity))
+    return ColumnBatch(schema, cols, device_scalar(0, device), capacity)
+
+
 def device_scalar(value: int, device) -> torch.Tensor:
     """0-d int32 tensor made on the device by a fill, not an H2D copy."""
     return torch.full((), int(value), dtype=torch.int32, device=device)

@@ -51,6 +51,10 @@ def conf_int(key: str, default: int, doc: str) -> ConfEntry:
     return _register(ConfEntry(key, default, doc, int))
 
 
+def conf_float(key: str, default: float, doc: str) -> ConfEntry:
+    return _register(ConfEntry(key, default, doc, float))
+
+
 class RapidsConf:
     """A snapshot of configuration values.
 
@@ -118,3 +122,20 @@ EXCHANGE_COLLAPSE_LOCAL = conf_bool(
     "Collapse shuffle exchanges to a single logical partition in "
     "single-process execution: partitioning only constrains placement, "
     "which one partition trivially satisfies.")
+AUTO_BROADCAST_THRESHOLD = conf_int(
+    "spark.sql.autoBroadcastJoinThreshold", 10 << 20,
+    "Max estimated build-side bytes for choosing a broadcast hash join "
+    "over a shuffled hash join; -1 disables broadcast.")
+ENABLE_ICI_SHUFFLE = conf_bool(
+    "spark.rapids.shuffle.ici.enabled", False,
+    "Install a device mesh and route shuffle exchanges over it.  The port "
+    "installs a mesh of every visible device, one included (the JAX "
+    "package only from two devices up); on one device the exchange hands "
+    "its input on unchanged.  Opt-in; off means the single-host exchange "
+    "path.")
+MESH_SPMD_JOIN_GROWTH = conf_float(
+    "spark.rapids.sql.tpu.mesh.spmd.join.growthFactor", 2.0,
+    "Pair-capacity growth factor for mesh-fused joins: the static pair "
+    "capacity is the probe capacity times this factor, rounded up to a "
+    "power of two.  Joins whose true pair count exceeds it set an overflow "
+    "flag and rerun host-driven.")

@@ -1,11 +1,11 @@
 """Lazy DataFrame frontend over the logical plan (port of the part of
 ``spark_rapids_tpu/dataframe.py`` the port runs): filter, with_column,
-group_by().agg(), order_by, cache, collect, and the string predicates
-contains, like, startswith and endswith."""
+join, group_by().agg(), order_by, limit, cache, collect, and the string
+predicates contains, like, startswith and endswith."""
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exprs.aggregates import (
@@ -52,6 +52,12 @@ class Column:
 
     def alias(self, name: str) -> "Column":
         return Column(Alias(self.expr, name))
+
+    def asc(self, nulls_first: Optional[bool] = None) -> SortOrder:
+        return SortOrder(self.expr, True, nulls_first)
+
+    def desc(self, nulls_first: Optional[bool] = None) -> SortOrder:
+        return SortOrder(self.expr, False, nulls_first)
 
     def startswith(self, prefix: str) -> "Column":
         from spark_rapids_tpu_torch.exprs.strings import StringStartsWith
@@ -141,6 +147,95 @@ class DataFrame:
             names.append(output_name(e, i))
         return GroupedData(self, keys, names)
 
+    def join(self, other: "DataFrame", on=None, how: str = "inner"
+             ) -> "DataFrame":
+        """Join with ``other``: ``on`` a column name or list of names (a
+        USING join), or a boolean Column whose ``==`` conjuncts between the
+        two sides become the equi-join keys (anything else is the residual
+        condition).  Right-side names that collide with left ones get an
+        ``_r`` suffix."""
+        how = {"leftouter": "left", "left_outer": "left",
+               "rightouter": "right", "right_outer": "right",
+               "outer": "full", "fullouter": "full", "full_outer": "full",
+               "leftsemi": "left_semi", "semi": "left_semi",
+               "leftanti": "left_anti", "anti": "left_anti"}.get(how, how)
+        lkeys: List[Expression] = []
+        rkeys: List[Expression] = []
+        condition = None
+        if on is None:
+            how = "cross" if how == "inner" else how
+        elif isinstance(on, str):
+            on = [on]
+        if isinstance(on, (list, tuple)):
+            return self._join_using(other, list(on), how)
+        if isinstance(on, Column):
+            lkeys, rkeys, condition = _extract_join_keys(
+                on.expr, self.schema, other.schema)
+        right, mapping = _dedupe_right(
+            self, other, how in ("left_semi", "left_anti"))
+        if mapping:
+            def remap(e: Expression) -> Expression:
+                if isinstance(e, ColumnRef) and e.column in mapping:
+                    return ColumnRef(mapping[e.column], e.dtype, e.nullable)
+                return e
+            rkeys = [k.transform_up(remap) for k in rkeys]
+            if condition is not None:
+                # the condition may reference either side; remap only the
+                # names that exist solely on the right
+                lnames = set(self.schema.names)
+
+                def remap_cond(e: Expression) -> Expression:
+                    if isinstance(e, ColumnRef) and e.column in mapping \
+                            and e.column not in lnames:
+                        return ColumnRef(mapping[e.column], e.dtype,
+                                         e.nullable)
+                    return e
+                condition = condition.transform_up(remap_cond)
+        node = L.Join(self.plan, right.plan, lkeys, rkeys, how, condition)
+        return DataFrame(node, self.session)
+
+    def _join_using(self, other: "DataFrame", names: List[str], how: str
+                    ) -> "DataFrame":
+        """USING-join semantics: one output column per key name (the left
+        value; the right one for a right join; their coalesce for a full
+        join), then the other left columns, then the other right ones."""
+        lkeys = [self._resolve(ColumnRef(n)) for n in names]
+        # rename the right key columns so the raw join output has no dups
+        ren = {n: f"__rkey_{i}" for i, n in enumerate(names)}
+        rexprs, rnames = [], []
+        for f in other.schema.fields:
+            rexprs.append(ColumnRef(f.name, f.dtype, f.nullable))
+            rnames.append(ren.get(f.name, f.name))
+        right = DataFrame(L.Project(rexprs, rnames, other.plan),
+                          other.session)
+        right, _mapping = _dedupe_right(
+            self, right, how in ("left_semi", "left_anti"))
+        rkeys = [right._resolve(ColumnRef(ren[n])) for n in names]
+        joined = DataFrame(L.Join(self.plan, right.plan, lkeys, rkeys, how),
+                           self.session)
+        if how in ("left_semi", "left_anti"):
+            return joined
+        sch = joined.schema
+        exprs, out_names = [], []
+        for n in names:
+            lref, rref = ColumnRef(n), ColumnRef(ren[n])
+            if how == "right":
+                e = resolve(rref, sch)
+            elif how == "full":
+                from spark_rapids_tpu_torch.exprs.nullexprs import Coalesce
+                e = Coalesce(resolve(lref, sch), resolve(rref, sch))
+            else:
+                e = resolve(lref, sch)
+            exprs.append(e)
+            out_names.append(n)
+        for f in sch.fields:
+            if f.name in names or f.name in ren.values():
+                continue
+            exprs.append(ColumnRef(f.name, f.dtype, f.nullable))
+            out_names.append(f.name)
+        return DataFrame(L.Project(exprs, out_names, joined.plan),
+                         self.session)
+
     def order_by(self, *cols) -> "DataFrame":
         orders = []
         for c in cols:
@@ -148,6 +243,9 @@ class DataFrame:
             orders.append(SortOrder(self._resolve(o.child), o.ascending,
                                     o.nulls_first))
         return DataFrame(L.Sort(orders, True, self.plan), self.session)
+
+    def limit(self, n: int) -> "DataFrame":
+        return DataFrame(L.Limit(n, self.plan), self.session)
 
     def collect(self) -> List[tuple]:
         hb = self.session.execute(self.plan)
@@ -161,6 +259,61 @@ class DataFrame:
             return self
         return DataFrame(L.CachedRelation(self.plan, L.CacheHolder()),
                          self.session)
+
+
+def _dedupe_right(left: DataFrame, right: DataFrame, is_semi: bool):
+    """Rename right-side columns whose names the left side has (suffix
+    ``_r``) so the joined schema is unambiguous; semi and anti joins keep
+    only the left side and rename nothing.  Returns (right_df,
+    {old_name: new_name})."""
+    if is_semi:
+        return right, {}
+    lnames = set(left.schema.names)
+    if not (lnames & set(right.schema.names)):
+        return right, {}
+    exprs, names, mapping = [], [], {}
+    for f in right.schema.fields:
+        exprs.append(ColumnRef(f.name, f.dtype, f.nullable))
+        nm = f.name
+        while nm in lnames:
+            nm = nm + "_r"
+        if nm != f.name:
+            mapping[f.name] = nm
+        names.append(nm)
+    return DataFrame(L.Project(exprs, names, right.plan),
+                     right.session), mapping
+
+
+def _extract_join_keys(expr: Expression, lschema: T.Schema,
+                       rschema: T.Schema):
+    """Split a join condition into equi-key pairs and the residual
+    condition (None when every conjunct is a key pair)."""
+    from spark_rapids_tpu_torch.exprs.predicates import And, Equals
+    lkeys, rkeys, residual = [], [], []
+
+    def visit(e: Expression):
+        if isinstance(e, And):
+            visit(e.children[0])
+            visit(e.children[1])
+            return
+        if isinstance(e, Equals):
+            a, b = e.children
+            if isinstance(a, ColumnRef) and isinstance(b, ColumnRef):
+                if a.column in lschema and b.column in rschema:
+                    lkeys.append(resolve(a, lschema))
+                    rkeys.append(resolve(b, rschema))
+                    return
+                if b.column in lschema and a.column in rschema:
+                    lkeys.append(resolve(b, lschema))
+                    rkeys.append(resolve(a, rschema))
+                    return
+        residual.append(e)
+
+    visit(expr)
+    cond = None
+    for r in residual:
+        cond = r if cond is None else And(cond, r)
+    return lkeys, rkeys, cond
 
 
 class GroupedData:

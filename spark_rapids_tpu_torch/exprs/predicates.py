@@ -5,7 +5,9 @@ Comparisons are NULL when either side is NULL; ``And`` implements Kleene
 three-valued logic exactly as Spark does (FALSE AND NULL is FALSE).  A DATE
 compared with an integer literal compares as INT days since the epoch, the
 type :func:`types.promote` gives the pair, as in the JAX package (TPC-H
-Q1's ``l_shipdate <= 10471``).  String operands are not ported yet
+Q1's ``l_shipdate <= 10471``).  String equality compares both 32-bit row
+hashes and the lengths (the stringHash kernel on CUDA), as the JAX package
+does; string ordering comparisons are not ported yet
 (:meth:`_Comparison.gpu_supported`).
 """
 
@@ -17,6 +19,16 @@ from spark_rapids_tpu_torch.exprs.base import (
 )
 
 
+def _string_eq_dev(a: DevVal, b: DevVal):
+    from spark_rapids_tpu_torch.exprs.strings import (
+        string_hash2, string_lengths,
+    )
+    ha1, ha2 = string_hash2(a)
+    hb1, hb2 = string_hash2(b)
+    return (ha1 == hb1) & (ha2 == hb2) & \
+        (string_lengths(a) == string_lengths(b))
+
+
 class _Comparison(BinaryExpression):
     def _resolve_type(self):
         self.dtype = T.BOOLEAN
@@ -25,19 +37,32 @@ class _Comparison(BinaryExpression):
     def _compute(self, x, y):
         raise NotImplementedError
 
+    def _supports_string(self) -> bool:
+        return False
+
     def gpu_supported(self, conf):
         if self.left.dtype.is_string or self.right.dtype.is_string:
-            return f"{self.name}: string comparisons are not ported yet"
+            if not self._supports_string():
+                return f"{self.name}: string comparisons are not ported yet"
+            if not (self.left.dtype.is_string and
+                    self.right.dtype.is_string):
+                return f"{self.name}: a string compared with a non-string"
         return None
 
     def gpu_eval(self, ctx) -> DevVal:
-        a, b, _ = promote_dev(self.left.gpu_eval(ctx),
-                              self.right.gpu_eval(ctx))
+        lv, rv = self.left.gpu_eval(ctx), self.right.gpu_eval(ctx)
+        if lv.dtype.is_string:
+            return DevVal(T.BOOLEAN, _string_eq_dev(lv, rv),
+                          lv.validity & rv.validity)
+        a, b, _ = promote_dev(lv, rv)
         return DevVal(T.BOOLEAN, self._compute(a.data, b.data),
                       a.validity & b.validity)
 
 
 class Equals(_Comparison):
+    def _supports_string(self):
+        return True
+
     def _compute(self, x, y):
         return x == y
 

@@ -21,7 +21,8 @@ Kernels: ``gatherScatter`` (:func:`pack_segments`), the k-way segment pack
 behind ``layout.concat_kway``; ``stringHash`` (:func:`string_hash_rows`),
 the dual polynomial row hashes behind string grouping, equality and sort
 tie-breaks; ``strings`` (:func:`rows_with_match`), the contains scan behind
-``LIKE '%needle%'``.
+``LIKE '%needle%'``; ``joinProbe`` (:func:`probe_join`), the candidate
+phase of the static equi-join (``join.join_pairs_static``).
 """
 
 from __future__ import annotations
@@ -45,7 +46,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: kernel name -> CUDA source under ``csrc/``
 SOURCES = {"gatherScatter": "pack_segments.cu",
            "stringHash": "string_hash.cu",
-           "strings": "contains.cu"}
+           "strings": "contains.cu",
+           "joinProbe": "probe_join.cu"}
 
 #: inputs one gatherScatter launch takes (the kernel's by-value pointer
 #: table, ``kMaxInputs`` in pack_segments.cu); more are packed in groups
@@ -159,6 +161,13 @@ def load(name: str) -> ctypes.CDLL:
             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p]
         lib.srt_contains.restype = ctypes.c_int
+    elif name == "joinProbe":
+        lib.srt_probe_join.argtypes = (
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong] +
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong] +
+            [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong] +
+            [ctypes.c_void_p] * 9)
+        lib.srt_probe_join.restype = ctypes.c_int
     _libs[name] = lib
     return lib
 
@@ -490,3 +499,116 @@ def rows_with_match(data: torch.Tensor, offsets: torch.Tensor,
                            f"{err}")
     _launches["strings"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# joinProbe: the static join's candidate phase
+# ---------------------------------------------------------------------------
+
+#: probe rows one block of the kernel's first launch scans (``kTile``)
+PROBE_TILE = 1024
+
+
+def probe_join_reference(l_h1, l_mask, r_sorted, perm, a_words, a_valid,
+                         b_words, b_valid, pair_cap: int) -> tuple:
+    """Plain PyTorch candidate phase: the port of the JAX package's
+    ``join_pairs_static.xla_candidates`` (``kernels/join.py``), with the
+    exact-key test over the pre-encoded word matrices (word for word what
+    ``_exact_eq`` compares).  Every gather index is clipped as the
+    reference clips it, so lanes past the total carry the same rows."""
+    l_cap, r_cap = int(l_h1.shape[0]), int(r_sorted.shape[0])
+    lo = torch.searchsorted(r_sorted, l_h1, right=False).to(torch.int32)
+    hi = torch.searchsorted(r_sorted, l_h1, right=True).to(torch.int32)
+    counts = torch.where(l_mask, hi - lo, 0).to(torch.int32)
+    total = counts.sum(dtype=torch.int64)
+    cum = torch.cumsum(counts, 0, dtype=torch.int32)
+    starts = cum - counts
+    k = torch.arange(pair_cap, dtype=torch.int32, device=l_h1.device)
+    probe_row = torch.searchsorted(cum, k, right=True, out_int32=True)
+    probe_row = probe_row.clamp(0, l_cap - 1)
+    pr = probe_row.long()
+    ordinal = k - starts[pr]
+    build_row = perm[(lo[pr] + ordinal).clamp(0, r_cap - 1).long()]
+    br = build_row.long()
+    eq = a_valid[pr] & b_valid[br] & (a_words[:, pr] == b_words[:, br]).all(0)
+    match = (k < torch.clamp(total, max=pair_cap)) & eq
+    return probe_row, build_row, match, total
+
+
+def _check_probe_inputs(l_h1, l_mask, r_sorted, perm, a_words, a_valid,
+                        b_words, b_valid, pair_cap: int) -> None:
+    l_cap, r_cap = int(l_h1.shape[0]), int(r_sorted.shape[0])
+    want = {"l_h1": (l_h1, torch.int64, (l_cap,)),
+            "l_mask": (l_mask, torch.bool, (l_cap,)),
+            "r_sorted": (r_sorted, torch.int64, (r_cap,)),
+            "perm": (perm, torch.int32, (r_cap,)),
+            "a_valid": (a_valid, torch.bool, (l_cap,)),
+            "b_valid": (b_valid, torch.bool, (r_cap,))}
+    n_words = int(a_words.shape[0]) if a_words.dim() == 2 else 0
+    want["a_words"] = (a_words, torch.int64, (n_words, l_cap))
+    want["b_words"] = (b_words, torch.int64, (n_words, r_cap))
+    for name, (t, dtype, shape) in want.items():
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"probe_join: {name} must be {dtype} "
+                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
+        if t.device != l_h1.device:
+            raise ValueError(f"probe_join: {name} on {t.device}, l_h1 on "
+                             f"{l_h1.device}")
+    if n_words < 1 or l_cap < 1 or r_cap < 1:
+        raise ValueError("probe_join needs at least one key word and one "
+                         "row on each side")
+    if not 0 < pair_cap < 2 ** 31 or max(l_cap, r_cap) >= 2 ** 31:
+        raise ValueError(f"probe_join: pair_cap {pair_cap} or capacities "
+                         "outside [1, 2^31)")
+
+
+def probe_join(l_h1, l_mask, r_sorted, perm, a_words, a_valid, b_words,
+               b_valid, pair_cap: int) -> tuple:
+    """The candidate phase of the static equi-join: for ``pair_cap`` pair
+    slots, the probe row, build row and exact-match flag of every
+    candidate whose first key hash equals, and the candidate total.
+
+    ``l_h1`` int64[l_cap] probe hashes (u32 values), ``l_mask``
+    bool[l_cap] live rows with valid keys, ``r_sorted`` int64[r_cap]
+    build hashes in ascending order, ``perm`` int32[r_cap] the build rows
+    in that order, ``a_words``/``b_words`` int64[W, cap] key words (u32
+    values) and ``a_valid``/``b_valid`` bool[cap].  Returns ``(probe_row
+    int32[pair_cap], build_row int32[pair_cap], match bool[pair_cap],
+    total int64)``; ``probe_row`` is sorted.  CPU tensors take
+    :func:`probe_join_reference`; CUDA tensors launch the kernel (four
+    launches, no host sync: ``total`` stays on the device)."""
+    _check_probe_inputs(l_h1, l_mask, r_sorted, perm, a_words, a_valid,
+                        b_words, b_valid, pair_cap)
+    if l_h1.device.type == "cpu":
+        return probe_join_reference(l_h1, l_mask, r_sorted, perm, a_words,
+                                    a_valid, b_words, b_valid, pair_cap)
+    inputs = (l_h1, l_mask, r_sorted, perm, a_words, a_valid, b_words,
+              b_valid)
+    _checked_cuda("probe_join", *inputs)
+    device = l_h1.device
+    l_cap, r_cap = int(l_h1.shape[0]), int(r_sorted.shape[0])
+    n_tiles = -(-l_cap // PROBE_TILE)
+
+    def empty(n, dtype):
+        return torch.empty(n, dtype=dtype, device=device)
+
+    lo, cum = empty(l_cap, torch.int32), empty(l_cap, torch.int32)
+    tile_sums, tile_offsets = empty(n_tiles, torch.int64), \
+        empty(n_tiles, torch.int32)
+    probe_row, build_row = empty(pair_cap, torch.int32), \
+        empty(pair_cap, torch.int32)
+    match, total = empty(pair_cap, torch.bool), empty((), torch.int64)
+    lib = load("joinProbe")
+    with torch.cuda.device(device):
+        err = lib.srt_probe_join(
+            l_h1.data_ptr(), l_mask.data_ptr(), l_cap, r_sorted.data_ptr(),
+            perm.data_ptr(), r_cap, a_words.data_ptr(), a_valid.data_ptr(),
+            b_words.data_ptr(), b_valid.data_ptr(), int(a_words.shape[0]),
+            pair_cap, lo.data_ptr(), cum.data_ptr(), tile_sums.data_ptr(),
+            tile_offsets.data_ptr(), probe_row.data_ptr(),
+            build_row.data_ptr(), match.data_ptr(), total.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"joinProbe launch failed: CUDA error {err}")
+    _launches["joinProbe"] += 1
+    return probe_row, build_row, match, total

@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exprs.aggregates import AggregateExpression
@@ -108,6 +108,51 @@ class Sort(LogicalPlan):
     def describe(self):
         g = "global" if self.is_global else "local"
         return f"Sort({g}, {len(self.orders)} keys)"
+
+
+class Join(LogicalPlan):
+    JOIN_TYPES = ("inner", "left", "right", "full", "left_semi", "left_anti",
+                  "cross")
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan,
+                 left_keys: List[Expression], right_keys: List[Expression],
+                 how: str, condition: Optional[Expression] = None):
+        if how not in self.JOIN_TYPES:
+            raise ValueError(f"unknown join type {how!r}")
+        self.left_keys = left_keys
+        self.right_keys = right_keys
+        self.how = how
+        self.condition = condition
+        self.children = (left, right)
+
+    @property
+    def schema(self):
+        left, right = self.children
+        if self.how in ("left_semi", "left_anti"):
+            return left.schema
+        lfields = list(left.schema.fields)
+        rfields = list(right.schema.fields)
+        if self.how in ("left", "full"):
+            rfields = [T.Field(f.name, f.dtype, True) for f in rfields]
+        if self.how in ("right", "full"):
+            lfields = [T.Field(f.name, f.dtype, True) for f in lfields]
+        return T.Schema(lfields + rfields)
+
+    def describe(self):
+        return f"Join({self.how})"
+
+
+class Limit(LogicalPlan):
+    def __init__(self, n: int, child: LogicalPlan):
+        self.n = n
+        self.children = (child,)
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+    def describe(self):
+        return f"Limit({self.n})"
 
 
 class CacheHolder:

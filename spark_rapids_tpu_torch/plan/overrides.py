@@ -7,12 +7,23 @@ fall back to: a node, expression or setting the port cannot run raises
 columns pass through every operator; each expression says for itself
 whether it takes or returns strings (``Expression.gpu_supported``).  The JAX
 package would place such a node on the CPU instead.
+
+Equi-joins choose their strategy as the JAX package does: a side whose
+estimated size is under ``spark.sql.autoBroadcastJoinThreshold`` is
+broadcast (the right one first; the left one for inner and right joins,
+when it is the smaller), otherwise both sides go through hash exchanges
+into a shuffled hash join.  Estimates measure an in-memory scan's values
+exactly and multiply every other node's row estimate by its output
+schema's per-column widths; joins and aggregates make no guess.
 """
 
 from __future__ import annotations
 
+import numpy as np
+
 from spark_rapids_tpu_torch.config import (
-    EXCHANGE_COLLAPSE_LOCAL, SHUFFLE_PARTITIONS, RapidsConf,
+    AUTO_BROADCAST_THRESHOLD, EXCHANGE_COLLAPSE_LOCAL, SHUFFLE_PARTITIONS,
+    RapidsConf,
 )
 from spark_rapids_tpu_torch.exprs.aggregates import AggregateFunction
 from spark_rapids_tpu_torch.exprs.base import ColumnRef, Expression
@@ -58,8 +69,8 @@ class GpuOverrides:
             self._refuse(node, "a partitioned shuffle is not ported yet; "
                                "leave spark.rapids.sql.tpu.exchange."
                                "collapseLocal on")
-        return GpuShuffleExchangeExec(kind, SHUFFLE_PARTITIONS.get(self.conf),
-                                      child)
+        n = 1 if kind == "single" else SHUFFLE_PARTITIONS.get(self.conf)
+        return GpuShuffleExchangeExec(kind, n, child)
 
     def _convert(self, node: L.LogicalPlan) -> PhysicalOp:
         if isinstance(node, L.InMemoryScan):
@@ -82,6 +93,10 @@ class GpuOverrides:
             return self._convert_aggregate(node)
         if isinstance(node, L.Sort):
             return self._convert_sort(node)
+        if isinstance(node, L.Join):
+            return self._convert_join(node)
+        if isinstance(node, L.Limit):
+            return self._convert_limit(node)
         self._refuse(node, "no port of this operator yet")
 
     def _convert_aggregate(self, node: L.Aggregate) -> PhysicalOp:
@@ -113,3 +128,94 @@ class GpuOverrides:
         if node.is_global:
             child = self._exchange(node, "range", child)
         return X.GpuSortExec(node.orders, child)
+
+    # Heuristic average payload of a string cell when the values are not
+    # visible (the JAX package's _VARLEN_CELL_BYTES).
+    _VARLEN_CELL_BYTES = 24
+
+    def _field_width(self, f) -> int:
+        """Estimated bytes per row of one column as the device holds it:
+        data item size plus a validity byte; a string a 4-byte offset, a
+        validity byte and the heuristic payload."""
+        if f.dtype.is_string:
+            return 5 + self._VARLEN_CELL_BYTES
+        return int(np.dtype(f.dtype.np_dtype).itemsize) + 1
+
+    def _estimate_rows(self, node: L.LogicalPlan):
+        """Plan-output row estimate; None where the node changes the
+        cardinality in a way that is not guessed (aggregates, joins)."""
+        if isinstance(node, L.InMemoryScan):
+            return sum(hb.num_rows for hb in node.batches)
+        if isinstance(node, L.Limit):
+            rows = self._estimate_rows(node.children[0])
+            return node.n if rows is None else min(node.n, rows)
+        if isinstance(node, (L.Project, L.Filter, L.Sort,
+                             L.CachedRelation)):
+            return self._estimate_rows(node.children[0])
+        return None
+
+    def _estimate_size(self, node: L.LogicalPlan):
+        """Plan-output byte estimate for the broadcast decision: an
+        in-memory scan is measured (a string cell counts its characters
+        plus 5 bytes), any other estimable node is its row estimate times
+        its own output schema's column widths."""
+        if isinstance(node, L.InMemoryScan):
+            total = 0
+            for hb in node.batches:
+                for f, c in zip(hb.schema.fields, hb.columns):
+                    if f.dtype.is_string:
+                        total += _string_chars(c.values) + 5 * len(c.values)
+                    else:
+                        total += c.values.nbytes + len(c.values)
+            return total
+        rows = self._estimate_rows(node)
+        if rows is None or not node.schema.fields:
+            return None
+        return rows * sum(self._field_width(f) for f in node.schema.fields)
+
+    def _convert_join(self, node: L.Join) -> PhysicalOp:
+        if node.how == "cross" or not node.left_keys:
+            self._refuse(node, "nested-loop and cross joins are not ported "
+                               "yet")
+        if node.condition is not None:
+            self._refuse(node, "a residual join condition is not ported yet")
+        self._check_exprs(node, *node.left_keys, *node.right_keys)
+        left = _to_device(self._convert(node.children[0]))
+        right = _to_device(self._convert(node.children[1]))
+        threshold = AUTO_BROADCAST_THRESHOLD.get(self.conf)
+        l_est = self._estimate_size(node.children[0])
+        r_est = self._estimate_size(node.children[1])
+        bc_side = None
+        if node.how in ("inner", "left", "left_semi", "left_anti") and \
+                r_est is not None and r_est <= threshold:
+            bc_side = "right"
+        if node.how in ("inner", "right") and l_est is not None and \
+                l_est <= threshold and (
+                    bc_side is None or (r_est is None or l_est < r_est)):
+            bc_side = "left"
+        if bc_side == "right":
+            return X.GpuBroadcastHashJoinExec(
+                left, right, node.left_keys, node.right_keys, node.how,
+                "right", node.schema)
+        if bc_side == "left":
+            return X.GpuBroadcastHashJoinExec(
+                right, left, node.left_keys, node.right_keys, node.how,
+                "left", node.schema)
+        return X.GpuShuffledHashJoinExec(
+            self._exchange(node, "hash", left),
+            self._exchange(node, "hash", right), node.left_keys,
+            node.right_keys, node.how, node.schema)
+
+    def _convert_limit(self, node: L.Limit) -> PhysicalOp:
+        local = X.GpuLocalLimitExec(
+            node.n, _to_device(self._convert(node.children[0])))
+        return X.GpuLocalLimitExec(node.n,
+                                   self._exchange(node, "single", local))
+
+
+def _string_chars(values) -> int:
+    """Characters in a host string column's values (numpy str arrays
+    counted by numpy; object arrays row by row)."""
+    if values.dtype.kind == "U":
+        return int(np.char.str_len(values).sum()) if len(values) else 0
+    return sum(len(str(x)) for x in values if x is not None)

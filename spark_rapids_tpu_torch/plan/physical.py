@@ -11,7 +11,7 @@ package's whole-stage fusion (``plan/pipeline.py``) is not ported.
 
 from __future__ import annotations
 
-from typing import Iterator, List
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -24,11 +24,24 @@ from spark_rapids_tpu_torch.config import RapidsConf
 
 
 class ExecContext:
-    """Per-query execution context: conf and the device to run on."""
+    """Per-query execution context: conf, the device to run on, the device
+    mesh when one is installed, and the query's metrics (name -> count)."""
 
-    def __init__(self, conf: RapidsConf, device: torch.device):
+    def __init__(self, conf: RapidsConf, device: torch.device,
+                 mesh: Optional[List[torch.device]] = None):
         self.conf = conf
         self.device = device
+        self.mesh = mesh
+        self.metrics: Dict[str, int] = {}
+
+    def add_metric(self, name: str) -> None:
+        self.metrics[name] = self.metrics.get(name, 0) + 1
+
+    def mesh_spmd_active(self) -> bool:
+        """True when joins between mesh exchanges run fused: a mesh is
+        installed (``spark.rapids.shuffle.ici.enabled``).  One gate for
+        every fusable exec, so a plan never half-fuses."""
+        return self.mesh is not None
 
 
 class PhysicalOp:

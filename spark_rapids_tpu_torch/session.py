@@ -2,7 +2,10 @@
 ``spark_rapids_tpu/session.py`` the slice needs).
 
 A session runs on CUDA unless built with ``device="cpu"``; without a CUDA
-device and without that request it raises at construction.
+device and without that request it raises at construction.  With
+``spark.rapids.shuffle.ici.enabled`` it installs a device mesh of every
+visible device, one included (the JAX package only from two devices up;
+see :mod:`spark_rapids_tpu_torch.parallel.mesh_shuffle`).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ class GpuSparkSession:
         self.conf = conf or RapidsConf()
         self.runtime = DeviceRuntime(self.conf, device)
         self.last_physical_plan = None
+        self.last_metrics = {}
 
     @property
     def device(self):
@@ -38,11 +42,32 @@ class GpuSparkSession:
         from spark_rapids_tpu_torch.plan.overrides import GpuOverrides
         return GpuOverrides(self.conf).apply(plan)
 
+    def _shuffle_mesh(self):
+        """The device mesh exchanges run over, or None: opt-in through
+        spark.rapids.shuffle.ici.enabled, built once per session.  A mesh
+        of more than one device raises: its all-to-all is not ported."""
+        from spark_rapids_tpu_torch.config import ENABLE_ICI_SHUFFLE
+        if not ENABLE_ICI_SHUFFLE.get(self.conf):
+            return None
+        if not hasattr(self, "_mesh"):
+            from spark_rapids_tpu_torch.parallel.mesh_shuffle import (
+                make_mesh,
+            )
+            self._mesh = make_mesh(self.device)
+        if len(self._mesh) > 1:
+            raise NotImplementedError(
+                f"a mesh of {len(self._mesh)} devices needs the exchange's "
+                "all-to-all, which is not ported yet")
+        return self._mesh
+
     def execute(self, plan) -> HostBatch:
         from spark_rapids_tpu_torch.plan.physical import (
             ExecContext, collect_host,
         )
         phys = self.plan_physical(plan)
         self.last_physical_plan = phys
+        ctx = ExecContext(self.conf, self.device, self._shuffle_mesh())
         with self.runtime.semaphore:
-            return collect_host(phys, ExecContext(self.conf, self.device))
+            out = collect_host(phys, ctx)
+        self.last_metrics = ctx.metrics
+        return out
