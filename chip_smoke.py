@@ -11,16 +11,21 @@ Phases, in order; any failure exits non-zero:
    ``build/kernels``);
 3. kernel phase: every kernel against its plain PyTorch version on the card
    (``torch.equal`` on the raw output) over a case matrix: gatherScatter
-   over input counts, widths and windows; stringHash over capacities 1,
+   over input counts (up to 1000, past one launch's table), widths and
+   windows; stringHash over capacities 1,
    511, 512, 513 and 2^20, an all-empty column, a 64 KiB row, multi-byte
    UTF-8, NULL rows, rows past ``num_rows`` and garbage past
    ``offsets[-1]``; contains over needles of 1, 5, 16 and 70 bytes,
    matches at a row's first and last byte, needles spanning a row boundary
    and a match ending exactly at ``offsets[-1]``; joinProbe (all four
    outputs) over INT, LONG, DATE, DOUBLE, STRING and two-column keys,
-   duplicates on both sides, NULL keys, a forced first-hash collision,
-   empty sides, pair capacities below the total, and 2^20 probe rows
-   against 2^22 build rows;
+   duplicates on both sides (long runs of one key too), NULL keys, a
+   forced first-hash collision, empty sides, pair capacities below the
+   total, a total past 2^31 - 1 (the int32 prefix sums wrap), and 2^20
+   probe rows against 2^22 build rows; and gatherScatter's every-buffer
+   concat (:func:`pack_columns`) over k = 1/2/16/200 batches, every
+   width, take_head-truncated string columns, empty batches and zero
+   tails, k = 200 with six string columns (grouped packs);
 4. main paths, each collected twice with the launch counts zeroed just
    before each collect and read just after, rows checked against an
    independent numpy reference:
@@ -43,11 +48,14 @@ Phases, in order; any failure exits non-zero:
      plan as broadcast joins, fused on the one-device mesh, top 10 and all
      groups against numpy;
    each query must launch every kernel of its path;
-5. timings at the main paths' own shapes (joinProbe: the inputs Q3's two
-   joins handed it), medians of CUDA-event timings:
-   the wrapper call as the path makes it, the kernel alone replayed from a
-   CUDA graph, the plain version, the library call where one computes the
-   same function, and the bound (bytes moved / 3.35 TB/s; where the
+5. timings at the main paths' own shapes (gatherScatter: the headline
+   merge's concat of its partials, every buffer, and a concat of the cached
+   lineitem batches with its string columns; joinProbe: the inputs Q3's
+   two joins handed it, and each of its launches by ``torch.profiler``),
+   medians of CUDA-event timings: the wrapper call as the path makes it,
+   the kernel alone replayed from a CUDA graph, the plain version, the
+   library call where one computes the same function (gatherScatter: one
+   ``torch.cat`` per buffer), and the bound (bytes moved / 3.35 TB/s; where the
    bytes depend on the data, as joinProbe's build-side reads do, what this
    run's inputs need).
 
@@ -143,7 +151,7 @@ def check_pack_matrix(device) -> int:
     from spark_rapids_tpu_torch.kernels import cuda_tier
     rng = np.random.RandomState(11)
     cases = 0
-    for k in (1, 2, 16, 200):  # 200 > one launch's inputs: grouped packs
+    for k in (1, 2, 16, 200, 1000):  # 1000 > one launch's: grouped packs
         for dtype in PACK_DTYPES:
             for layout in ("full", "windows"):
                 sizes = [int(s) for s in rng.randint(1, 3000, k)]
@@ -174,6 +182,159 @@ def check_pack_matrix(device) -> int:
                         raise AssertionError("gatherScatter: nonzero tail")
                     cases += 1
     return cases
+
+
+def _string_parts(rng, cap, n, device):
+    """(data u8, validity, offsets int32[cap+1]) of one batch's string
+    column as a ``take_head`` leaves it: ``n`` live rows, offsets still
+    growing past them, random bytes past ``offsets[-1]``."""
+    import torch
+    lens = rng.randint(0, 13, cap)  # rows of 0-12 bytes
+    offsets = np.zeros(cap + 1, dtype=np.int32)
+    np.cumsum(lens, out=offsets[1:])
+    data = rng.randint(0, 256, int(offsets[-1]) + rng.randint(0, 40))
+    valid = rng.rand(cap) < 0.9
+    return (torch.from_numpy(data.astype(np.uint8)).to(device),
+            torch.from_numpy(valid).to(device),
+            torch.from_numpy(offsets).to(device))
+
+
+def columns_case(rng, k, dtypes, n_strings, device, max_cap=3000):
+    """A concat's inputs: per column, k batches' (data, validity,
+    offsets); k live-row counts (0 and full batches among them) as 0-d
+    int32 device tensors; the batch capacities; each string column's live
+    bytes."""
+    import torch
+    caps = [int(c) for c in rng.randint(1, max_cap, k)]
+    ns = [0 if j % 7 == 3 else cap if j % 5 == 1 else
+          int(rng.randint(0, cap + 1)) for j, cap in enumerate(caps)]
+    columns = []
+    for dtype in dtypes:
+        datas = _pack_inputs(rng, dtype, caps, device)
+        valids = _pack_inputs(rng, "bool", caps, device)
+        columns.append([(d, v, None) for d, v in zip(datas, valids)])
+    live_bytes = []
+    for _ in range(n_strings):
+        parts = [_string_parts(rng, cap, n, device)
+                 for cap, n in zip(caps, ns)]
+        columns.append(parts)
+        live_bytes.append(sum(int(o[n]) for (_, _, o), n in zip(parts, ns)))
+    return columns, _dev_ints(ns, device), caps, live_bytes
+
+
+def check_columns(columns, ns, out_cap, byte_caps, label) -> None:
+    """The multi-buffer pack against its plain version: every buffer
+    equal bit for bit (torch.equal of the bytes), zero tails and rebuilt
+    offsets included."""
+    import torch
+    from spark_rapids_tpu_torch.kernels import cuda_tier
+    got = cuda_tier.pack_columns(columns, ns, out_cap, byte_caps)
+    want = cuda_tier.pack_columns_reference(columns, ns, out_cap, byte_caps)
+    torch.cuda.synchronize()
+    for ci, (g, w) in enumerate(zip(got, want)):  # bit for bit
+        for name, gb, wb in zip(("data", "validity", "offsets"), g, w):
+            if (gb is None) != (wb is None) or (
+                    gb is not None and (gb.dtype != wb.dtype or not
+                                        torch.equal(gb.view(torch.uint8),
+                                                    wb.view(torch.uint8)))):
+                raise AssertionError(f"gatherScatter (all buffers) != plain "
+                                     f"version: {label} column {ci} {name}")
+
+
+def check_columns_matrix(device) -> int:
+    """pack_columns (one launch for every buffer of a concat) against its
+    plain version over k = 1/2/16/200 batches, every fixed width, string
+    columns truncated by take_head, empty batches, output capacities at
+    the live total and past it (zero tails), and k = 200 with six string
+    columns, more inputs than one launch's table holds (the grouped
+    packs).  Returns the number of cases."""
+    rng = np.random.RandomState(12)
+    cases = 0
+    for k, n_strings in ((1, 1), (2, 2), (16, 2), (200, 1), (200, 6)):
+        columns, ns, caps, live_bytes = columns_case(
+            rng, k, PACK_DTYPES, n_strings, device)
+        total = sum(int(n) for n in ns)
+        for tail in (0, 1 + int(rng.randint(0, 999))):
+            out_cap = total + tail
+            if out_cap == 0:
+                continue
+            byte_caps = [b + tail for b in live_bytes]
+            check_columns(columns, ns, out_cap, byte_caps,
+                          f"k={k} strings={n_strings} tail={tail}")
+            cases += 1
+    return cases
+
+
+def _concat_numbers(columns, ns, out_cap, byte_caps, device):
+    """One whole concat (every buffer): the wrapper, the launch alone, the
+    plain version, and the library (one ``torch.cat`` per buffer of the
+    host-known live windows into a preallocated output; string offsets
+    concatenated as they are, not rebuilt, so the library moves no more
+    than the kernel).  Bytes: each live window read once, each output
+    written once, the k bounds (and the string ends) read once."""
+    import torch
+    from spark_rapids_tpu_torch.kernels import cuda_tier
+    n_host = [int(n) for n in ns]
+    live = sum(n_host)
+    k = len(ns)
+    nbytes = k * 4
+    windows, outs = [], []
+    str_caps = iter(byte_caps)
+    for parts in columns:
+        offs0 = parts[0][2]
+        bufs = [([v[:n] for (_, v, _), n in zip(parts, n_host)], out_cap)]
+        if offs0 is None:
+            bufs.append(([d[:n] for (d, _, _), n in zip(parts, n_host)],
+                         out_cap))
+        else:
+            ends = [int(o[n]) for (_, _, o), n in zip(parts, n_host)]
+            bufs.append(([d[:e] for (d, _, _), e in zip(parts, ends)],
+                         next(str_caps)))
+            bufs.append(([o[:n + 1] for (_, _, o), n in zip(parts, n_host)],
+                         out_cap + 1))
+            nbytes += k * 8
+        for wins, cap in bufs:
+            got = sum(int(w.numel()) for w in wins)
+            width = wins[0].element_size()
+            nbytes += got * width + cap * width
+            windows.append(wins)
+            outs.append(torch.empty(got, dtype=wins[0].dtype, device=device))
+
+    def library():
+        for wins, out in zip(windows, outs):
+            torch.cat(wins, out=out)
+
+    def call():
+        return cuda_tier.pack_columns(columns, ns, out_cap, byte_caps)
+
+    call()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        call()
+    return {
+        "ms": time_ms(call), "kernel_only_ms": time_ms(graph.replay),
+        "plain_ms": time_ms(lambda: cuda_tier.pack_columns_reference(
+            columns, ns, out_cap, byte_caps), reps=10, warmup=2),
+        "library_ms": time_ms(library),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+        "buffers": len(windows), "live_rows": live,
+    }
+
+
+def batch_columns(batches):
+    """pack_columns' arguments for a concat of ``batches`` as
+    ``layout.concat_kway`` makes them, with the live-total capacities the
+    executor's ``_concat_all`` chooses."""
+    import torch
+    from spark_rapids_tpu_torch.batch import round_up_capacity
+    columns = [[(c.data, c.validity, c.offsets) for c in parts]
+               for parts in zip(*(b.columns for b in batches))]
+    ns = [b.num_rows for b in batches]
+    out_cap = round_up_capacity(max(int(torch.stack(ns).sum()), 1))
+    byte_caps = [round_up_capacity(max(sum(int(o[n]) for (_, _, o), n in
+                                           zip(parts, ns)), 16), minimum=16)
+                 for parts in columns if parts[0][2] is not None]
+    return columns, ns, out_cap, byte_caps
 
 
 def _pack_numbers(arrays, los, his, out_cap, device):
@@ -457,6 +618,25 @@ def kernel_numbers(call, plain, nbytes: int) -> dict:
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
 
 
+def launch_ms(call, reps: int = 20) -> dict:
+    """Device ms of each kernel one ``call()`` launches, by kernel name:
+    the mean over ``reps`` calls under ``torch.profiler``."""
+    import torch
+    call()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    return {e.key.replace("(anonymous namespace)::", "").split("(")[0][:60]:
+            e.self_device_time_total / 1e3 / reps
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
 def hash_numbers(data, offsets, label: str) -> dict:
     """stringHash at a main-path shape.  Bytes: the live bytes and the
     cap+1 offsets read once, two int64 words per row written once."""
@@ -686,6 +866,7 @@ def probe_cases(device):
         "two-column": ([(T.LONG, range(4)),
                         (T.STRING, ["AIR", "RAIL", "", "TRUCK"])],
                        40, 24, 0.05),
+        "dup-heavy": ([(T.LONG, [1, 2])], 24, 30, 0.1),
     }
     cases = []
     for name, (cols, nl, nr, nulls) in small.items():
@@ -707,6 +888,13 @@ def probe_cases(device):
         rb, rk = _key_side({"k": (T.LONG, rv)}, 32, device)
         cases.append((name, probe_args(lk, lb.num_rows, rk, rb.num_rows),
                       64))
+    # a total past 2^31 - 1, where the int32 cum wraps: 2^16 probes and
+    # 2^15 + 1 build rows of one key
+    lb, lk = _key_side({"k": (T.LONG, [7] * (1 << 16))}, 1 << 16, device)
+    rb, rk = _key_side({"k": (T.LONG, [7] * ((1 << 15) + 1))}, 1 << 16,
+                       device)
+    cases.append(("wrapped total", probe_args(lk, lb.num_rows, rk,
+                                              rb.num_rows), 1 << 20))
     # 2^20 probes against 2^22 build rows, ~2 build rows per key, 20% of
     # the probes without a partner
     n_l, n_r, span = 1 << 20, 1 << 22, 1 << 21
@@ -768,12 +956,15 @@ def probe_bytes(args, pair_cap: int) -> int:
 
 def probe_numbers(args, pair_cap: int, label: str) -> dict:
     """joinProbe at one of Q3's join shapes: wrapper ms, kernel alone (the
-    call's four launches replayed from a CUDA graph), plain ms, bound."""
+    call's two launches replayed from a CUDA graph), each launch's device
+    ms (torch.profiler), plain ms, bound."""
     from spark_rapids_tpu_torch.kernels import cuda_tier
     out = kernel_numbers(
         lambda: cuda_tier.probe_join(*args, pair_cap),
         lambda: cuda_tier.probe_join_reference(*args, pair_cap),
         probe_bytes(args, pair_cap))
+    out["launch_ms"] = launch_ms(lambda: cuda_tier.probe_join(*args,
+                                                              pair_cap))
     out["shape"] = (f"{label}: {int(args[0].numel())} probe rows, "
                     f"{int(args[2].numel())} build rows, "
                     f"{int(args[4].shape[0])} key words, pair_cap {pair_cap}")
@@ -940,7 +1131,10 @@ def main() -> int:
 
     cases = check_pack_matrix(device)
     print(f"kernel phase: gatherScatter == plain version over {cases} "
-          "cases", flush=True)
+          "single-buffer cases", flush=True)
+    cases = check_columns_matrix(device)
+    print(f"kernel phase: gatherScatter (every buffer of a concat) == plain "
+          f"version over {cases} cases", flush=True)
     probe_matrix = probe_cases(device)
     for label, args, pair_cap in probe_matrix:
         check_probe(args, pair_cap, label)
@@ -966,28 +1160,24 @@ def main() -> int:
     multi = run_query(df, f"{len(parts)} batches", ref)
     _require(multi, "headline", ["gatherScatter"])
 
-    # gatherScatter at the headline's own shapes: the merge's partials
+    # gatherScatter at the headline's own shape: the merge's concat of
+    # its partials, every buffer in one call
     partials = merge_partials(session, device)
-    ns = [int(p.num_rows) for p in partials]
-    out_cap = max(8, 1 << (sum(ns) - 1).bit_length())
+    columns, ns, out_cap, byte_caps = batch_columns(partials)
+    check_columns(columns, ns, out_cap, byte_caps, "merge partials")
     max_err = 0.0
-    for ci in range(len(partials[0].columns)):
-        for buf in ("data", "validity"):
-            arrays = [getattr(p.columns[ci], buf) for p in partials]
-            got = cuda_tier.pack_segments(arrays, [0] * len(ns), ns, out_cap)
-            want = cuda_tier.pack_segments_reference(arrays, [0] * len(ns),
-                                                     ns, out_cap)
-            if not torch.equal(got, want):
-                raise AssertionError(f"gatherScatter != plain version on "
-                                     f"merge column {ci} {buf}")
-            if got.is_floating_point():
-                max_err = max(max_err, float((got - want).abs().max()))
-    sum_col = partials[0].schema.index_of("__buf_0_0")  # f64 sum_rev
-    main_shape = _pack_numbers([p.columns[sum_col].data for p in partials],
-                               [0] * len(ns), ns, out_cap, device)
-    main_shape["shape"] = (f"{len(ns)} partials of capacity "
-                           f"{partials[0].capacity}, {sum(ns)} live f64 "
-                           f"rows -> out_cap {out_cap}")
+    for (gd, _, _), (wd, _, _) in zip(
+            cuda_tier.pack_columns(columns, ns, out_cap, byte_caps),
+            cuda_tier.pack_columns_reference(columns, ns, out_cap,
+                                             byte_caps)):
+        if gd.is_floating_point():
+            max_err = max(max_err, float((gd - wd).abs().max()))
+    main_shape = _concat_numbers(columns, ns, out_cap, byte_caps, device)
+    main_shape["shape"] = (f"the merge's concat: {len(ns)} partials of "
+                           f"capacity {partials[0].capacity}, "
+                           f"{main_shape['live_rows']} live rows, "
+                           f"{main_shape['buffers']} buffers -> out_cap "
+                           f"{out_cap}")
     n_bw = 1 << 20
     bw_arrays = [torch.arange(n_bw, dtype=torch.int64, device=device) + j
                  for j in range(16)]
@@ -1019,6 +1209,19 @@ def main() -> int:
     q1 = run_path(li_df, q1_query, lambda rows: check_string_rows(
         rows, q1_names, q1_ref, "Q1"), "Q1")
     _require(q1, "Q1", ["gatherScatter", "stringHash"])
+    # gatherScatter over string buffers: a concat of the cached lineitem
+    # batches, every column (the string ones among them)
+    li_args = batch_columns(li_df.plan.holder.partitions[0])
+    check_columns(*li_args, "lineitem batches")
+    strings_shape = _concat_numbers(*li_args, device)
+    strings_shape["shape"] = (
+        f"lineitem's {len(li_args[1])} cached batches, "
+        f"{strings_shape['live_rows']} rows, {strings_shape['buffers']} "
+        f"buffers ({len(li_args[3])} string columns) -> out_cap "
+        f"{li_args[2]}")
+    print(f"gatherScatter strings shape: {json.dumps(strings_shape)}",
+          flush=True)
+    del li_args
     del lineitem, li_parts
 
     # ---- main path: the part query ----------------------------------------
@@ -1183,7 +1386,8 @@ def main() -> int:
 
     kernels = [
         entry("gatherScatter", main_shape, max_err,
-              paths["headline"]["gatherScatter"], bandwidth=bandwidth),
+              paths["headline"]["gatherScatter"], bandwidth=bandwidth,
+              strings=strings_shape),
         entry("stringHash", hash_main, h_err,
               sum(paths[p]["stringHash"] for p in (
                   "Q1", "part", "Q3 host-driven", "Q3 mesh-fused",

@@ -14,12 +14,15 @@ Contract of every wrapper here:
 * the kernel launches on ``torch.cuda.current_stream()``, allocates nothing
   itself (the wrapper allocates with ``torch.empty``) and its C entry point
   returns ``cudaGetLastError()``, which the wrapper turns into an exception;
-* each launch adds one to :func:`launch_count` for the kernel's name, so a
-  run can show that its path went through the kernel.
+* each call that launches adds to :func:`launch_count` for the kernel's
+  name, so a run can show that its path went through the kernel: one per
+  launch for gatherScatter, one per call for the others (joinProbe's call
+  is two launches).
 
-Kernels: ``gatherScatter`` (:func:`pack_segments`), the k-way segment pack
-behind ``layout.concat_kway``; ``stringHash`` (:func:`string_hash_rows`),
-the dual polynomial row hashes behind string grouping, equality and sort
+Kernels: ``gatherScatter``, the k-way segment pack (:func:`pack_columns`:
+every buffer of ``layout.concat_kway`` in one launch; :func:`pack_segments`:
+one buffer with any windows); ``stringHash`` (:func:`string_hash_rows`), the
+dual polynomial row hashes behind string grouping, equality and sort
 tie-breaks; ``strings`` (:func:`rows_with_match`), the contains scan behind
 ``LIKE '%needle%'``; ``joinProbe`` (:func:`probe_join`), the candidate
 phase of the static equi-join (``join.join_pairs_static``).
@@ -27,6 +30,7 @@ phase of the static equi-join (``join.join_pairs_static``).
 
 from __future__ import annotations
 
+import array
 import ctypes
 import os
 import shutil
@@ -48,10 +52,6 @@ SOURCES = {"gatherScatter": "pack_segments.cu",
            "stringHash": "string_hash.cu",
            "strings": "contains.cu",
            "joinProbe": "probe_join.cu"}
-
-#: inputs one gatherScatter launch takes (the kernel's by-value pointer
-#: table, ``kMaxInputs`` in pack_segments.cu); more are packed in groups
-PACK_MAX_INPUTS = 64
 
 #: bases of the two row hashes and the length mix (the JAX package's
 #: ``exprs/strings.py`` ``_HASH_BASES`` and ``0x9E3779B9``)
@@ -139,16 +139,11 @@ def load(name: str) -> ctypes.CDLL:
         build_all([name])
     lib = ctypes.CDLL(str(_lib_path(name)))
     if name == "gatherScatter":
-        ptr_array = ctypes.POINTER(ctypes.c_void_p)
-        lib.srt_pack_segments.argtypes = [
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ptr_array,
-            ctypes.POINTER(ctypes.c_longlong), ptr_array, ptr_array,
-            ctypes.c_int, ctypes.c_void_p]
-        lib.srt_pack_segments.restype = ctypes.c_int
-        lib.srt_max_inputs.restype = ctypes.c_int
-        if lib.srt_max_inputs() != PACK_MAX_INPUTS:
-            raise RuntimeError("pack_segments.cu and cuda_tier disagree on "
-                               "the inputs one launch takes")
+        lib.srt_pack_multi.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_int),
+            ctypes.c_void_p]
+        lib.srt_pack_multi.restype = ctypes.c_int
+        lib.srt_pack_max_words.restype = ctypes.c_int
     elif name == "stringHash":
         lib.srt_string_hash.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
@@ -162,14 +157,29 @@ def load(name: str) -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p]
         lib.srt_contains.restype = ctypes.c_int
     elif name == "joinProbe":
+        lib.srt_probe_join_workspace.argtypes = [
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.POINTER(ctypes.c_longlong)]
+        lib.srt_probe_join_workspace.restype = ctypes.c_longlong
         lib.srt_probe_join.argtypes = (
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong] +
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong] +
             [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong] +
-            [ctypes.c_void_p] * 9)
+            [ctypes.c_void_p] * 2)
         lib.srt_probe_join.restype = ctypes.c_int
     _libs[name] = lib
     return lib
+
+
+def _launch(device: torch.device, fn, *args) -> int:
+    """``fn(*args, stream)`` on ``device``'s current stream, entering the
+    device's context only when it is not the current device already.
+    Returns the C entry point's error code."""
+    if device.index is not None and \
+            device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    return fn(*args, torch.cuda.current_stream(device).cuda_stream)
 
 
 # ---------------------------------------------------------------------------
@@ -236,6 +246,69 @@ def pack_segments_reference(arrays: Sequence[torch.Tensor], los, his,
     return out[:out_cap]
 
 
+def pack_columns_reference(columns, num_rows, out_cap: int,
+                           byte_caps: Sequence[int]) -> list:
+    """Plain PyTorch concat of every buffer of k batches: the port of the
+    JAX package's ``layout.concat_kway`` body.  Each buffer is one
+    :func:`pack_segments_reference` over the row windows ``[0,
+    num_rows[j])``; a string column's bytes are packed over ``[0,
+    offsets_j[num_rows[j]])`` and its offsets rebuilt from one int32
+    cumsum of the packed row lengths.  Arguments as :func:`pack_columns`."""
+    zeros = [0] * len(num_rows)
+    out = []
+    str_i = 0
+    for parts in columns:
+        validity = pack_segments_reference([p[1] for p in parts], zeros,
+                                           num_rows, out_cap)
+        if parts[0][2] is None:
+            data = pack_segments_reference([p[0] for p in parts], zeros,
+                                           num_rows, out_cap)
+            out.append((data, validity, None))
+            continue
+        offs = [p[2] for p in parts]
+        lens = pack_segments_reference([o[1:] - o[:-1] for o in offs],
+                                       zeros, num_rows, out_cap)
+        offsets = torch.cat([
+            torch.zeros(1, dtype=torch.int32, device=lens.device),
+            torch.cumsum(lens, 0, dtype=torch.int32)])
+        data = pack_segments_reference(
+            [p[0] for p in parts], zeros,
+            [o[n.reshape(()).long()] for o, n in zip(offs, num_rows)],
+            byte_caps[str_i])
+        str_i += 1
+        out.append((data, validity, offsets))
+    return out
+
+
+#: a buffer whose int32 output is rebuilt string offsets, not a copy
+#: (``kKindOffsets`` in pack_segments.cu)
+_KIND_OFFSETS = 1
+_pack_max_words = 0  # the library's kLargeWords, read at first launch
+
+
+def _pack_max_inputs(n_sets: int) -> int:
+    """Inputs per buffer that one launch's table holds with ``n_sets``
+    window sets and one buffer (header 3 words, 4 per input and set, a
+    buffer 4 + one per input)."""
+    global _pack_max_words
+    if not _pack_max_words:
+        _pack_max_words = load("gatherScatter").srt_pack_max_words()
+    return (_pack_max_words - 7) // (4 * n_sets + 1)
+
+
+def _run_pack(desc: list, device: torch.device) -> None:
+    """Launch gatherScatter over a table of int64 words (the layout in
+    pack_segments.cu) and count its launches."""
+    lib = load("gatherScatter")
+    launches = ctypes.c_int(0)
+    table = array.array("q", desc)
+    err = _launch(device, lib.srt_pack_multi, table.buffer_info()[0],
+                  len(table), ctypes.byref(launches))
+    if err != 0:
+        raise RuntimeError(f"gatherScatter launch failed: CUDA error {err}")
+    _launches["gatherScatter"] += launches.value
+
+
 def pack_segments(arrays: Sequence[torch.Tensor], los, his,
                   out_cap: int) -> torch.Tensor:
     """K-way segment pack: ``out[dst_j + t] = arrays[j][los[j] + t]`` for
@@ -266,20 +339,18 @@ def pack_segments(arrays: Sequence[torch.Tensor], los, his,
         return pack_segments_reference(arrays, los, his, out_cap)
     if device.type != "cuda":
         raise ValueError(f"pack_segments has no kernel for {device}")
-    width = a0.element_size()
-    if width not in (1, 2, 4, 8) or dtype.is_complex:
+    if dtype.is_complex or a0.element_size() not in (1, 2, 4, 8):
         raise ValueError(f"pack_segments has no kernel for {dtype}")
-    for a in arrays:
-        if not a.is_contiguous():
-            raise ValueError("pack_segments inputs must be contiguous")
+    ptrs = _pointers("pack_segments", arrays, dtype, device.index)
     k = len(arrays)
-    if k > PACK_MAX_INPUTS:
+    limit = _pack_max_inputs(1)
+    if k > limit:
         # pack groups into intermediates, then pack the intermediates
         los_t = _index_vector(los, device)
         his_t = _index_vector(his, device)
         parts, totals = [], []
-        for g in range(0, k, PACK_MAX_INPUTS):
-            sl = slice(g, g + PACK_MAX_INPUTS)
+        for g in range(0, k, limit):
+            sl = slice(g, g + limit)
             cap_g = sum(int(a.shape[0]) for a in arrays[sl])
             parts.append(pack_segments(arrays[sl], los_t[sl], his_t[sl],
                                        cap_g))
@@ -292,18 +363,143 @@ def pack_segments(arrays: Sequence[torch.Tensor], los, his,
     keep: list = []
     lo_ptrs = _bound_pointers(los, sizes, device, True, keep)
     hi_ptrs = _bound_pointers(his, sizes, device, False, keep)
-    void_k = ctypes.c_void_p * k
-    lib = load("gatherScatter")
-    with torch.cuda.device(device):
-        err = lib.srt_pack_segments(
-            out.data_ptr(), out_cap, width,
-            void_k(*[a.data_ptr() for a in arrays]),
-            (ctypes.c_longlong * k)(*sizes), void_k(*lo_ptrs),
-            void_k(*hi_ptrs), k, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"gatherScatter launch failed: CUDA error {err}")
-    _launches["gatherScatter"] += 1
+    desc = [k, 1, 1]
+    for lo, hi, n in zip(lo_ptrs, hi_ptrs, sizes):
+        desc += (lo or 0, hi or 0, 0, n)
+    desc += (out.data_ptr(), out_cap, a0.element_size(), 0)
+    desc += ptrs
+    _run_pack(desc, device)
     return out
+
+
+def pack_columns(columns, num_rows, out_cap: int,
+                 byte_caps: Sequence[int]) -> list:
+    """Every buffer of a k-way concat of batches, in one gatherScatter
+    launch: each column's validity and data, each string column's bytes
+    and rebuilt offsets.
+
+    ``columns`` holds, per column, the k batches' ``(data, validity,
+    offsets)`` (offsets ``None`` for a fixed-width column); ``num_rows``
+    the k batches' live-row counts as 0-d int32 tensors on the device;
+    ``byte_caps`` each string column's output byte capacity, in column
+    order.  Returns per column ``(data, validity, offsets)`` of capacity
+    ``out_cap``: the live rows (and bytes) of the batches in order, zeros
+    past the live totals, and offsets constant past the live rows.  String
+    offsets start at 0.  CPU tensors take :func:`pack_columns_reference`;
+    on CUDA the kernel reads each ``num_rows`` and each string's live byte
+    end ``offsets[num_rows]`` itself: no host sync."""
+    device = num_rows[0].device
+    if device.type == "cpu":
+        return pack_columns_reference(columns, num_rows, out_cap, byte_caps)
+    if device.type != "cuda":
+        raise ValueError(f"pack_columns has no kernel for {device}")
+    if not 0 <= out_cap < 2 ** 31:
+        raise ValueError(f"out_cap {out_cap} outside [0, 2^31)")
+    k = len(num_rows)
+    strings = [ci for ci, parts in enumerate(columns)
+               if parts[0][2] is not None]
+    if len(byte_caps) != len(strings):
+        raise ValueError(f"pack_columns: {len(byte_caps)} byte capacities "
+                         f"for {len(strings)} string columns")
+    n_sets = 1 + len(strings)
+    limit = _pack_max_inputs(n_sets)
+    if k > limit:
+        return _pack_columns_grouped(columns, num_rows, out_cap, byte_caps,
+                                     limit)
+    desc, out = _pack_columns_table(columns, num_rows, out_cap, byte_caps,
+                                    device)
+    _run_pack(desc, device)
+    return out
+
+
+def _pointers(fn: str, tensors, dtype, index: int, lengths=None) -> list:
+    """Device addresses of ``tensors`` after the checks the kernel needs:
+    ``dtype``, contiguous, on device ``index`` and, where ``lengths`` is
+    given, that many elements each (one pass: a concat checks hundreds)."""
+    out = []
+    for t, n in zip(tensors, lengths or [None] * len(tensors)):
+        if t.dtype != dtype or (n is not None and t.numel() != n) or \
+                not t.is_contiguous() or t.get_device() != index:
+            raise ValueError(
+                f"{fn}: expected contiguous {dtype} buffers on device "
+                f"{index}" + ("" if n is None else f" of {n} elements") +
+                f", got {t.dtype} {tuple(t.shape)} on {t.device}")
+        out.append(t.data_ptr())
+    return out
+
+
+def _pack_columns_table(columns, num_rows, out_cap, byte_caps, device):
+    """gatherScatter's launch table for :func:`pack_columns` (the int64
+    words of pack_segments.cu's layout) and the outputs it writes."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    ns = []
+    for n in num_rows:
+        if n.numel() != 1 or n.get_device() != index:
+            raise ValueError(f"pack_columns: num_rows must be scalars on "
+                             f"{device}, got {tuple(n.shape)} on {n.device}")
+        if n.dtype != torch.int32:  # freed in stream order, after the read
+            n = n.to(torch.int32)
+        ns.append(n.data_ptr())
+    caps = [int(v.shape[0]) for _, v, _ in columns[0]]
+    strings = [parts for parts in columns if parts[0][2] is not None]
+    desc = [len(ns), 1 + len(strings), 2 * len(columns) + len(strings)]
+    for n, cap in zip(ns, caps):  # set 0: the row windows
+        desc += (0, n, 0, cap)
+    for parts in strings:  # set 1 + s: string s's byte windows
+        offs = _pointers("pack_columns", [o for _, _, o in parts],
+                         torch.int32, index, [c + 1 for c in caps])
+        for (d, _, _), n, o in zip(parts, ns, offs):
+            desc += (0, n, o, d.shape[0])
+    out = []
+    str_i = 0
+    for parts in columns:
+        data0, _, offs0 = parts[0]
+        validity = torch.empty(out_cap, dtype=torch.bool, device=device)
+        desc += (validity.data_ptr(), out_cap, 1, 0)
+        desc += _pointers("pack_columns", [v for _, v, _ in parts],
+                          torch.bool, index, caps)
+        if offs0 is None:
+            if data0.dtype.is_complex or \
+                    data0.element_size() not in (1, 2, 4, 8):
+                raise ValueError(
+                    f"pack_columns has no kernel for {data0.dtype}")
+            data = torch.empty(out_cap, dtype=data0.dtype, device=device)
+            desc += (data.data_ptr(), out_cap, data0.element_size(), 0)
+            desc += _pointers("pack_columns", [d for d, _, _ in parts],
+                              data0.dtype, index, caps)
+            out.append((data, validity, None))
+            continue
+        str_i += 1
+        data = torch.empty(byte_caps[str_i - 1], dtype=torch.uint8,
+                           device=device)
+        desc += (data.data_ptr(), byte_caps[str_i - 1], 1 | str_i << 16, 0)
+        desc += _pointers("pack_columns", [d for d, _, _ in parts],
+                          torch.uint8, index)
+        offsets = torch.empty(out_cap + 1, dtype=torch.int32, device=device)
+        desc += (offsets.data_ptr(), out_cap + 1, 4 | _KIND_OFFSETS << 8, 0)
+        desc += [o.data_ptr() for _, _, o in parts]
+        out.append((data, validity, offsets))
+    return desc, out
+
+
+def _pack_columns_grouped(columns, num_rows, out_cap, byte_caps, limit):
+    """:func:`pack_columns` of more batches than one launch's table holds:
+    concat groups of ``limit`` batches into intermediates (capacities the
+    sums of their inputs'), then concat the intermediates.  Concatenation
+    is associative, so the buffers are the one-launch result's."""
+    groups, group_rows = [], []
+    for g in range(0, len(num_rows), limit):
+        sl = slice(g, g + limit)
+        cols = [parts[sl] for parts in columns]
+        caps = [int(v.shape[0]) for _, v, _ in cols[0]]
+        bcaps = [sum(int(d.shape[0]) for d, _, _ in parts)
+                 for parts in cols if parts[0][2] is not None]
+        groups.append(pack_columns(cols, num_rows[sl], sum(caps), bcaps))
+        group_rows.append(torch.stack(list(num_rows[sl])).sum()
+                          .to(torch.int32))
+    merged = [[g[ci] for g in groups] for ci in range(len(columns))]
+    return pack_columns(merged, group_rows, out_cap, byte_caps)
 
 
 # ---------------------------------------------------------------------------
@@ -410,12 +606,10 @@ def string_hash_rows(data: torch.Tensor, offsets: torch.Tensor) -> tuple:
     h2 = torch.empty(cap, dtype=torch.int64, device=data.device)
     if cap == 0:
         return h1, h2
-    lib = load("stringHash")
-    with torch.cuda.device(data.device):
-        err = lib.srt_string_hash(
-            data.data_ptr(), int(data.numel()), offsets.data_ptr(), cap,
-            HASH_BASES[0], HASH_BASES[1], HASH_GOLDEN, h1.data_ptr(),
-            h2.data_ptr(), torch.cuda.current_stream(data.device).cuda_stream)
+    err = _launch(data.device, load("stringHash").srt_string_hash,
+                  data.data_ptr(), int(data.numel()), offsets.data_ptr(), cap,
+                  HASH_BASES[0], HASH_BASES[1], HASH_GOLDEN, h1.data_ptr(),
+                  h2.data_ptr())
     if err != 0:
         raise RuntimeError(f"stringHash launch failed: CUDA error {err}")
     _launches["stringHash"] += 1
@@ -488,12 +682,9 @@ def rows_with_match(data: torch.Tensor, offsets: torch.Tensor,
     if cap == 0:
         return out
     dev_needle = _device_needle(needle, data.device)
-    lib = load("strings")
-    with torch.cuda.device(data.device):
-        err = lib.srt_contains(
-            data.data_ptr(), int(data.numel()), offsets.data_ptr(), cap,
-            dev_needle.data_ptr(), len(needle), out.data_ptr(),
-            torch.cuda.current_stream(data.device).cuda_stream)
+    err = _launch(data.device, load("strings").srt_contains,
+                  data.data_ptr(), int(data.numel()), offsets.data_ptr(), cap,
+                  dev_needle.data_ptr(), len(needle), out.data_ptr())
     if err != 0:
         raise RuntimeError(f"strings (contains) launch failed: CUDA error "
                            f"{err}")
@@ -504,10 +695,6 @@ def rows_with_match(data: torch.Tensor, offsets: torch.Tensor,
 # ---------------------------------------------------------------------------
 # joinProbe: the static join's candidate phase
 # ---------------------------------------------------------------------------
-
-#: probe rows one block of the kernel's first launch scans (``kTile``)
-PROBE_TILE = 1024
-
 
 def probe_join_reference(l_h1, l_mask, r_sorted, perm, a_words, a_valid,
                          b_words, b_valid, pair_cap: int) -> tuple:
@@ -575,8 +762,9 @@ def probe_join(l_h1, l_mask, r_sorted, perm, a_words, a_valid, b_words,
     values) and ``a_valid``/``b_valid`` bool[cap].  Returns ``(probe_row
     int32[pair_cap], build_row int32[pair_cap], match bool[pair_cap],
     total int64)``; ``probe_row`` is sorted.  CPU tensors take
-    :func:`probe_join_reference`; CUDA tensors launch the kernel (four
-    launches, no host sync: ``total`` stays on the device)."""
+    :func:`probe_join_reference`; CUDA tensors launch the kernel (two
+    launches, no host sync: ``total`` stays on the device; the outputs are
+    views of one workspace allocation that also holds the scratch)."""
     _check_probe_inputs(l_h1, l_mask, r_sorted, perm, a_words, a_valid,
                         b_words, b_valid, pair_cap)
     if l_h1.device.type == "cpu":
@@ -587,27 +775,22 @@ def probe_join(l_h1, l_mask, r_sorted, perm, a_words, a_valid, b_words,
     _checked_cuda("probe_join", *inputs)
     device = l_h1.device
     l_cap, r_cap = int(l_h1.shape[0]), int(r_sorted.shape[0])
-    n_tiles = -(-l_cap // PROBE_TILE)
-
-    def empty(n, dtype):
-        return torch.empty(n, dtype=dtype, device=device)
-
-    lo, cum = empty(l_cap, torch.int32), empty(l_cap, torch.int32)
-    tile_sums, tile_offsets = empty(n_tiles, torch.int64), \
-        empty(n_tiles, torch.int32)
-    probe_row, build_row = empty(pair_cap, torch.int32), \
-        empty(pair_cap, torch.int32)
-    match, total = empty(pair_cap, torch.bool), empty((), torch.int64)
     lib = load("joinProbe")
-    with torch.cuda.device(device):
-        err = lib.srt_probe_join(
-            l_h1.data_ptr(), l_mask.data_ptr(), l_cap, r_sorted.data_ptr(),
-            perm.data_ptr(), r_cap, a_words.data_ptr(), a_valid.data_ptr(),
-            b_words.data_ptr(), b_valid.data_ptr(), int(a_words.shape[0]),
-            pair_cap, lo.data_ptr(), cum.data_ptr(), tile_sums.data_ptr(),
-            tile_offsets.data_ptr(), probe_row.data_ptr(),
-            build_row.data_ptr(), match.data_ptr(), total.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
+    at = (ctypes.c_longlong * 4)()
+    nbytes = lib.srt_probe_join_workspace(l_cap, r_cap, pair_cap, at)
+    # one allocation: the outputs, then the kernel's scratch
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    words = ws.view(torch.int32)  # every offset is 256-byte aligned
+    probe_row = words[at[0] // 4:at[0] // 4 + pair_cap]
+    build_row = words[at[1] // 4:at[1] // 4 + pair_cap]
+    match = ws[at[2]:at[2] + pair_cap].view(torch.bool)
+    total = ws.view(torch.int64)[at[3] // 8]
+    err = _launch(device, lib.srt_probe_join,
+                  l_h1.data_ptr(), l_mask.data_ptr(), l_cap,
+                  r_sorted.data_ptr(), perm.data_ptr(), r_cap,
+                  a_words.data_ptr(), a_valid.data_ptr(), b_words.data_ptr(),
+                  b_valid.data_ptr(), int(a_words.shape[0]), pair_cap,
+                  ws.data_ptr())
     if err != 0:
         raise RuntimeError(f"joinProbe launch failed: CUDA error {err}")
     _launches["joinProbe"] += 1

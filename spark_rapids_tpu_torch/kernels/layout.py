@@ -26,11 +26,6 @@ def _count(n, device) -> torch.Tensor:
     return device_scalar(n, device)
 
 
-def _at(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
-    """``t[i]`` for a 0-d device index, as a gather (no host sync)."""
-    return t.index_select(0, i.reshape(1).to(torch.int64)).reshape(())
-
-
 def _gather_string_column(col: DeviceColumn, idx: torch.Tensor,
                           live: torch.Tensor, out_cap: int,
                           out_byte_cap: int) -> DeviceColumn:
@@ -124,59 +119,33 @@ def take_head(batch: ColumnBatch, limit) -> ColumnBatch:
     return ColumnBatch(batch.schema, batch.columns, n, batch.capacity)
 
 
-def _pack_kway(vals_list, los, his, out_cap: int) -> torch.Tensor:
-    """K-way segment pack: input j's window ``[los[j], his[j])`` lands at
-    the running output offset ``sum(his[:j] - los[:j])``; zeros elsewhere.
-    Every element width goes through the gatherScatter kernel on CUDA."""
-    return cuda_tier.pack_segments(vals_list, los, his, out_cap)
-
-
 def concat_kway(batches: Sequence[ColumnBatch], out_capacity: int,
                 out_byte_caps: Optional[Sequence[int]] = None
                 ) -> ColumnBatch:
-    """Concatenate k batches (same schema) into ONE output allocation:
-    every input's live rows (and, for strings, live bytes) are written once
-    at their running offset.  Output rows past the live total are zeros;
-    string offsets are rebuilt from one cumsum of the packed live lengths.
+    """Concatenate k batches (same schema) into ONE output allocation per
+    buffer: every input's live rows (and, for strings, live bytes
+    ``[0, offsets[num_rows])``) are written once at their running offset,
+    all buffers in one gatherScatter launch on CUDA
+    (:func:`cuda_tier.pack_columns`).  Output rows past the live total are
+    zeros; string offsets are the cumsum of the packed live lengths.
     ``out_byte_caps`` defaults to the summed input byte capacities."""
     if not batches:
         raise ValueError("concat_kway needs at least one batch")
     if len(batches) == 1:
         return batches[0]
     schema = batches[0].schema
-    for b in batches[1:]:
-        if b.schema != schema:
+    for b in batches[1:]:  # partials of one exec share their schema object
+        if b.schema is not schema and b.schema != schema:
             raise ValueError(f"{b.schema} != {schema}")
-    dev = batches[0].device
     ns = [b.num_rows for b in batches]
     total = torch.stack(ns).sum().to(torch.int32)
-    zeros_lo = [device_scalar(0, dev)] * len(batches)
-
-    def pack_rows(values_per_batch):
-        return _pack_kway(values_per_batch, zeros_lo, ns, out_capacity)
-
-    cols = []
-    str_i = 0
-    for ci, f in enumerate(schema.fields):
-        parts = [b.columns[ci] for b in batches]
-        validity = pack_rows([c.validity for c in parts])
-        if parts[0].is_varlen:
-            bcap = (out_byte_caps[str_i] if out_byte_caps is not None
-                    else sum(int(c.data.shape[0]) for c in parts))
-            str_i += 1
-            lens = pack_rows([(c.offsets[1:] - c.offsets[:-1]) for c in parts])
-            new_offsets = torch.cat([
-                torch.zeros(1, dtype=torch.int32, device=dev),
-                torch.cumsum(lens, 0, dtype=torch.int32)])
-            # LIVE bytes only (offsets[num_rows], not offsets[-1]):
-            # take_head lowers num_rows without repacking, so dead rows'
-            # bytes must neither advance the cursor nor be copied
-            data = _pack_kway([c.data for c in parts], zeros_lo,
-                              [_at(c.offsets, n) for c, n in zip(parts, ns)],
-                              bcap)
-            cols.append(DeviceColumn(f.dtype, data, validity, new_offsets))
-        else:
-            cols.append(DeviceColumn(f.dtype, pack_rows([c.data
-                                                         for c in parts]),
-                                     validity))
+    columns = [[(c.data, c.validity, c.offsets) for c in parts]
+               for parts in zip(*(b.columns for b in batches))]
+    if out_byte_caps is None:
+        out_byte_caps = [sum(int(d.shape[0]) for d, _, _ in parts)
+                         for parts in columns if parts[0][2] is not None]
+    packed = cuda_tier.pack_columns(columns, ns, out_capacity,
+                                    list(out_byte_caps))
+    cols = [DeviceColumn(f.dtype, data, validity, offsets)
+            for f, (data, validity, offsets) in zip(schema.fields, packed)]
     return ColumnBatch(schema, cols, total, out_capacity)

@@ -88,6 +88,10 @@ def _case(name):
                  "t": (JT.STRING, _pick(rng, strs, 24, 0.05)),
                  "w": (JT.DOUBLE, [i / 4 for i in range(24)])},
                 (["a", "s"], ["b", "t"]), 64, 32)
+    if name == "dup-heavy":  # long runs of one key on both sides
+        return ({"k": (JT.LONG, _pick(rng, [1, 2], 24, 0.1))},
+                {"k": (JT.LONG, _pick(rng, [1, 2, 3], 30, 0.0))},
+                ["k"], 32, 32)
     if name == "h1-collision":
         return ({"k": (JT.LONG, [COLLIDE[0], 7, COLLIDE[0], None, 3])},
                 {"k": (JT.LONG, [COLLIDE[1], COLLIDE[1], 7, COLLIDE[0]])},
@@ -173,8 +177,10 @@ def test_join_pairs_matches_jax(case):
 
 
 @pytest.mark.parametrize("case,pair_cap", [(c, 128) for c in CASES] + [
-    ("long-many-to-many", 32), ("string", 16)],
-    ids=CASES + ["pair-cap-below-total", "string-pair-cap-below-total"])
+    ("long-many-to-many", 32), ("string", 16), ("dup-heavy", 512),
+    ("dup-heavy", 64)],
+    ids=CASES + ["pair-cap-below-total", "string-pair-cap-below-total",
+                 "dup-heavy", "dup-heavy-pair-cap-below-total"])
 def test_join_pairs_static_matches_jax(monkeypatch, case, pair_cap):
     """The static pair list and joinProbe's raw candidates: the port's
     plain version equals the JAX Pallas kernel (interpret mode, no

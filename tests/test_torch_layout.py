@@ -117,6 +117,12 @@ SINGLE = {
     "s": (JT.STRING, ["one"]),
     "b": (JT.BOOLEAN, [None]),
 }
+EMPTY = {
+    "i": (JT.INT, []),
+    "f": (JT.FLOAT, []),
+    "s": (JT.STRING, []),
+    "b": (JT.BOOLEAN, []),
+}
 
 
 def _both(pydict):
@@ -128,7 +134,10 @@ def _both(pydict):
     ([MIXED, NULLY], 16, None),       # NULL-heavy second input
     ([SINGLE, SINGLE], 2, None),      # capacity boundary: cap == rows
     ([MIXED, SINGLE], 4, 2),          # take_head-truncated first input
-], ids=["mixed-nully", "single-boundary", "take-head"])
+    ([EMPTY, MIXED, EMPTY, NULLY], 16, None),  # inputs of no rows
+    ([NULLY, SINGLE, MIXED] * 3, 64, 0),       # nine inputs, head 0
+], ids=["mixed-nully", "single-boundary", "take-head", "empty-inputs",
+        "nine-inputs"])
 def test_concat_kway_matches_jax(dicts, cap, head):
     pairs = [_both(d) for d in dicts]
     if head is not None:
@@ -138,9 +147,43 @@ def test_concat_kway_matches_jax(dicts, cap, head):
         want = JL.concat_kway([p[0] for p in pairs], cap)
     got = L.concat_kway([p[1] for p in pairs], cap)
     assert_device_bits(want, got)
-    if head is not None:  # only the live window of the truncated input
+    if head == 2:  # only the live window of the truncated input
         from spark_rapids_tpu_torch.batch import device_to_host
         assert device_to_host(got).to_pydict()["s"] == ["bb", "", "one"]
+
+
+def _pack_args(batches):
+    columns = [[(c.data, c.validity, c.offsets) for c in parts]
+               for parts in zip(*(b.columns for b in batches))]
+    byte_caps = [sum(int(d.shape[0]) for d, _, _ in parts)
+                 for parts in columns if parts[0][2] is not None]
+    return columns, [b.num_rows for b in batches], byte_caps
+
+
+@pytest.mark.parametrize("limit", [1, 2, 4])
+def test_grouped_concat_equals_one_pack_and_jax(limit):
+    """More batches than one gatherScatter launch's table holds are packed
+    in groups of ``limit``, then the groups: the buffers equal one pack's
+    and the JAX package's concat_kway (take_head-truncated strings, a batch
+    of no rows, zero tails)."""
+    from spark_rapids_tpu_torch.batch import ColumnBatch, DeviceColumn
+    pairs = [_both(d) for d in (MIXED, EMPTY, NULLY, SINGLE, MIXED)]
+    pairs[0] = (JL.take_head(pairs[0][0], 4), L.take_head(pairs[0][1], 4))
+    with jax_tier(engaged=True):
+        want = JL.concat_kway([p[0] for p in pairs], 32)
+    batches = [p[1] for p in pairs]
+    columns, ns, byte_caps = _pack_args(batches)
+    got = cuda_tier._pack_columns_grouped(columns, ns, 32, byte_caps, limit)
+    one = cuda_tier.pack_columns(columns, ns, 32, byte_caps)
+    for g, o in zip(got, one):  # bit for bit (NaN among the floats)
+        for gb, ob in zip(g, o):
+            assert (gb is None) == (ob is None)
+            assert gb is None or torch.equal(gb.view(torch.uint8),
+                                             ob.view(torch.uint8))
+    cols = [DeviceColumn(f.dtype, d, v, o)
+            for f, (d, v, o) in zip(batches[0].schema.fields, got)]
+    assert_device_bits(want, ColumnBatch(
+        batches[0].schema, cols, torch.stack(ns).sum().to(torch.int32), 32))
 
 
 @pytest.mark.parametrize("num_rows", [0, 5, 7])
@@ -185,3 +228,45 @@ def test_pack_kernel_matches_plain_version_on_card(dtype):
     assert cuda_tier.launch_count("gatherScatter") == before + 1
     want = cuda_tier.pack_segments_reference(arrays, los, his, 70001)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n_strings", [(16, 2), (200, 6)])
+def test_concat_kernel_matches_plain_version_on_card(k, n_strings):
+    """Every buffer of a concat in one launch (k = 200 with six string
+    columns exceeds one launch's table: grouped packs) equals the plain
+    version, zero tails and rebuilt offsets included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    rng = np.random.RandomState(k + n_strings)
+    caps = [int(c) for c in rng.randint(1, 500, k)]
+    ns = [int(rng.randint(0, c + 1)) for c in caps]
+    columns = []
+    for dtype in DTYPES:
+        columns.append([
+            (torch.from_numpy(d).cuda(), torch.from_numpy(v).cuda(), None)
+            for d, v in zip(_arrays(rng, dtype, caps),
+                            _arrays(rng, "bool", caps))])
+    live = []
+    for _ in range(n_strings):
+        parts = []
+        for cap in caps:
+            offs = np.zeros(cap + 1, dtype=np.int32)
+            np.cumsum(rng.randint(0, 9, cap), out=offs[1:])
+            data = rng.randint(0, 256, int(offs[-1]) + 5).astype(np.uint8)
+            parts.append((torch.from_numpy(data).cuda(),
+                          torch.from_numpy(rng.rand(cap) < 0.9).cuda(),
+                          torch.from_numpy(offs).cuda()))
+        columns.append(parts)
+        live.append(sum(int(o[n]) for (_, _, o), n in zip(parts, ns)))
+    n_dev = [torch.tensor(n, dtype=torch.int32, device="cuda") for n in ns]
+    out_cap, byte_caps = sum(ns) + 7, [b + 3 for b in live]
+    got = cuda_tier.pack_columns(columns, n_dev, out_cap, byte_caps)
+    torch.cuda.synchronize()
+    want = cuda_tier.pack_columns_reference(columns, n_dev, out_cap,
+                                            byte_caps)
+    for g, w in zip(got, want):
+        for gb, wb in zip(g, w):
+            assert (gb is None) == (wb is None)
+            assert gb is None or torch.equal(gb.view(torch.uint8),
+                                             wb.view(torch.uint8))
