@@ -13,11 +13,14 @@ Phases, in order; any failure exits non-zero:
    (``torch.equal`` on the raw output) over a case matrix: gatherScatter
    over input counts (up to 1000, past one launch's table), widths and
    windows; stringHash over capacities 1,
-   511, 512, 513 and 2^20, an all-empty column, a 64 KiB row, multi-byte
-   UTF-8, NULL rows, rows past ``num_rows`` and garbage past
-   ``offsets[-1]``; contains over needles of 1, 5, 16 and 70 bytes,
-   matches at a row's first and last byte, needles spanning a row boundary
-   and a match ending exactly at ``offsets[-1]``; joinProbe (all four
+   511, 512, 513 and 2^20, an all-empty column, a 4 KiB row (inside a
+   contains tile's staged bytes) and a 64 KiB row (past them), multi-byte
+   UTF-8, NULL rows, rows past ``num_rows``, garbage past ``offsets[-1]`` and
+   byte buffers whose data_ptr() is not 16-byte aligned, then
+   ``string_hash_columns`` over six such columns in one launch; contains
+   over the same columns with needles of 1, 5, 16 and 70 bytes, matches at
+   a row's first and last byte, needles spanning a row boundary and a
+   match ending exactly at ``offsets[-1]``; joinProbe (all four
    outputs) over INT, LONG, DATE, DOUBLE, STRING and two-column keys,
    duplicates on both sides (long runs of one key too), NULL keys, a
    forced first-hash collision, empty sides, pair capacities below the
@@ -50,14 +53,21 @@ Phases, in order; any failure exits non-zero:
    each query must launch every kernel of its path;
 5. timings at the main paths' own shapes (gatherScatter: the headline
    merge's concat of its partials, every buffer, and a concat of the cached
-   lineitem batches with its string columns; joinProbe: the inputs Q3's
-   two joins handed it, and each of its launches by ``torch.profiler``),
+   lineitem batches with its string columns; stringHash: Q1's two keys
+   and the part query's two keys in one launch each and Q3's c_mktsegment,
+   each first held equal to its plain version, then an l_returnflag batch
+   and a p_type batch alone; contains: a p_name batch; for both, each
+   launch's device time by ``torch.profiler`` with its inputs in L2 and
+   with L2 flushed; joinProbe: the inputs Q3's two joins
+   handed it, and each of its launches by ``torch.profiler``),
    medians of CUDA-event timings: the wrapper call as the path makes it,
-   the kernel alone replayed from a CUDA graph, the plain version, the
+   the kernel alone (calls captured back to back in a CUDA graph, per
+   call), the plain version, the
    library call where one computes the same function (gatherScatter: one
-   ``torch.cat`` per buffer), and the bound (bytes moved / 3.35 TB/s; where the
-   bytes depend on the data, as joinProbe's build-side reads do, what this
-   run's inputs need).
+   ``torch.cat`` per buffer), and the bound (bytes moved / 3.35 TB/s, each
+   input read once and each output written once, stringHash's output as
+   the function's two u32 a row; where the bytes depend on the data, as
+   joinProbe's build-side reads do, what this run's inputs need).
 
 Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -97,6 +107,22 @@ def card_line() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def graph_ms(call, launches: int = 20) -> float:
+    """The launches of one ``call()`` alone, without its host work:
+    ``launches`` calls captured back to back in one CUDA graph and
+    replayed, the median of CUDA-event timings divided by ``launches``.
+    (A graph of one call, replayed on an idle stream, also times the host's
+    submission of the graph: 10-15 us beside an H100, more than a short
+    kernel takes.)"""
+    import torch
+    call()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            call()
+    return time_ms(graph.replay) / launches
 
 
 def time_ms(fn, reps: int = 30, warmup: int = 5) -> float:
@@ -265,7 +291,8 @@ def check_columns_matrix(device) -> int:
     return cases
 
 
-def _concat_numbers(columns, ns, out_cap, byte_caps, device):
+def _concat_numbers(columns, ns, out_cap, byte_caps, device,
+                    launches: int = 20):
     """One whole concat (every buffer): the wrapper, the launch alone, the
     plain version, and the library (one ``torch.cat`` per buffer of the
     host-known live windows into a preallocated output; string offsets
@@ -307,12 +334,8 @@ def _concat_numbers(columns, ns, out_cap, byte_caps, device):
     def call():
         return cuda_tier.pack_columns(columns, ns, out_cap, byte_caps)
 
-    call()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        call()
     return {
-        "ms": time_ms(call), "kernel_only_ms": time_ms(graph.replay),
+        "ms": time_ms(call), "kernel_only_ms": graph_ms(call, launches),
         "plain_ms": time_ms(lambda: cuda_tier.pack_columns_reference(
             columns, ns, out_cap, byte_caps), reps=10, warmup=2),
         "library_ms": time_ms(library),
@@ -352,15 +375,12 @@ def _pack_numbers(arrays, los, his, out_cap, device):
     def library():  # one torch.cat into a preallocated output
         torch.cat(windows, out=out[:live])
 
-    # the kernel alone, without the wrapper's host work: one captured
-    # launch replayed from a CUDA graph
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        cuda_tier.pack_segments(arrays, lo_t, hi_t, out_cap)
+    def call():
+        return cuda_tier.pack_segments(arrays, lo_t, hi_t, out_cap)
+
     return {
-        "ms": time_ms(lambda: cuda_tier.pack_segments(arrays, lo_t, hi_t,
-                                                      out_cap)),
-        "kernel_only_ms": time_ms(graph.replay),
+        "ms": time_ms(call),
+        "kernel_only_ms": graph_ms(call, launches=4),
         "plain_ms": time_ms(lambda: cuda_tier.pack_segments_reference(
             arrays, lo_t, hi_t, out_cap)),
         "library_ms": time_ms(library),
@@ -557,10 +577,26 @@ NEEDLES = [b"g", b"green", b"g" * 16, b"q" * 70, b"greene", b"deab",
            "\u00e9".encode()]
 
 
+def unaligned(data, shift: int = 3):
+    """A view of ``data``'s bytes whose data_ptr() is ``shift`` bytes past
+    a 16-byte boundary."""
+    import torch
+    buf = torch.zeros(data.numel() + 16, dtype=torch.uint8,
+                      device=data.device)
+    at = (shift - buf.data_ptr()) % 16
+    view = buf[at:at + data.numel()]
+    view.copy_(data)
+    return view
+
+
 def check_string_matrix(device, big_columns) -> int:
     """stringHash and contains against their plain versions, raw outputs
     equal (torch.equal).  ``big_columns`` are 2^20-row (data, offsets)
-    pairs from the main paths' cached batches.  Returns the case count."""
+    pairs from the main paths' cached batches.  A 4 KiB row lies within
+    a contains tile's staged bytes, a 64 KiB row does not; the unaligned
+    views start 3 bytes past a 16-byte boundary.  Then string_hash_columns
+    over columns of different capacities (the 64 KiB row, an all-empty
+    one, an unaligned view) in one launch.  Returns the case count."""
     import torch
     from spark_rapids_tpu_torch.kernels import cuda_tier
     columns = [("cap1-empty", string_case(1, 1, 1, empty=True)),
@@ -568,11 +604,15 @@ def check_string_matrix(device, big_columns) -> int:
                ("cap512", string_case(3, 512, 512)),
                ("cap513", string_case(4, 513, 300)),
                ("all-empty", string_case(5, 64, 40, empty=True)),
+               ("row-4KiB", string_case(8, 3000, 2900, long_row=1 << 12)),
                ("row-64KiB", string_case(6, 16, 9, long_row=1 << 16)),
                ("cap2^20", big_string_case(7, 1 << 20, (1 << 20) - 1000)),
                ("needles", needle_case())]
     columns = [(n, (torch.from_numpy(d).to(device),
                     torch.from_numpy(o).to(device))) for n, (d, o) in columns]
+    named = dict(columns)
+    columns += [(f"{n} unaligned", (unaligned(named[n][0]), named[n][1]))
+                for n in ("cap513", "row-64KiB", "cap2^20", "needles")]
     columns += list(big_columns)
     cases = 0
     for name, (data, offsets) in columns:
@@ -591,6 +631,20 @@ def check_string_matrix(device, big_columns) -> int:
                 raise AssertionError(f"contains != plain version on {name} "
                                      f"needle {needle!r}")
             cases += 1
+    multi = [named["cap511"], named["row-64KiB"], named["all-empty"],
+             (unaligned(named["cap2^20"][0], 7), named["cap2^20"][1]),
+             named["cap1-empty"], named["row-4KiB"]]
+    before = cuda_tier.launch_count("stringHash")
+    got = cuda_tier.string_hash_columns(multi)
+    want = cuda_tier.string_hash_columns_reference(multi)
+    torch.cuda.synchronize()
+    if cuda_tier.launch_count("stringHash") - before != 1:
+        raise AssertionError("string_hash_columns made more than one launch")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not (torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])):
+            raise AssertionError(f"string_hash_columns != plain version on "
+                                 f"column {i}")
+        cases += 1
     data, offsets = needle_case()
     rows = [data[offsets[i]:offsets[i + 1]].tobytes()
             for i in range(len(offsets) - 1)]
@@ -604,50 +658,94 @@ def check_string_matrix(device, big_columns) -> int:
 
 
 def kernel_numbers(call, plain, nbytes: int) -> dict:
-    """Wrapper ms (as the path calls it), the kernel alone (one captured
-    launch replayed from a CUDA graph), the plain version's ms and the
-    bytes bound, each a median of CUDA-event timings."""
-    import torch
+    """Wrapper ms (as the path calls it), the kernel alone (``graph_ms``),
+    the plain version's ms and the bytes bound, each a median of
+    CUDA-event timings."""
     call()  # warm: builds, caches the needle on the device
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        call()
-    return {"ms": time_ms(call), "kernel_only_ms": time_ms(graph.replay),
+    return {"ms": time_ms(call), "kernel_only_ms": graph_ms(call),
             "plain_ms": time_ms(plain, reps=10, warmup=2),
             "library_ms": None,
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
 
 
-def launch_ms(call, reps: int = 20) -> dict:
+_FLUSH = []  # a buffer larger than the L2 cache, made at first use
+
+
+def launch_ms(call, reps: int = 20, cold: bool = False) -> dict:
     """Device ms of each kernel one ``call()`` launches, by kernel name:
-    the mean over ``reps`` calls under ``torch.profiler``."""
+    the mean over ``reps`` calls under ``torch.profiler``.  With ``cold``
+    the 50 MB L2 cache is flushed before each call (a 256 MiB fill, whose
+    own kernel is left out), so the kernel reads device memory as a
+    caller that last touched its inputs long ago would."""
     import torch
+    if cold and not _FLUSH:
+        _FLUSH.append(torch.empty(256 << 20, dtype=torch.uint8,
+                                  device="cuda"))
     call()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            call()
-        torch.cuda.synchronize()
-    return {e.key.replace("(anonymous namespace)::", "").split("(")[0][:60]:
-            e.self_device_time_total / 1e3 / reps
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0}
+    for _ in range(3):  # a session now and then records no device events
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                if cold:
+                    _FLUSH[0].zero_()
+                call()
+            torch.cuda.synchronize()
+        got = {e.key.replace("(anonymous namespace)::", "").split("(")[0][:60]:
+               e.self_device_time_total / 1e3 / reps
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and not (cold and "elementwise" in e.key)}
+        if got:
+            return got
+    raise RuntimeError("torch.profiler recorded no device time in 3 tries")
 
 
-def hash_numbers(data, offsets, label: str) -> dict:
-    """stringHash at a main-path shape.  Bytes: the live bytes and the
-    cap+1 offsets read once, two int64 words per row written once."""
+def string_kernel_numbers(call, plain, nbytes: int) -> dict:
+    """``kernel_numbers`` and the launch's device ms by ``torch.profiler``
+    with the inputs in L2 (back to back) and with L2 flushed."""
+    out = kernel_numbers(call, plain, nbytes)
+    out["device_ms"] = sum(launch_ms(call).values())
+    out["device_cold_ms"] = sum(launch_ms(call, cold=True).values())
+    return out
+
+
+def hash_numbers(columns, label: str) -> dict:
+    """stringHash at a main-path shape: every (data, offsets) column of
+    ``columns`` in one string_hash_columns call, as a sort makes it, its
+    outputs first held equal (torch.equal) to the per-column plain
+    versions.  Bytes: per column the live bytes and the cap+1 offsets read
+    once, the function's two u32 hashes per row written once (8 bytes);
+    ``bound_ms_int64_words`` counts the 16 bytes a row of the two int64
+    words the port writes."""
+    import torch
     from spark_rapids_tpu_torch.kernels import cuda_tier
-    cap = int(offsets.numel()) - 1
-    live = int(offsets[-1])
-    out = kernel_numbers(
-        lambda: cuda_tier.string_hash_rows(data, offsets),
-        lambda: cuda_tier.string_hash_rows_reference(data, offsets),
-        live + 4 * (cap + 1) + 16 * cap)
-    out["shape"] = f"{label}: {cap} rows, {live} live bytes"
+    got = cuda_tier.string_hash_columns(columns)
+    want = cuda_tier.string_hash_columns_reference(columns)
+    torch.cuda.synchronize()
+    err = 0
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        if not (torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])):
+            raise AssertionError(f"stringHash != plain version on {label}, "
+                                 f"column {i}")
+        err = max(err, int((g[0] - w[0]).abs().max()),
+                  int((g[1] - w[1]).abs().max()))
+    del got, want
+    caps = [int(o.numel()) - 1 for _, o in columns]
+    live = sum(int(o[-1]) for _, o in columns)
+    read = live + sum(4 * (cap + 1) for cap in caps)
+    out = string_kernel_numbers(
+        lambda: cuda_tier.string_hash_columns(columns),
+        lambda: cuda_tier.string_hash_columns_reference(columns),
+        read + sum(8 * cap for cap in caps))
+    out["max_abs_err"] = err
+    out["bytes_int64_words"] = read + sum(16 * cap for cap in caps)
+    out["bound_ms_int64_words"] = (out["bytes_int64_words"] /
+                                   HBM_BYTES_PER_S * 1e3)
+    out["shape"] = (f"{label}: {len(columns)} column(s) of "
+                    f"{'/'.join(map(str, caps))} rows, {live} live bytes")
     return out
 
 
@@ -657,7 +755,7 @@ def contains_numbers(data, offsets, needle: bytes, label: str) -> dict:
     from spark_rapids_tpu_torch.kernels import cuda_tier
     cap = int(offsets.numel()) - 1
     live = int(offsets[-1])
-    out = kernel_numbers(
+    out = string_kernel_numbers(
         lambda: cuda_tier.rows_with_match(data, offsets, needle),
         lambda: cuda_tier.rows_with_match_reference(data, offsets, needle),
         live + 4 * (cap + 1) + len(needle) + cap)
@@ -956,8 +1054,8 @@ def probe_bytes(args, pair_cap: int) -> int:
 
 def probe_numbers(args, pair_cap: int, label: str) -> dict:
     """joinProbe at one of Q3's join shapes: wrapper ms, kernel alone (the
-    call's two launches replayed from a CUDA graph), each launch's device
-    ms (torch.profiler), plain ms, bound."""
+    call's two launches, ``graph_ms``), each launch's device ms
+    (torch.profiler), plain ms, bound."""
     from spark_rapids_tpu_torch.kernels import cuda_tier
     out = kernel_numbers(
         lambda: cuda_tier.probe_join(*args, pair_cap),
@@ -1213,7 +1311,7 @@ def main() -> int:
     # batches, every column (the string ones among them)
     li_args = batch_columns(li_df.plan.holder.partitions[0])
     check_columns(*li_args, "lineitem batches")
-    strings_shape = _concat_numbers(*li_args, device)
+    strings_shape = _concat_numbers(*li_args, device, launches=2)
     strings_shape["shape"] = (
         f"lineitem's {len(li_args[1])} cached batches, "
         f"{strings_shape['live_rows']} rows, {strings_shape['buffers']} "
@@ -1272,6 +1370,8 @@ def main() -> int:
               flush=True)
         if mode == "mesh-fused":
             probe_calls = recorder.calls[-2:]  # the second collect's joins
+        else:
+            segment = cached_column(tables["customer"], "c_mktsegment")
         groups = q3_groups_query(tables).collect()
         check_q3_groups(groups, q3_ref, f"Q3 {mode}")
         check_q3_joins(q3_session, f"Q3 {mode} (all groups)",
@@ -1329,24 +1429,35 @@ def main() -> int:
 
     # ---- string kernels: matrix and timings at the main paths' shapes ----
     p_type = cached_column(p_df, "p_type")
+    p_brand = cached_column(p_df, "p_brand")
     p_name = cached_column(p_df, "p_name")
     flag = cached_column(li_df, "l_returnflag")
+    status = cached_column(li_df, "l_linestatus")
     cases = check_string_matrix(device, [
         ("p_type batch", p_type), ("p_name batch", p_name),
-        ("l_returnflag batch", flag)])
+        ("l_returnflag batch", flag), ("c_mktsegment batch", segment)])
     print(f"kernel phase: stringHash and contains == plain versions over "
           f"{cases} cases", flush=True)
-    hash_main = hash_numbers(*p_type, "p_type batch")
-    hash_flag = hash_numbers(*flag, "l_returnflag batch")
+    # stringHash at each launch shape of the paths: Q1's two keys and the
+    # part query's two keys in one launch, Q3's c_mktsegment alone; and
+    # one column of l_returnflag and of p_type, as the earlier design ran
+    hash_q1 = hash_numbers([flag, status],
+                           "Q1's keys l_returnflag and l_linestatus")
+    hash_part = hash_numbers([p_brand, p_type],
+                             "the part query's keys p_brand and p_type")
+    hash_q3 = hash_numbers([segment], "Q3's c_mktsegment (customer batch)")
+    hash_flag = hash_numbers([flag], "l_returnflag batch")
+    hash_type = hash_numbers([p_type], "p_type batch")
     contains_main = contains_numbers(*p_name, b"green", "p_name batch")
-    h_err = max(int((a - b).abs().max()) for a, b in zip(
-        cuda_tier.string_hash_rows(*p_type),
-        cuda_tier.string_hash_rows_reference(*p_type)))
+    h_err = max(hash_q1["max_abs_err"], hash_part["max_abs_err"])
     c_err = int((cuda_tier.rows_with_match(*p_name, b"green") !=
                  cuda_tier.rows_with_match_reference(*p_name, b"green"))
                 .sum())
-    for label, nums in (("stringHash p_type", hash_main),
+    for label, nums in (("stringHash Q1's two keys", hash_q1),
+                        ("stringHash the part query's two keys", hash_part),
+                        ("stringHash Q3's c_mktsegment", hash_q3),
                         ("stringHash l_returnflag", hash_flag),
+                        ("stringHash p_type", hash_type),
                         ("contains p_name", contains_main)):
         print(f"{label}: {json.dumps(nums)}", flush=True)
 
@@ -1388,11 +1499,12 @@ def main() -> int:
         entry("gatherScatter", main_shape, max_err,
               paths["headline"]["gatherScatter"], bandwidth=bandwidth,
               strings=strings_shape),
-        entry("stringHash", hash_main, h_err,
+        entry("stringHash", hash_q1, h_err,
               sum(paths[p]["stringHash"] for p in (
                   "Q1", "part", "Q3 host-driven", "Q3 mesh-fused",
                   "Q3 broadcast mesh-fused")),
-              l_returnflag=hash_flag),
+              part_keys=hash_part, q3_segment=hash_q3,
+              l_returnflag=hash_flag, p_type=hash_type),
         entry("strings", contains_main, c_err,
               paths["part"]["strings"]),
         entry("joinProbe", probe_shapes[1], probe_err,

@@ -16,16 +16,17 @@ Contract of every wrapper here:
   returns ``cudaGetLastError()``, which the wrapper turns into an exception;
 * each call that launches adds to :func:`launch_count` for the kernel's
   name, so a run can show that its path went through the kernel: one per
-  launch for gatherScatter, one per call for the others (joinProbe's call
-  is two launches).
+  launch for gatherScatter, stringHash and strings, one per call for
+  joinProbe (whose call is two launches).
 
 Kernels: ``gatherScatter``, the k-way segment pack (:func:`pack_columns`:
 every buffer of ``layout.concat_kway`` in one launch; :func:`pack_segments`:
-one buffer with any windows); ``stringHash`` (:func:`string_hash_rows`), the
-dual polynomial row hashes behind string grouping, equality and sort
-tie-breaks; ``strings`` (:func:`rows_with_match`), the contains scan behind
-``LIKE '%needle%'``; ``joinProbe`` (:func:`probe_join`), the candidate
-phase of the static equi-join (``join.join_pairs_static``).
+one buffer with any windows); ``stringHash`` (:func:`string_hash_columns`:
+every string column of a sort in one launch; :func:`string_hash_rows`: one
+column), the dual polynomial row hashes behind string grouping, equality
+and sort tie-breaks; ``strings`` (:func:`rows_with_match`), the contains
+scan behind ``LIKE '%needle%'``; ``joinProbe`` (:func:`probe_join`), the
+candidate phase of the static equi-join (``join.join_pairs_static``).
 """
 
 from __future__ import annotations
@@ -61,7 +62,7 @@ _M32 = 0xFFFFFFFF
 
 _launches: Dict[str, int] = {name: 0 for name in SOURCES}
 _libs: Dict[str, ctypes.CDLL] = {}
-_needles: Dict[tuple, torch.Tensor] = {}  # (needle, device) -> u8 tensor
+_needles: Dict[tuple, torch.Tensor] = {}  # (needle, device index) -> u8
 _build_lock = threading.Lock()
 
 
@@ -145,11 +146,10 @@ def load(name: str) -> ctypes.CDLL:
         lib.srt_pack_multi.restype = ctypes.c_int
         lib.srt_pack_max_words.restype = ctypes.c_int
     elif name == "stringHash":
-        lib.srt_string_hash.argtypes = [
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-        lib.srt_string_hash.restype = ctypes.c_int
+        lib.srt_string_hash_columns.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint,
+            ctypes.c_uint, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+        lib.srt_string_hash_columns.restype = ctypes.c_int
     elif name == "strings":
         lib.srt_contains.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
@@ -174,12 +174,16 @@ def load(name: str) -> ctypes.CDLL:
 def _launch(device: torch.device, fn, *args) -> int:
     """``fn(*args, stream)`` on ``device``'s current stream, entering the
     device's context only when it is not the current device already.
-    Returns the C entry point's error code."""
-    if device.index is not None and \
-            device.index != torch.cuda.current_device():
-        with torch.cuda.device(device):
-            return fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    Returns the C entry point's error code.  The stream's handle comes
+    from ``torch._C._cuda_getCurrentRawStream`` (what ``torch.cuda.
+    current_stream(device).cuda_stream`` reads, without building a Stream
+    object, which took 3-6.5 us a call beside an H100, ``ab_kernels.py``)."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 # ---------------------------------------------------------------------------
@@ -508,17 +512,23 @@ def _pack_columns_grouped(columns, num_rows, out_cap, byte_caps, limit):
 
 
 def _check_string_column(fn: str, data: torch.Tensor,
-                         offsets: torch.Tensor) -> None:
+                         offsets: torch.Tensor, device: torch.device) -> int:
+    """Every check a string kernel's input needs, once; returns the
+    column's capacity.  Contiguity matters only to a kernel."""
     if data.dim() != 1 or data.dtype != torch.uint8:
         raise ValueError(f"{fn}: data must be a 1-D uint8 byte buffer, got "
                          f"{data.dtype} {tuple(data.shape)}")
     if offsets.dim() != 1 or offsets.dtype != torch.int32 or \
-            offsets.numel() < 1:
+            offsets.shape[0] < 1:
         raise ValueError(f"{fn}: offsets must be 1-D int32[cap+1], got "
                          f"{offsets.dtype} {tuple(offsets.shape)}")
-    if data.device != offsets.device:
+    if data.device != device or offsets.device != device:
         raise ValueError(f"{fn}: data on {data.device}, offsets on "
-                         f"{offsets.device}")
+                         f"{offsets.device}, expected {device}")
+    if device.type != "cpu" and not (data.is_contiguous() and
+                                     offsets.is_contiguous()):
+        raise ValueError(f"{fn} inputs must be contiguous")
+    return int(offsets.shape[0]) - 1
 
 
 def _checked_cuda(fn: str, *tensors: torch.Tensor) -> None:
@@ -588,32 +598,60 @@ def string_hash_rows_reference(data: torch.Tensor, offsets: torch.Tensor
     return out[0], out[1]
 
 
-def string_hash_rows(data: torch.Tensor, offsets: torch.Tensor) -> tuple:
-    """Dual 32-bit polynomial hashes (bases 31 and 131) of every row of a
-    string column, each plus ``len * 0x9E3779B9``, mod 2^32.
+def string_hash_columns_reference(columns) -> list:
+    """Plain version of :func:`string_hash_columns`: one
+    :func:`string_hash_rows_reference` per column."""
+    return [string_hash_rows_reference(d, o) for d, o in columns]
 
-    ``data`` is the u8 byte buffer, ``offsets`` the int32[cap+1] row
-    offsets.  Returns (h1, h2), int64[cap] holding u32 values, the form of
-    the port's sort words.  CPU tensors take
-    :func:`string_hash_rows_reference`; CUDA tensors launch the kernel,
-    which reads the offsets itself: one launch, no host sync."""
-    _check_string_column("string_hash_rows", data, offsets)
-    if data.device.type == "cpu":
-        return string_hash_rows_reference(data, offsets)
-    _checked_cuda("string_hash_rows", data, offsets)
-    cap = int(offsets.numel()) - 1
-    h1 = torch.empty(cap, dtype=torch.int64, device=data.device)
-    h2 = torch.empty(cap, dtype=torch.int64, device=data.device)
-    if cap == 0:
-        return h1, h2
-    err = _launch(data.device, load("stringHash").srt_string_hash,
-                  data.data_ptr(), int(data.numel()), offsets.data_ptr(), cap,
-                  HASH_BASES[0], HASH_BASES[1], HASH_GOLDEN, h1.data_ptr(),
-                  h2.data_ptr())
+
+def string_hash_columns(columns) -> list:
+    """Dual 32-bit polynomial hashes (bases 31 and 131) of every row of
+    each string column, each plus ``len * 0x9E3779B9``, mod 2^32.
+
+    ``columns`` is a sequence of ``(data, offsets)`` pairs on one device:
+    the u8 byte buffer and the int32[cap+1] row offsets.  Returns one
+    ``(h1, h2)`` pair per column, int64[cap] holding u32 values (the form
+    of the port's sort words).  CPU tensors take
+    :func:`string_hash_columns_reference`; on CUDA every column goes into
+    ONE launch (its table is a kernel parameter), which reads the offsets
+    itself: no host sync.  All the hashes are views of one allocation."""
+    columns = list(columns)
+    if not columns:
+        return []
+    device = columns[0][0].device
+    caps = [_check_string_column("string_hash_columns", d, o, device)
+            for d, o in columns]
+    if device.type == "cpu":
+        return string_hash_columns_reference(columns)
+    if device.type != "cuda":
+        raise ValueError(f"string_hash_columns has no kernel for {device}")
+    out = torch.empty(2 * sum(caps), dtype=torch.int64, device=device)
+    words = out.split([cap for cap in caps for _ in (0, 1)])
+    hashes = list(zip(words[::2], words[1::2]))
+    at, base = 0, out.data_ptr()
+    desc = [len(columns)]
+    for (data, offsets), cap in zip(columns, caps):
+        desc += (data.data_ptr(), data.shape[0], offsets.data_ptr(), cap,
+                 base + 8 * at, base + 8 * (at + cap))
+        at += 2 * cap
+    if at == 0:
+        return hashes
+    table = array.array("q", desc)
+    launches = ctypes.c_int(0)
+    err = _launch(device, load("stringHash").srt_string_hash_columns,
+                  table.buffer_info()[0], len(table), HASH_BASES[0],
+                  HASH_BASES[1], HASH_GOLDEN, ctypes.byref(launches))
     if err != 0:
         raise RuntimeError(f"stringHash launch failed: CUDA error {err}")
-    _launches["stringHash"] += 1
-    return h1, h2
+    _launches["stringHash"] += launches.value
+    return hashes
+
+
+def string_hash_rows(data: torch.Tensor, offsets: torch.Tensor) -> tuple:
+    """:func:`string_hash_columns` of one column: (h1, h2), int64[cap]
+    holding u32 values.  CPU tensors take
+    :func:`string_hash_rows_reference`."""
+    return string_hash_columns([(data, offsets)])[0]
 
 
 def _find_matches(data: torch.Tensor, offsets: torch.Tensor,
@@ -654,7 +692,7 @@ def rows_with_match_reference(data: torch.Tensor, offsets: torch.Tensor,
 def _device_needle(needle: bytes, device: torch.device) -> torch.Tensor:
     """The needle's bytes on ``device``, copied there once per needle and
     device, so a scan makes no host-to-device copy."""
-    key = (needle, device)
+    key = (needle, device.index)
     t = _needles.get(key)
     if t is None:
         t = torch.frombuffer(bytearray(needle), dtype=torch.uint8).to(device)
@@ -667,24 +705,26 @@ def rows_with_match(data: torch.Tensor, offsets: torch.Tensor,
     """bool[cap]: row r of the string column holds ``needle`` (a literal
     byte string).  An empty needle matches every row without a launch.
     CPU tensors take :func:`rows_with_match_reference`; CUDA tensors
-    launch the kernel, one thread per row over its own byte window."""
-    _check_string_column("rows_with_match", data, offsets)
+    launch the kernel (one launch: tiles of rows staged in shared memory,
+    match starts marked in a bitmap there, each row's bits ORed)."""
+    device = data.device
+    cap = _check_string_column("rows_with_match", data, offsets, device)
     needle = bytes(needle)
-    cap = int(offsets.numel()) - 1
     if len(needle) == 0:
-        return torch.ones(cap, dtype=torch.bool, device=data.device)
-    if data.device.type == "cpu":
+        return torch.ones(cap, dtype=torch.bool, device=device)
+    if device.type == "cpu":
         return rows_with_match_reference(data, offsets, needle)
-    _checked_cuda("rows_with_match", data, offsets)
+    if device.type != "cuda":
+        raise ValueError(f"rows_with_match has no kernel for {device}")
     if len(needle) >= 2 ** 31:
         raise ValueError("rows_with_match: needle too long")
-    out = torch.empty(cap, dtype=torch.bool, device=data.device)
+    out = torch.empty(cap, dtype=torch.bool, device=device)
     if cap == 0:
         return out
-    dev_needle = _device_needle(needle, data.device)
-    err = _launch(data.device, load("strings").srt_contains,
-                  data.data_ptr(), int(data.numel()), offsets.data_ptr(), cap,
-                  dev_needle.data_ptr(), len(needle), out.data_ptr())
+    err = _launch(device, load("strings").srt_contains,
+                  data.data_ptr(), data.shape[0], offsets.data_ptr(), cap,
+                  _device_needle(needle, device).data_ptr(), len(needle),
+                  out.data_ptr())
     if err != 0:
         raise RuntimeError(f"strings (contains) launch failed: CUDA error "
                            f"{err}")

@@ -22,7 +22,9 @@ from spark_rapids_tpu_torch.kernels.layout import (
     compaction_indices, gather_rows,
 )
 from spark_rapids_tpu_torch.kernels.sort import argsort_batch
-from spark_rapids_tpu_torch.kernels.sortkeys import keys_equal_prev
+from spark_rapids_tpu_torch.kernels.sortkeys import (
+    keys_equal_prev, string_key_hashes,
+)
 
 
 @dataclasses.dataclass
@@ -37,19 +39,25 @@ class GroupSegments:
 
 
 def group_segments(key_vals: List[DevVal], num_rows) -> GroupSegments:
-    """Sort rows by key and mark exact group boundaries."""
+    """Sort rows by key and mark exact group boundaries.  The string
+    keys are hashed once, for the sort; the adjacent equality test takes
+    those hashes moved by the permutation (every row, dead ones too, moves
+    with its bytes, so they are the sorted bytes' hashes)."""
     cap = int(key_vals[0].validity.shape[0])
     n = len(key_vals)
+    hashes = string_key_hashes(key_vals)
     perm = argsort_batch(key_vals, [True] * n, [True] * n, num_rows,
-                         groupings=[True] * n)
+                         groupings=[True] * n, hashes=hashes)
     live = torch.arange(cap, dtype=torch.int32,
                         device=perm.device) < num_rows
     # string keys need their bytes in sorted order for the adjacent
-    # equality test, which rehashes them
+    # equality test's prefix words
     sorted_keys = [_gather_str_val(v, perm, cap) if v.dtype.is_string
                    else DevVal(v.dtype, v.data[perm], v.validity[perm])
                    for v in key_vals]
-    seg_start = live & ~keys_equal_prev(sorted_keys)
+    sorted_hashes = [None if h is None else (h[0][perm], h[1][perm])
+                     for h in hashes]
+    seg_start = live & ~keys_equal_prev(sorted_keys, sorted_hashes)
     seg_ids = (torch.cumsum(seg_start.to(torch.int64), 0) - 1).clamp(
         0, cap - 1)
     num_groups = seg_start.sum().to(torch.int32)

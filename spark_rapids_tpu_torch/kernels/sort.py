@@ -16,13 +16,15 @@ from spark_rapids_tpu_torch.kernels.sortkeys import (
 
 
 def argsort_batch(key_vals: List[DevVal], ascendings: List[bool],
-                  nulls_firsts: List[bool], num_rows, groupings=None):
+                  nulls_firsts: List[bool], num_rows, groupings=None,
+                  hashes=None):
     """Stable permutation sorting rows by the evaluated key columns.
-    ``groupings`` marks keys that only need equal values adjacent (see
+    ``groupings`` marks keys that only need equal values adjacent, and
+    ``hashes`` may carry the string keys' hashes (see
     :func:`encode_sort_keys`)."""
     cap = int(key_vals[0].validity.shape[0])
     words = encode_sort_keys(key_vals, ascendings, nulls_firsts, num_rows,
-                             groupings=groupings)
+                             groupings=groupings, hashes=hashes)
     return argsort_by_words(words, cap)
 
 

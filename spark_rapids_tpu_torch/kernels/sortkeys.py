@@ -18,6 +18,10 @@ to each other even past the prefix.  A grouping-only string key (the
 caller needs equal keys adjacent, not an order between distinct keys)
 encodes as (length, h1, h2) alone.  Order between distinct strings that
 share the 64-byte prefix is approximate, as in the JAX package.
+
+The string keys' hashes come from one stringHash launch for all of them
+(:func:`string_key_hashes`); a caller that has them already (the group
+sort, for its adjacent-key test) hands them in instead of hashing again.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exprs.base import DevVal
-from spark_rapids_tpu_torch.exprs.strings import string_hash2
+from spark_rapids_tpu_torch.kernels import cuda_tier
 
 _M32 = 0xFFFFFFFF
 _SIGN32 = 1 << 31
@@ -89,17 +93,26 @@ def string_prefix_words(v: DevVal, prefix_bytes: int
     return words
 
 
-def _string_tail_words(v: DevVal) -> List[torch.Tensor]:
+def string_key_hashes(vals: List[DevVal]) -> List[Optional[tuple]]:
+    """(h1, h2) of every string value of ``vals`` (``string_hash2``'s
+    words), None for the others: one stringHash launch for all of them."""
+    hashes = iter(cuda_tier.string_hash_columns(
+        [(v.data, v.offsets) for v in vals if v.dtype.is_string]))
+    return [next(hashes) if v.dtype.is_string else None for v in vals]
+
+
+def _string_tail_words(v: DevVal, hashes: tuple) -> List[torch.Tensor]:
     """(length, h1, h2) u32 words: equal strings share all three."""
-    h1, h2 = string_hash2(v)
     lens = (v.offsets[1:] - v.offsets[:-1]).to(torch.int64) & _M32
-    return [lens, h1, h2]
+    return [lens, *hashes]
 
 
 def encode_sort_keys(vals: List[DevVal], ascendings: List[bool],
                      nulls_firsts: List[bool], num_rows,
                      groupings: Optional[List[bool]] = None,
-                     liveness: bool = True) -> List[torch.Tensor]:
+                     liveness: bool = True,
+                     hashes: Optional[List[Optional[tuple]]] = None
+                     ) -> List[torch.Tensor]:
     """Full u32 key-word list for a multi-column sort.
 
     With ``liveness`` a leading word sends padding rows (row >= num_rows)
@@ -107,8 +120,12 @@ def encode_sort_keys(vals: List[DevVal], ascendings: List[bool],
     un-negated 1-bit ranks).  Each key contributes a null-rank word then
     its value words; NULL values all encode as 0 so NULLs compare equal.
     ``groupings[i]`` marks key i grouping-only: a string key then encodes
-    as (length, h1, h2) alone instead of prefix words + those three."""
+    as (length, h1, h2) alone instead of prefix words + those three.
+    ``hashes`` are the string keys' hashes as :func:`string_key_hashes`
+    gives them (computed here when None)."""
     cap = int(vals[0].validity.shape[0]) if vals else 0
+    if hashes is None:
+        hashes = string_key_hashes(vals)
     words: List[torch.Tensor] = []
     if liveness:
         dev = vals[0].validity.device
@@ -116,11 +133,12 @@ def encode_sort_keys(vals: List[DevVal], ascendings: List[bool],
         words.append((~live).to(torch.int64))
     if groupings is None:
         groupings = [False] * len(vals)
-    for v, asc, nf, grp in zip(vals, ascendings, nulls_firsts, groupings):
+    for v, asc, nf, grp, h in zip(vals, ascendings, nulls_firsts, groupings,
+                                  hashes):
         null_rank = v.validity if nf else ~v.validity
         words.append(null_rank.to(torch.int64))
         if v.dtype.is_string:
-            vwords = _string_tail_words(v)
+            vwords = _string_tail_words(v, h)
             if not grp:
                 vwords = string_prefix_words(
                     v, DEFAULT_STRING_PREFIX_BYTES) + vwords
@@ -155,21 +173,23 @@ def argsort_by_words(words: List[torch.Tensor], cap: int) -> torch.Tensor:
     return perm
 
 
-def keys_equal_prev(vals: List[DevVal]) -> torch.Tensor:
+def keys_equal_prev(vals: List[DevVal],
+                    hashes: List[Optional[tuple]]) -> torch.Tensor:
     """bool[cap]: row i's key tuple exactly equals row i-1's (False at 0).
     Strings compare by (length, h1, h2, 64-byte prefix words): unequal
     strings that agree on all of them would need an engineered collision
-    of both 32-bit hashes."""
+    of both 32-bit hashes.  ``hashes`` are the rows' string key hashes as
+    :func:`string_key_hashes` gives them."""
     cap = int(vals[0].validity.shape[0])
     eq = torch.ones(cap, dtype=torch.bool, device=vals[0].validity.device)
 
     def shift_ne(x):
         return x != torch.cat([x[:1], x[:-1]])
 
-    for v in vals:
+    for v, h in zip(vals, hashes):
         eq = eq & ~shift_ne(v.validity)
         if v.dtype.is_string:
-            cmp_words = _string_tail_words(v) + string_prefix_words(
+            cmp_words = _string_tail_words(v, h) + string_prefix_words(
                 v, DEFAULT_STRING_PREFIX_BYTES)
         else:
             cmp_words = _encode_fixed_words(v)

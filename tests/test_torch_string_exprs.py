@@ -25,6 +25,7 @@ from spark_rapids_tpu.exprs import strings as JS
 from spark_rapids_tpu.exprs.base import ColumnRef as JaxColumnRef
 from spark_rapids_tpu.exprs.base import DevVal as JaxDevVal
 from spark_rapids_tpu.exprs.base import TpuEvalCtx
+from spark_rapids_tpu.kernels import groupby as JG
 from spark_rapids_tpu.kernels import layout as JL
 from spark_rapids_tpu.kernels import sortkeys as JSK
 
@@ -34,6 +35,8 @@ from spark_rapids_tpu_torch.exprs import strings as PS
 from spark_rapids_tpu_torch.exprs.base import (
     ColumnRef, DevVal, GpuEvalCtx, Literal,
 )
+from spark_rapids_tpu_torch.kernels import cuda_tier
+from spark_rapids_tpu_torch.kernels import groupby as G
 from spark_rapids_tpu_torch.kernels import layout as L
 from spark_rapids_tpu_torch.kernels import sortkeys as SK
 
@@ -113,7 +116,42 @@ def test_string_keys_equal_prev_matches_jax():
                         "i": (JT.INT, [1, 1, 1, 2, 2, 2, 3, 3, 3, 4, 4])})
     jv, pv = _vals(jdev, pdev, ["s", "i"])
     want = np.asarray(jax.device_get(JSK.keys_equal_prev(jv)))
-    np.testing.assert_array_equal(SK.keys_equal_prev(pv).numpy(), want)
+    got = SK.keys_equal_prev(pv, SK.string_key_hashes(pv))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+SEGMENT_FIELDS = ("perm", "seg_ids", "seg_start", "num_groups", "live")
+# one compiled program for every case of the same capacity
+_jax_segments = jax.jit(lambda v, n: [getattr(JG.group_segments(v, n), f)
+                                      for f in SEGMENT_FIELDS])
+
+
+@pytest.mark.parametrize("num_rows", [11, 8])
+def test_group_segments_reusing_hashes_matches_jax(num_rows, monkeypatch):
+    """The group sort hashes its string keys once, for the sort, and its
+    adjacent-key test takes those hashes moved by the permutation: the
+    segments equal the JAX package's, which hashes the sorted bytes again.
+    String keys with NULLs, duplicates, a long shared prefix and dead rows
+    (num_rows 8 of 11, the tail's keys left in place)."""
+    rows = ["bb", "bb", "", None, "apple" * 13 + "x", None, "é",
+            "apple" * 13 + "y", "bb", "é", "apple" * 13 + "x"]
+    jdev, pdev = _both({"s": (JT.STRING, rows),
+                        "t": (JT.STRING, ["x", "y", "x", "x", None, "x",
+                                          "y", "x", "x", "y", "x"]),
+                        "i": (JT.INT, [1, 1, 1, 2, 2, 2, 3, 3, 1, 3, 2])},
+                       num_rows=num_rows)
+    jv, pv = _vals(jdev, pdev, ["s", "i", "t"])
+    calls = []
+    real = cuda_tier.string_hash_columns
+    monkeypatch.setattr(cuda_tier, "string_hash_columns",
+                        lambda cols: calls.append(len(cols)) or real(cols))
+    got = G.group_segments(pv, pdev.num_rows)
+    assert calls == [2]  # one call, both string keys
+    want = _jax_segments(jv, jdev.num_rows)
+    for field, w in zip(SEGMENT_FIELDS, want):
+        np.testing.assert_array_equal(getattr(got, field).numpy(),
+                                      np.asarray(jax.device_get(w)),
+                                      err_msg=field)
 
 
 def test_string_literal_column():

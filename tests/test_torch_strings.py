@@ -111,6 +111,31 @@ def test_string_hash_matches_xla_and_pallas(case):
     assert not h1.numpy()[empty].any() and not h2.numpy()[empty].any()
 
 
+def test_string_hash_columns_match_xla_and_pallas():
+    """Several columns of different capacities (an all-empty one, the
+    64 KiB row) in one call: each equals the JAX package's string_hash2,
+    and the small one its Pallas kernel in interpret mode."""
+    names = ["cap1-all-empty", "cap511", "row-64KiB", "cap513"]
+    cols = [string_column(len(n), **HASH_CASES[n]) for n in names]
+    got = cuda_tier.string_hash_columns(
+        [(torch.from_numpy(d), torch.from_numpy(o)) for d, o in cols])
+    assert len(got) == len(cols)
+    for (data, offsets), (h1, h2) in zip(cols, got):
+        cap = len(offsets) - 1
+        jv = JaxDevVal(JT.STRING, jnp.asarray(data), jnp.ones(cap, jnp.bool_),
+                       jnp.asarray(offsets))
+        wants = [jax.jit(JS.string_hash2)(jv)]
+        if cap == 1:
+            wants.append(JPT.string_hash_rows(
+                jnp.asarray(data), jnp.asarray(offsets), cap, JS._HASH_BASES,
+                interpret=True))
+        for want in wants:
+            for g, w in zip((h1, h2), want):
+                np.testing.assert_array_equal(
+                    g.numpy(), np.asarray(jax.device_get(w)).astype(np.int64))
+    assert cuda_tier.string_hash_columns([]) == []
+
+
 def test_hash_literal_matches_row_hash():
     data = np.frombuffer("green 中文".encode(), dtype=np.uint8).copy()
     offsets = np.array([0, len(data)], dtype=np.int32)
@@ -195,6 +220,9 @@ def test_string_wrappers_reject_what_they_cannot_take():
         cuda_tier.string_hash_rows(data, offsets.to(torch.int64))
     with pytest.raises(ValueError):
         cuda_tier.rows_with_match(data.reshape(4, 4), offsets, b"a")
+    with pytest.raises(ValueError):  # every column is checked
+        cuda_tier.string_hash_columns([(data, offsets),
+                                       (data, offsets.to(torch.int64))])
 
 
 # ---------------------------------------------------------------------------
@@ -251,6 +279,54 @@ def test_part_query_matches_jax(part_jax, predicate):
     assert [r[:2] for r in part_jax] == sorted(r[:2] for r in part_jax)
 
 
+class HashCalls:
+    """Counts the stringHash wrapper's calls (and the columns of each)
+    while it is active: every row hash of the port goes through
+    ``cuda_tier.string_hash_columns``, which makes one launch a call on a
+    card."""
+
+    def __init__(self, monkeypatch):
+        self.columns = []
+        real = cuda_tier.string_hash_columns
+
+        def counted(columns):
+            columns = list(columns)
+            self.columns.append(len(columns))
+            return real(columns)
+
+        monkeypatch.setattr(cuda_tier, "string_hash_columns", counted)
+
+
+def test_hashing_calls_per_collect(monkeypatch):
+    """One hashing call per sort, for all its string keys: Q1 over six
+    cached batches makes 8 (six update sorts, the merge, the ORDER BY; the
+    group sort's equality test reuses the sort's hashes), the part query
+    over two batches 4.  Each call hashes both string keys."""
+    calls = HashCalls(monkeypatch)
+    sess = GpuSparkSession(RapidsConf(SETTINGS), device="cpu")
+    lineitem = host_batches(PD.gen_lineitem(0.2), BATCH_ROWS)
+    part = host_batches(PD.gen_part(PART_SF), BATCH_ROWS)
+    assert (len(lineitem), len(part)) == (6, 2)
+    for parts, query, want in ((lineitem, q1_query, 8),
+                               (part, part_query, 4)):
+        df = DataFrame(InMemoryScan(parts, parts[0].schema, 1),
+                       sess).cache()
+        query(df, PF).collect()  # the first collect fills the cache
+        calls.columns.clear()
+        assert len(query(df, PF).collect()) > 0
+        assert calls.columns == [2] * want
+
+
+def q1_query(df, F):
+    """TPC-H Q1 (benchmarks/tpch_like.py Q1)."""
+    return (df
+            .filter(df["l_shipdate"] <= 10471)
+            .group_by("l_returnflag", "l_linestatus")
+            .agg(F.sum("l_quantity").alias("sum_qty"),
+                 F.count("*").alias("count_order"))
+            .order_by("l_returnflag", "l_linestatus"))
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -271,3 +347,29 @@ def test_string_kernels_match_plain_versions_on_card(case):
                                                                needle))
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_string_hash_columns_match_plain_versions_on_card():
+    """Every column in one launch, against the per-column plain version:
+    capacities 1, 511 and 16 (the 64 KiB row), an all-empty column and a
+    view whose data_ptr() is 3 bytes past a 16-byte boundary."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    cols = []
+    for name in ("cap1-all-empty", "cap511", "row-64KiB", "cap513"):
+        data, offsets = string_column(len(name), **HASH_CASES[name])
+        cols.append((torch.from_numpy(data).cuda(),
+                     torch.from_numpy(offsets).cuda()))
+    data, offsets = cols[-1]
+    buf = torch.zeros(data.numel() + 16, dtype=torch.uint8, device="cuda")
+    at = (3 - buf.data_ptr()) % 16
+    buf[at:at + data.numel()].copy_(data)
+    cols.append((buf[at:at + data.numel()], offsets))
+    before = cuda_tier.launch_count("stringHash")
+    got = cuda_tier.string_hash_columns(cols)
+    assert cuda_tier.launch_count("stringHash") - before == 1
+    want = cuda_tier.string_hash_columns_reference(cols)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
