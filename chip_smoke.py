@@ -50,16 +50,36 @@ Phases, in order; any failure exits non-zero:
    * Q3 at generator sf 1 (1,500 / 15,000 / 60,000 rows), where both joins
      plan as broadcast joins, fused on the one-device mesh, top 10 and all
      groups against numpy;
+   * the SQL texts of TPC-H Q1, Q3, Q5, Q6, Q10, Q12 and Q14
+     (``benchmarks/tpch_like.py``) through ``session.sql`` over views of
+     the tables at TPC-H SF1's counts (lineitem 6,000,000, orders
+     1,500,000, customer 150,000, supplier 10,000 rows, nation and region
+     whole), cached as batches of ``reader.batchSizeRows`` rows; the
+     join queries host-driven and fused on the one-device mesh (where
+     every join overflows its static pair capacity at the default growth
+     factor and reruns host-driven; Q12 once more at growth 4, where its
+     join fits and runs fused; Q5 fused at generator sf 10, since at
+     SF1's counts its static capacities do not fit the card); rows
+     against numpy (SQL Q1 and Q3 also against the DataFrame forms' rows
+     of the same run), and every stringHash and joinProbe call of each
+     query's second collect held equal to its plain version on the
+     inputs the path handed it (a fused join that overflows throws
+     joinProbe's output away, so no row check sees it); then the casts
+     from DOUBLE and FLOAT to every integral type at NaN, ±inf, ±2^63 and
+     ±2^31 ± 1 on the card against Java's rules and the CPU;
    each query must launch every kernel of its path;
 5. timings at the main paths' own shapes (gatherScatter: the headline
    merge's concat of its partials, every buffer, and a concat of the cached
    lineitem batches with its string columns; stringHash: Q1's two keys
-   and the part query's two keys in one launch each and Q3's c_mktsegment,
-   each first held equal to its plain version, then an l_returnflag batch
-   and a p_type batch alone; contains: a p_name batch; for both, each
-   launch's device time by ``torch.profiler`` with its inputs in L2 and
-   with L2 flushed; joinProbe: the inputs Q3's two joins
-   handed it, and each of its launches by ``torch.profiler``),
+   and the part query's two keys in one launch each, Q3's c_mktsegment,
+   SQL Q12's IN over l_shipmode and SQL Q10's group sort by c_name (both
+   on the joined batch), each first held equal to its plain version, then
+   an l_returnflag batch and a p_type batch alone; contains: a p_name
+   batch; for both, each launch's device time by ``torch.profiler`` with
+   its inputs in L2 and with L2 flushed; joinProbe: the inputs that Q3's
+   two joins, SQL Q3's two whole-table joins, SQL Q12's join at growth 4
+   and SQL Q5's fused joins handed it, and each of its launches by
+   ``torch.profiler``),
    medians of CUDA-event timings: the wrapper call as the path makes it,
    the kernel alone (calls captured back to back in a CUDA graph, per
    call), the plain version, the
@@ -75,6 +95,7 @@ device it exits non-zero before printing any result.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -712,14 +733,10 @@ def string_kernel_numbers(call, plain, nbytes: int) -> dict:
     return out
 
 
-def hash_numbers(columns, label: str) -> dict:
-    """stringHash at a main-path shape: every (data, offsets) column of
-    ``columns`` in one string_hash_columns call, as a sort makes it, its
-    outputs first held equal (torch.equal) to the per-column plain
-    versions.  Bytes: per column the live bytes and the cap+1 offsets read
-    once, the function's two u32 hashes per row written once (8 bytes);
-    ``bound_ms_int64_words`` counts the 16 bytes a row of the two int64
-    words the port writes."""
+def check_hashes(columns, label: str) -> int:
+    """stringHash against its plain version on the same columns: every
+    (h1, h2) equal (torch.equal).  Returns the largest absolute difference
+    (0 when equal)."""
     import torch
     from spark_rapids_tpu_torch.kernels import cuda_tier
     got = cuda_tier.string_hash_columns(columns)
@@ -730,9 +747,22 @@ def hash_numbers(columns, label: str) -> dict:
         if not (torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])):
             raise AssertionError(f"stringHash != plain version on {label}, "
                                  f"column {i}")
-        err = max(err, int((g[0] - w[0]).abs().max()),
-                  int((g[1] - w[1]).abs().max()))
-    del got, want
+        if g[0].numel():
+            err = max(err, int((g[0] - w[0]).abs().max()),
+                      int((g[1] - w[1]).abs().max()))
+    return err
+
+
+def hash_numbers(columns, label: str) -> dict:
+    """stringHash at a main-path shape: every (data, offsets) column of
+    ``columns`` in one string_hash_columns call, as a sort makes it, its
+    outputs first held equal (torch.equal) to the per-column plain
+    versions.  Bytes: per column the live bytes and the cap+1 offsets read
+    once, the function's two u32 hashes per row written once (8 bytes);
+    ``bound_ms_int64_words`` counts the 16 bytes a row of the two int64
+    words the port writes."""
+    from spark_rapids_tpu_torch.kernels import cuda_tier
+    err = check_hashes(columns, label)
     caps = [int(o.numel()) - 1 for _, o in columns]
     live = sum(int(o[-1]) for _, o in columns)
     read = live + sum(4 * (cap + 1) for cap in caps)
@@ -874,13 +904,16 @@ def check_string_rows(rows, names, ref, label: str) -> None:
                                    err_msg=f"{label}: {name}")
 
 
-def run_path(df, query, check, label: str) -> dict:
+def run_path(df, query, check, label: str, recorders=()) -> dict:
     """Two collects of one query, launch counts zeroed just before each
-    and read just after; rows checked after each."""
+    and read just after; rows checked after each.  Each of ``recorders``
+    is emptied before each collect, so it keeps the second one's calls."""
     import torch
     from spark_rapids_tpu_torch.kernels import cuda_tier
     out = {}
     for i in range(2):
+        for recorder in recorders:
+            recorder.calls.clear()
         cuda_tier.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.monotonic()
@@ -1173,29 +1206,308 @@ def q3_tables(session, data, batch_rows):
     return out
 
 
-class ProbeRecorder:
-    """Wraps ``cuda_tier.probe_join`` while installed, keeping the inputs
-    of each call (the main path's own shapes for the timings); the calls
-    go through to the kernel unchanged."""
+class Recorder:
+    """Wraps ``cuda_tier.<name>`` while installed, keeping each call as
+    (origin, args): the main path's own inputs for the checks and timings.
+    ``origin`` is ``file:qualified name`` of the first caller outside
+    ``cuda_tier.py`` and ``exprs/strings.py`` (``string_hash_rows`` and
+    ``string_hash2`` go through ``string_hash_columns``).  The calls go
+    through to the kernel unchanged."""
 
-    def __init__(self):
+    _PASS = ("cuda_tier.py", "strings.py")
+
+    def __init__(self, name: str):
+        self.name = name
         self.calls = []
 
     def __enter__(self):
         from spark_rapids_tpu_torch.kernels import cuda_tier
-        self._real = cuda_tier.probe_join
+        self._real = getattr(cuda_tier, self.name)
 
         def record(*args):
-            self.calls.append(args)
+            f = sys._getframe(1)
+            while f is not None and \
+                    os.path.basename(f.f_code.co_filename) in self._PASS:
+                f = f.f_back
+            origin = ("?" if f is None else
+                      f"{os.path.basename(f.f_code.co_filename)}:"
+                      f"{f.f_code.co_qualname}")
+            self.calls.append((origin, args))
             return self._real(*args)
 
-        cuda_tier.probe_join = record
+        setattr(cuda_tier, self.name, record)
         return self
 
     def __exit__(self, *exc):
         from spark_rapids_tpu_torch.kernels import cuda_tier
-        cuda_tier.probe_join = self._real
+        setattr(cuda_tier, self.name, self._real)
         return False
+
+
+# ---------------------------------------------------------------------------
+# main paths: the SQL texts through session.sql
+# ---------------------------------------------------------------------------
+
+#: the TPC-H texts the port runs (benchmarks/tpch_like.py); Q10 groups by
+#: the DOUBLE c_acctbal, which needs spark.rapids.sql.hasNans off
+SQL_SETTINGS = dict(SETTINGS, **{"spark.rapids.sql.hasNans": False})
+SQL_JOIN_QUERIES = ("q3", "q5", "q10", "q12")
+SUPPLIER_SF = 100   # 10,000 rows: TPC-H SF1's supplier count
+#: Q5 fused does not fit the card at SF1's counts: a fused join's output
+#: capacities are static and compound join by join (PERF.md §6 gives the
+#: sizes), so it runs fused at generator sf 10 (lineitem 600,000 rows),
+#: host-driven at SF1's counts
+Q5_FUSED_SF = 10
+#: the kernels each SQL query launches in every collect: gatherScatter at
+#: the merge's concat of its partials or a join's side concat, stringHash
+#: at a string key, '=' or IN; joinProbe besides on every fused way
+SQL_KERNELS = {"q1": ("gatherScatter", "stringHash"),
+               "q3": ("gatherScatter", "stringHash"),
+               "q5": ("gatherScatter", "stringHash"),
+               "q6": ("gatherScatter",),
+               "q10": ("gatherScatter", "stringHash"),
+               "q12": ("gatherScatter", "stringHash"),
+               "q14": ("gatherScatter",)}
+
+
+def _np(table):
+    return {k: np.asarray(v) for k, (_, v) in table.items()}
+
+
+def _partner(keys, n):
+    """Row index of each dense 1..n foreign key; n (one past the end,
+    where the has-partner arrays hold False) for a key past n."""
+    return np.minimum(np.asarray(keys) - 1, n)
+
+
+def _top(idx, revenue, limit=None):
+    """``idx`` ordered by revenue descending (stable), cut to ``limit``;
+    a tie at the cut would leave the engine's choice open, so it fails."""
+    order = idx[np.argsort(-revenue[idx], kind="stable")]
+    if limit is not None and len(order) > limit:
+        if revenue[order[limit - 1]] == revenue[order[limit]]:
+            raise AssertionError("a revenue tie at the LIMIT")
+        order = order[:limit]
+    return order
+
+
+def sql_references(data):
+    """Independent numpy answers of Q5, Q6, Q10, Q12 and Q14 over the same
+    arrays.  c_custkey, o_orderkey and s_suppkey are dense 1..n and
+    n_nationkey 0..n-1, so each join is an index lookup; a foreign key
+    past n has no partner.  Each answer: (column names, {name: array}, the
+    key names compared exactly)."""
+    c, o, li = _np(data["customer"]), _np(data["orders"]), \
+        _np(data["lineitem"])
+    s, n = _np(data["supplier"]), _np(data["nation"])
+    n_c, n_o, n_s = len(c["c_custkey"]), len(o["o_orderkey"]), \
+        len(s["s_suppkey"])
+    cust = _partner(o["o_custkey"], n_c)
+    has_cust = np.append(np.ones(n_c, bool), False)[cust]
+    order = _partner(li["l_orderkey"], n_o)
+    supp = _partner(li["l_suppkey"], n_s)
+    price = li["l_extendedprice"]
+    out = {}
+
+    o_ok = np.append(has_cust & (o["o_orderdate"] >= 8766) &
+                     (o["o_orderdate"] < 9131), False)
+    l_ok = o_ok[order] & (supp < n_s)
+    nation = s["s_nationkey"][supp[l_ok]]
+    revenue = np.bincount(nation, weights=price[l_ok],
+                          minlength=len(n["n_name"]))
+    idx = _top(np.nonzero(np.bincount(nation, minlength=len(revenue)))[0],
+               revenue)
+    out["q5"] = (["n_name", "revenue"],
+                 {"n_name": n["n_name"][idx], "revenue": revenue[idx]},
+                 ["n_name"])
+
+    ship = li["l_shipdate"]
+    keep = (ship >= 8766) & (ship < 9131) & (li["l_discount"] >= 0.05) & \
+        (li["l_discount"] <= 0.07) & (li["l_quantity"] < 24)
+    out["q6"] = (["revenue"], {"revenue": np.array([price[keep].sum()])},
+                 [])
+
+    o_ok = np.append(has_cust & (o["o_orderdate"] >= 8766) &
+                     (o["o_orderdate"] < 8766 + 90), False)
+    l_ok = o_ok[order] & (li["l_returnflag"] == "R")
+    who = cust[order[l_ok]]
+    revenue = np.bincount(who, weights=price[l_ok], minlength=n_c)
+    idx = _top(np.nonzero(np.bincount(who, minlength=n_c))[0], revenue, 20)
+    out["q10"] = (["c_custkey", "c_name", "revenue", "c_acctbal"],
+                  {"c_custkey": c["c_custkey"][idx],
+                   "c_name": c["c_name"][idx], "revenue": revenue[idx],
+                   "c_acctbal": c["c_acctbal"][idx]},
+                  ["c_custkey", "c_name", "c_acctbal"])
+
+    commit, receipt = li["l_commitdate"], li["l_receiptdate"]
+    l_ok = np.isin(li["l_shipmode"], ["MAIL", "SHIP"]) & \
+        (commit < receipt) & (ship < commit) & (receipt >= 8766) & \
+        (receipt < 9131) & (order < n_o)
+    modes, counts = np.unique(li["l_shipmode"][l_ok], return_counts=True)
+    out["q12"] = (["l_shipmode", "mode_count"],
+                  {"l_shipmode": modes, "mode_count": counts},
+                  ["l_shipmode", "mode_count"])
+
+    keep = (ship >= 9131) & (ship < 9161) & (li["l_discount"] > 0.02)
+    out["q14"] = (["promo_revenue"],
+                  {"promo_revenue": np.array([price[keep].sum()])}, [])
+    return out
+
+
+def check_sql_rows(rows, ref, label: str) -> None:
+    """Keys and counts exact, in order; sums within 1e-9 relative: the
+    port sums each group's prices in another order than numpy (the merge
+    with atomics), and every price is positive, so there is no
+    cancellation to magnify."""
+    names, want, exact = ref
+    n = len(next(iter(want.values())))
+    if len(rows) != n:
+        raise AssertionError(f"{label}: {len(rows)} rows, numpy has {n}")
+    for i, name in enumerate(names):
+        got = [r[i] for r in rows]
+        if name in exact:
+            if got != want[name].tolist():
+                raise AssertionError(f"{label}: {name} differs from numpy")
+            continue
+        g = np.array(got, dtype=np.float64)
+        if not np.all(np.isfinite(g)):
+            raise AssertionError(f"{label}: non-finite {name}")
+        np.testing.assert_allclose(g, want[name], rtol=1e-9, atol=0,
+                                   err_msg=f"{label}: {name}")
+
+
+def check_same_rows(rows, other, label: str) -> None:
+    """The SQL form's rows against the DataFrame form's from the same run:
+    ints and strings exact, in order; floats within 1e-9 relative (the
+    merge's atomics sum in another order each collect)."""
+    if len(rows) != len(other):
+        raise AssertionError(f"{label}: {len(rows)} rows against "
+                             f"{len(other)}")
+    for r, w in zip(rows, other):
+        for g, x in zip(r, w):
+            ok = (abs(g - x) <= 1e-9 * abs(x)) if isinstance(x, float) \
+                else g == x
+            if not ok:
+                raise AssertionError(f"{label}: {r} against {w}")
+
+
+def sql_tables(session, data, batch_rows):
+    """The tables cached as batches of ``batch_rows`` rows and registered
+    as the session's views."""
+    for name, df in q3_tables(session, data, batch_rows).items():
+        df.create_or_replace_temp_view(name)
+
+
+def sql_query(session, name: str):
+    """The DataFrame of one of the port's TPC-H texts."""
+    from spark_rapids_tpu_torch.benchmarks.tpch_like import QUERIES
+    return lambda _: session.sql(QUERIES[name])
+
+
+def run_sql(session, name: str, check, label: str) -> dict:
+    """``run_path`` of one TPC-H text with stringHash and joinProbe
+    recorded, then each call of the second collect held equal to its plain
+    version on its own inputs: a launch at a shape no earlier path makes
+    is checked where it ran (and a fused join that overflows and reruns
+    host-driven throws joinProbe's output away, so no row check sees it).
+    Returns the path, the recorded (origin, args) calls and the largest
+    differences (0 when equal)."""
+    with Recorder("probe_join") as probes, \
+            Recorder("string_hash_columns") as hashes:
+        path = run_path(None, sql_query(session, name), check, label,
+                        (probes, hashes))
+    launches = path["collect2"]["launches"]
+    if len(hashes.calls) < launches["stringHash"] or \
+            len(probes.calls) != launches["joinProbe"]:
+        raise AssertionError(f"{label}: {len(hashes.calls)} stringHash and "
+                             f"{len(probes.calls)} joinProbe calls recorded "
+                             f"for launches {launches}")
+    hash_err = max((check_hashes(args[0], f"{label}, {origin}")
+                    for origin, args in hashes.calls), default=0)
+    probe_err = max((check_probe(args[:-1], args[-1], f"{label}, join {i}")
+                     for i, (_, args) in enumerate(probes.calls)), default=0)
+    origins = sorted({origin for origin, _ in hashes.calls})
+    print(f"{label}: the second collect's {len(hashes.calls)} stringHash "
+          f"calls ({', '.join(origins) or 'none'}) and {len(probes.calls)} "
+          "joinProbe calls == plain versions on their own inputs",
+          flush=True)
+    return {"path": path, "probes": probes.calls, "hashes": hashes.calls,
+            "hash_err": hash_err, "probe_err": probe_err}
+
+
+def largest(calls, origin: str):
+    """The recorded stringHash call from ``origin`` over the most rows."""
+    mine = [args[0] for o, args in calls if o == origin]
+    if not mine:
+        raise AssertionError(f"no stringHash call from {origin}")
+    return max(mine, key=lambda cols: sum(int(off.numel()) for _, off in cols))
+
+
+def cast_edges():
+    """DOUBLE and FLOAT values at and around the integral types' bounds,
+    NaN and both infinities, with each cast's answer by Java's rules
+    computed in plain Python: NaN is 0, a value at or past a bound is the
+    bound, the rest truncates toward zero."""
+    dbl = [float("nan"), float("inf"), float("-inf"), 2.0 ** 63,
+           -(2.0 ** 63), 2.0 ** 63 - 1024, -(2.0 ** 63) + 1024, 1e300,
+           2.0 ** 31 - 1, 2.0 ** 31, 2.0 ** 31 + 1, -(2.0 ** 31),
+           -(2.0 ** 31) - 1, 2147483647.5, -2147483648.5, 32767.9, 32768.0,
+           -32769.0, 127.5, 128.0, -129.0, -0.0, 0.9, -0.9, 3.0]
+    with np.errstate(over="ignore"):
+        flt = np.array(dbl, dtype=np.float32).astype(np.float64).tolist()
+    bounds = {"int": 31, "bigint": 63, "smallint": 15, "tinyint": 7}
+
+    def java(v, bits):
+        lo, hi = -(2 ** bits), 2 ** bits - 1
+        if v != v:
+            return 0
+        if v >= hi:
+            return hi
+        if v <= lo:
+            return lo
+        return int(v)
+
+    # a FLOAT compares with the bound rounded to float, as torch and XLA do
+    def java_f32(v, bits):
+        hi_f = float(np.float32(2 ** bits - 1))
+        lo = -(2 ** bits)
+        if v != v:
+            return 0
+        if v >= hi_f:
+            return 2 ** bits - 1
+        if v <= lo:
+            return lo
+        return int(v)
+
+    want = {f"d_{t}": [java(v, b) for v in dbl] for t, b in bounds.items()}
+    want.update({f"f_{t}": [java_f32(v, b) for v in flt]
+                 for t, b in bounds.items()})
+    return dbl, flt, want
+
+
+def check_cast_edges(device) -> int:
+    """The casts from DOUBLE and FLOAT to each integral type on the card
+    against Java's rules and against the same projection on the CPU."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.config import RapidsConf
+    from spark_rapids_tpu_torch.session import GpuSparkSession
+    dbl, flt, want = cast_edges()
+    rows = {}
+    for dev in (device, "cpu"):
+        session = GpuSparkSession(RapidsConf(SETTINGS), device=dev)
+        df = session.create_dataframe({"d": (T.DOUBLE, dbl),
+                                       "f": (T.FLOAT, flt)})
+        cols = [df[src].cast(t).alias(f"{src}_{t}") for src in ("d", "f")
+                for t in ("int", "bigint", "smallint", "tinyint")]
+        got = df.select(*cols).collect()
+        rows[str(dev)] = got
+        for i, name in enumerate(c.expr.alias_name for c in cols):
+            if [r[i] for r in got] != want[name]:
+                raise AssertionError(f"cast {name} on {dev} differs from "
+                                     "Java's rules")
+    if rows[str(device)] != rows["cpu"]:
+        raise AssertionError("casts differ between the card and the CPU")
+    return len(dbl) * 8
 
 
 def main() -> int:
@@ -1304,8 +1616,13 @@ def main() -> int:
           f"{time.monotonic() - t0:.1f} s", flush=True)
     q1_names = ["l_returnflag", "l_linestatus", "sum_qty", "sum_base_price",
                 "avg_qty", "avg_price", "avg_disc", "count_order"]
-    q1 = run_path(li_df, q1_query, lambda rows: check_string_rows(
-        rows, q1_names, q1_ref, "Q1"), "Q1")
+    kept = {}  # the DataFrame forms' last rows, for their SQL forms
+
+    def check_q1(rows):
+        check_string_rows(rows, q1_names, q1_ref, "Q1")
+        kept["q1"] = rows
+
+    q1 = run_path(li_df, q1_query, check_q1, "Q1")
     _require(q1, "Q1", ["gatherScatter", "stringHash"])
     # gatherScatter over string buffers: a concat of the cached lineitem
     # batches, every column (the string ones among them)
@@ -1359,9 +1676,11 @@ def main() -> int:
         def check(rows, m=mode, sess=q3_session):
             check_q3_rows(rows, q3_ref, f"Q3 {m}")
             check_q3_joins(sess, f"Q3 {m}", fused=bool(Q3_MODES[m]))
+            kept[f"q3 {m}"] = rows
 
-        with ProbeRecorder() as recorder:
-            q3_paths[mode] = run_path(tables, q3_query, check, f"Q3 {mode}")
+        with Recorder("probe_join") as recorder:
+            q3_paths[mode] = run_path(tables, q3_query, check, f"Q3 {mode}",
+                                      (recorder,))
         q3_fallbacks[mode] = q3_session.last_metrics.get(
             "joinOverflowFallback", 0)
         print(f"Q3 {mode}: plan\n{q3_session.last_physical_plan.tree_string()}"
@@ -1369,7 +1688,10 @@ def main() -> int:
               f"{'fired' if q3_fallbacks[mode] else 'did not fire'}",
               flush=True)
         if mode == "mesh-fused":
-            probe_calls = recorder.calls[-2:]  # the second collect's joins
+            probe_calls = [args for _, args in recorder.calls]
+            if len(probe_calls) != 2:
+                raise AssertionError(f"Q3 {mode}: {len(probe_calls)} "
+                                     "joinProbe calls, not two")
         else:
             segment = cached_column(tables["customer"], "c_mktsegment")
         groups = q3_groups_query(tables).collect()
@@ -1390,7 +1712,6 @@ def main() -> int:
                                  f"joinProbe {n} times, not twice")
         if q3_paths["host-driven"][f"collect{i}"]["launches"]["joinProbe"]:
             raise AssertionError("Q3 host-driven launched joinProbe")
-    del q3_data
 
     # ---- Q3 at a small size: both joins broadcast, fused on the mesh -----
     bc_data = {"customer": datagen.gen_customer(Q3_BROADCAST_SF),
@@ -1427,6 +1748,139 @@ def main() -> int:
           "LIMIT equal numpy", flush=True)
     del bc_data, bc_tables
 
+    # ---- main paths: the TPC-H texts through session.sql -----------------
+    # TPC-H SF1's counts: Q3's customer, orders and lineitem, with supplier
+    # 10,000 rows and nation and region whole; host-driven, and the join
+    # queries fused on a one-device mesh too
+    t0 = time.monotonic()
+    sql_data = dict(q3_data, supplier=datagen.gen_supplier(SUPPLIER_SF),
+                    nation=datagen.gen_nation(), region=datagen.gen_region())
+    sql_refs = sql_references(sql_data)
+    sql_refs["q1"] = q1_ref
+    print("SQL tables: " + ", ".join(
+        f"{k} {len(next(iter(v.values()))[1])} rows"
+        for k, v in sql_data.items()) +
+        f", numpy answers in {time.monotonic() - t0:.1f} s", flush=True)
+    sql_paths, sql_metrics = {}, {}
+    sql_hash_err = sql_probe_err = 0
+    sql_hash, sql_probe = {}, {}  # timings at the SQL paths' own shapes
+
+    def time_probes(rec, label, names):
+        for i, (join, (_, args)) in enumerate(zip(names, rec["probes"],
+                                                  strict=True)):
+            nums = probe_numbers(args[:-1], args[-1], f"{label}, {join}")
+            print(f"joinProbe {label}, {join}: {json.dumps(nums)}",
+                  flush=True)
+            sql_probe[f"{label}, join {i + 1}"] = nums
+
+    def time_hash(rec, key, origin, label):
+        nums = hash_numbers(largest(rec["hashes"], origin), label)
+        print(f"stringHash {label}: {json.dumps(nums)}", flush=True)
+        sql_hash[key] = nums
+
+    def keep(rec, label, metrics):
+        nonlocal sql_hash_err, sql_probe_err
+        sql_paths[label], sql_metrics[label] = rec["path"], metrics
+        sql_hash_err = max(sql_hash_err, rec["hash_err"])
+        sql_probe_err = max(sql_probe_err, rec["probe_err"])
+
+    for mode, extra in Q3_MODES.items():
+        sql_session = GpuSparkSession(RapidsConf(dict(SQL_SETTINGS,
+                                                      **extra)))
+        sql_tables(sql_session, sql_data, batch_rows)
+        for name in SQL_KERNELS:
+            if extra and name not in SQL_JOIN_QUERIES or \
+                    extra and name == "q5":
+                continue
+            label = f"SQL {name.upper()} {mode}"
+
+            def check(rows, name=name, label=label, m=mode):
+                if name == "q1":
+                    check_string_rows(rows, q1_names, q1_ref, label)
+                    check_same_rows(rows, kept["q1"], f"{label} vs Q1")
+                elif name == "q3":
+                    check_q3_rows(rows, q3_ref, label)
+                    check_same_rows(rows, kept[f"q3 {m}"], f"{label} vs Q3")
+                else:
+                    check_sql_rows(rows, sql_refs[name], label)
+
+            rec = run_sql(sql_session, name, check, label)
+            path = rec["path"]
+            metrics = dict(sql_session.last_metrics)
+            print(f"{label}: plan\n"
+                  f"{sql_session.last_physical_plan.tree_string()}"
+                  f"metrics {metrics}", flush=True)
+            need = SQL_KERNELS[name] + (("joinProbe",) if extra else ())
+            _require(path, label, need)
+            if extra and metrics.get("meshJoinsFused", 0) == 0:
+                raise AssertionError(f"{label}: no join ran fused")
+            if not extra and path["collect2"]["launches"]["joinProbe"]:
+                raise AssertionError(f"{label} launched joinProbe")
+            keep(rec, label, metrics)
+            # stringHash at shapes only the SQL paths make: Q12's IN over
+            # l_shipmode and Q10's group sort by c_name, both on the
+            # joined batch; joinProbe at SQL Q3's two whole-table joins
+            if label == "SQL Q12 host-driven":
+                time_hash(rec, "q12_in", "predicates.py:In.gpu_eval",
+                          "Q12's IN over l_shipmode (the joined batch)")
+            elif label == "SQL Q10 host-driven":
+                time_hash(rec, "q10_sort", "sortkeys.py:string_key_hashes",
+                          "Q10's group sort key c_name (the joined batch)")
+            elif label == "SQL Q3 mesh-fused":
+                time_probes(rec, label, ("customer x orders",
+                                         "(customer x orders) x lineitem"))
+            del rec
+        del sql_session
+    # Q12's one join fused with no overflow: at growth 4 its static pair
+    # capacity (orders' 2^21 rows times 4) holds lineitem's 6,000,000
+    # pairs, where the default 2 overflows and reruns host-driven
+    sql_session = GpuSparkSession(RapidsConf(dict(
+        SQL_SETTINGS, **Q3_MODES["mesh-fused"],
+        **{"spark.rapids.sql.tpu.mesh.spmd.join.growthFactor": 4.0})))
+    sql_tables(sql_session, sql_data, batch_rows)
+    label = "SQL Q12 mesh-fused (growth 4)"
+    rec = run_sql(sql_session, "q12",
+                  lambda rows: check_sql_rows(rows, sql_refs["q12"], label),
+                  label)
+    metrics = dict(sql_session.last_metrics)
+    print(f"{label}: metrics {metrics}", flush=True)
+    _require(rec["path"], label, SQL_KERNELS["q12"] + ("joinProbe",))
+    if metrics != {"meshJoinsFused": 1}:
+        raise AssertionError(f"{label}: joins {metrics}, expected one "
+                             "fused and no overflow")
+    keep(rec, label, metrics)
+    time_probes(rec, label, ("orders x lineitem",))
+    del sql_session, rec
+    torch.cuda.empty_cache()
+    del q3_data, sql_data
+    small = {"customer": datagen.gen_customer(Q5_FUSED_SF),
+             "orders": datagen.gen_orders(Q5_FUSED_SF),
+             "lineitem": datagen.gen_lineitem(Q5_FUSED_SF),
+             "supplier": datagen.gen_supplier(Q5_FUSED_SF),
+             "nation": datagen.gen_nation(), "region": datagen.gen_region()}
+    small_ref = sql_references(small)["q5"]
+    sql_session = GpuSparkSession(RapidsConf(dict(
+        SQL_SETTINGS, **Q3_MODES["mesh-fused"])))
+    sql_tables(sql_session, small, batch_rows)
+    label = f"SQL Q5 mesh-fused (sf {Q5_FUSED_SF})"
+    rec = run_sql(sql_session, "q5",
+                  lambda rows: check_sql_rows(rows, small_ref, label), label)
+    metrics = dict(sql_session.last_metrics)
+    print(f"{label}: plan\n{sql_session.last_physical_plan.tree_string()}"
+          f"metrics {metrics}", flush=True)
+    # one lineitem batch at this size: no concat, so no gatherScatter
+    _require(rec["path"], label, ("stringHash", "joinProbe"))
+    if metrics.get("meshJoinsFused", 0) == 0:
+        raise AssertionError(f"{label}: no join ran fused")
+    keep(rec, label, metrics)
+    time_probes(rec, label, [f"join {i + 1}"
+                             for i in range(len(rec["probes"]))])
+    del sql_session, small, rec
+    cases = check_cast_edges(device)
+    print(f"cast phase: {cases} casts from DOUBLE and FLOAT to the "
+          "integral types on the card == Java's rules == the CPU's",
+          flush=True)
+
     # ---- string kernels: matrix and timings at the main paths' shapes ----
     p_type = cached_column(p_df, "p_type")
     p_brand = cached_column(p_df, "p_brand")
@@ -1449,7 +1903,8 @@ def main() -> int:
     hash_flag = hash_numbers([flag], "l_returnflag batch")
     hash_type = hash_numbers([p_type], "p_type batch")
     contains_main = contains_numbers(*p_name, b"green", "p_name batch")
-    h_err = max(hash_q1["max_abs_err"], hash_part["max_abs_err"])
+    h_err = max(hash_q1["max_abs_err"], hash_part["max_abs_err"],
+                sql_hash_err)
     c_err = int((cuda_tier.rows_with_match(*p_name, b"green") !=
                  cuda_tier.rows_with_match_reference(*p_name, b"green"))
                 .sum())
@@ -1462,7 +1917,7 @@ def main() -> int:
         print(f"{label}: {json.dumps(nums)}", flush=True)
 
     # ---- joinProbe at Q3's two join shapes -------------------------------
-    probe_err = 0
+    probe_err = sql_probe_err
     probe_shapes = []
     for label, (args, pair_cap) in zip(
             ("Q3 customer x orders", "Q3 (customer x orders) x lineitem"),
@@ -1479,6 +1934,8 @@ def main() -> int:
              "Q3 host-driven": q3_paths["host-driven"]["collect2"]["launches"],
              "Q3 mesh-fused": q3_paths["mesh-fused"]["collect2"]["launches"],
              "Q3 broadcast mesh-fused": bc_path["collect2"]["launches"]}
+    paths.update({label: p["collect2"]["launches"]
+                  for label, p in sql_paths.items()})
 
     def by_path(name):
         return {p: launches[name] for p, launches in paths.items()}
@@ -1500,21 +1957,22 @@ def main() -> int:
               paths["headline"]["gatherScatter"], bandwidth=bandwidth,
               strings=strings_shape),
         entry("stringHash", hash_q1, h_err,
-              sum(paths[p]["stringHash"] for p in (
-                  "Q1", "part", "Q3 host-driven", "Q3 mesh-fused",
-                  "Q3 broadcast mesh-fused")),
+              sum(launches["stringHash"] for launches in paths.values()),
               part_keys=hash_part, q3_segment=hash_q3,
-              l_returnflag=hash_flag, p_type=hash_type),
+              l_returnflag=hash_flag, p_type=hash_type, **sql_hash),
         entry("strings", contains_main, c_err,
               paths["part"]["strings"]),
         entry("joinProbe", probe_shapes[1], probe_err,
               paths["Q3 mesh-fused"]["joinProbe"],
-              first_join=probe_shapes[0], large=probe_large),
+              first_join=probe_shapes[0], large=probe_large,
+              sql=sql_probe),
     ]
     summary = {"main_path": {"multi_batch": multi, "one_batch": single,
                              "q1": q1, "part": part_path, "q3": q3_paths,
-                             "q3_broadcast_mesh_fused": bc_path},
-               "q3_overflow_reruns": q3_fallbacks, "card": card}
+                             "q3_broadcast_mesh_fused": bc_path,
+                             "sql": sql_paths},
+               "q3_overflow_reruns": q3_fallbacks,
+               "sql_metrics": sql_metrics, "card": card}
     print(f"summary: {json.dumps(summary)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

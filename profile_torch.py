@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
 """Where the time goes in one of the PyTorch port's main paths on one GPU.
 
-    python3 profile_torch.py [--query headline|q1|part|q3] [--mesh]
+    python3 profile_torch.py [--query headline|q1|part|q3|q1sql|q3sql|
+                              q5|q6|q10|q12|q14] [--mesh]
                              [--batches 16] [--out build/profile.txt]
 
 Runs one of chip_smoke.py's main paths, cached and warmed: ``headline``
 (bench.py's headline query over 16,777,216 rows cached as ``--batches``
 batches), ``q1`` (TPC-H Q1 over lineitem, 6,000,000 rows), ``part`` (the
-``LIKE '%green%'`` part query, 2,000,000 rows) or ``q3`` (TPC-H Q3 over
+``LIKE '%green%'`` part query, 2,000,000 rows), ``q3`` (TPC-H Q3 over
 customer, orders and lineitem at TPC-H SF1's counts; host-driven joins, or
-with ``--mesh`` both joins fused on a one-device mesh through joinProbe);
-all but the headline are cached as batches of ``reader.batchSizeRows``
-rows.  Then it measures:
+with ``--mesh`` both joins fused on a one-device mesh through joinProbe),
+or a TPC-H text through ``session.sql`` (``q1sql``, ``q3sql``, ``q5``,
+``q6``, ``q10``, ``q12``, ``q14``: ``benchmarks/tpch_like.py`` over views
+of the tables at TPC-H SF1's counts, ``--mesh`` for the join queries); all
+but the headline are cached as batches of ``reader.batchSizeRows`` rows.
+Then it measures:
 
 * the collect wall: median of 7 collects, each ending in a synchronize;
 * the host syncs of one collect, as ``torch.cuda.set_sync_debug_mode``
@@ -26,8 +30,10 @@ rows.  Then it measures:
   wall, the device busy time (sum of the device-side events' self time),
   the idle share (1 - busy / wall) and the kernels by device time.
 
-Prints one JSON line; the profiler's table goes to ``--out``.  Needs a CUDA
-device.
+Prints one JSON line, with the static capacities of every fused join;
+the profiler's table goes to ``--out``.  A fused query that runs out of
+device memory prints those capacities and the allocator's message instead
+and exits 4.  Needs a CUDA device.
 """
 
 import argparse
@@ -36,6 +42,28 @@ import os
 import sys
 import time
 import warnings
+
+
+def record_static_joins() -> list:
+    """Records the capacities of every fused join the query runs (rows of
+    each side, the static pair capacity, each string column's static
+    output bytes) by wrapping the exec module's ``hash_join_static``."""
+    from spark_rapids_tpu_torch.batch import round_up_capacity
+    from spark_rapids_tpu_torch.kernels.join import _static_byte_caps
+    from spark_rapids_tpu_torch.ops import gpu_exec
+    joins, real = [], gpu_exec.hash_join_static
+
+    def wrapped(left, lk, right, rk, how, schema, growth=2.0):
+        pair_cap = round_up_capacity(max(int(left.capacity * growth), 1))
+        joins.append({
+            "how": how, "left_capacity": left.capacity,
+            "right_capacity": right.capacity, "pair_capacity": pair_cap,
+            "byte_caps": _static_byte_caps(left, growth, pair_cap) +
+            _static_byte_caps(right, growth, pair_cap)})
+        return real(left, lk, right, rk, how, schema, growth=growth)
+
+    gpu_exec.hash_join_static = wrapped
+    return joins
 
 
 def main() -> int:
@@ -56,22 +84,37 @@ def main() -> int:
     from spark_rapids_tpu_torch.session import GpuSparkSession
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--query", choices=("headline", "q1", "part", "q3"),
-                    default="headline")
+    sql = {"q1sql": "q1", "q3sql": "q3", "q5": "q5", "q6": "q6",
+           "q10": "q10", "q12": "q12", "q14": "q14"}
+    ap.add_argument("--query", choices=("headline", "q1", "part", "q3",
+                                        *sql), default="headline")
     ap.add_argument("--mesh", action="store_true",
-                    help="q3 only: install a one-device mesh "
+                    help="join queries only: install a one-device mesh "
                          "(spark.rapids.shuffle.ici.enabled)")
     ap.add_argument("--batches", type=int, default=16,
                     help="headline only: batches the table is cached as")
     ap.add_argument("--out", default="build/profile.txt")
     args = ap.parse_args()
 
+    if args.mesh and args.query not in ("q3", "q3sql", "q5", "q10", "q12"):
+        ap.error(f"--mesh needs a join query, not {args.query}")
     cuda_tier.build_all()
-    conf = RapidsConf(dict(C.SETTINGS, **C.Q3_MODES[
-        "mesh-fused" if args.mesh else "host-driven"]))
+    conf = RapidsConf(dict(
+        C.SQL_SETTINGS if args.query in sql else C.SETTINGS,
+        **C.Q3_MODES["mesh-fused" if args.mesh else "host-driven"]))
     session = GpuSparkSession(conf)
     batch_rows = READER_BATCH_SIZE_ROWS.get(conf)
-    if args.query == "q3":
+    if args.query in sql:
+        data = {"customer": datagen.gen_customer(C.Q3_SF),
+                "orders": datagen.gen_orders(C.Q3_SF),
+                "lineitem": datagen.gen_lineitem(C.Q3_SF),
+                "supplier": datagen.gen_supplier(C.SUPPLIER_SF),
+                "nation": datagen.gen_nation(), "region": datagen.gen_region()}
+        C.sql_tables(session, data, batch_rows)
+        n_batches = sum(len(session.table(name).plan.children[0].batches)
+                        for name in data)
+        query = C.sql_query(session, sql[args.query])(None)
+    elif args.query == "q3":
         tables = C.q3_tables(session, {
             "customer": datagen.gen_customer(C.Q3_SF),
             "orders": datagen.gen_orders(C.Q3_SF),
@@ -92,8 +135,19 @@ def main() -> int:
         df = DataFrame(InMemoryScan(parts, parts[0].schema, 1),
                        session).cache()
         query = build(df)
-    for _ in range(3):  # materialize the cache, warm the allocator
-        query.collect()
+    joins = record_static_joins()
+    try:
+        for _ in range(3):  # materialize the cache, warm the allocator
+            query.collect()
+    except torch.OutOfMemoryError as e:
+        # a fused query whose static capacities do not fit the card: the
+        # sizes each fused join asked for, and the allocator's message
+        print(json.dumps({
+            "card": C.card_line(), "query": args.query, "mesh": args.mesh,
+            "out_of_memory": str(e).splitlines()[0],
+            "max_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "static_joins": joins}), flush=True)
+        return 4
     walls = []
     for _ in range(7):
         torch.cuda.synchronize()
@@ -171,7 +225,7 @@ def main() -> int:
         "host_syncs": len(syncs), "host_sync_kinds": sorted(set(syncs)),
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - (busy_us / 1e3) / (wall * 1e3),
-        "layers": layers,
+        "layers": layers, "static_joins": joins[-8:],
         "top_kernels": [{"name": k[:80], "device_ms": t / 1e3, "calls": c}
                         for k, t, c in kernels[:12]],
     }), flush=True)

@@ -1,12 +1,13 @@
-"""TPC-H-shaped table generators (port of the lineitem, orders, customer
-and part generators of ``spark_rapids_tpu/benchmarks/datagen.py``).
+"""TPC-H-shaped table generators (port of
+``spark_rapids_tpu/benchmarks/datagen.py``: lineitem, orders, customer,
+supplier, part, partsupp, region and nation, and ``register_tpch``).
 
 Rows = ``int(sf * base_rows)``; every table is deterministic per seed.  The
 same ``sf`` and seed give the same arrays as the JAX package: the
 ``RandomState`` draws are the same, made in the same order.  Columns that
 the JAX package builds with a Python loop per row (``p_name``,
-``p_mfgr``, ``c_name``, ``c_phone``) are built here with numpy, which
-gives the same strings as numpy arrays.
+``p_mfgr``, ``c_name``, ``c_phone``, ``s_name``) are built here with
+numpy, which gives the same strings as numpy arrays.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ CONTAINERS = [f"{a} {b}"
                         "CAN", "DRUM")]
 NATIONS = ["ALGERIA", "BRAZIL", "CANADA", "EGYPT", "FRANCE", "GERMANY",
            "INDIA", "JAPAN", "KENYA", "PERU", "CHINA", "ROMANIA"]
+REGIONS = ["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"]
 PART_NOUNS = ["forest", "green", "lemon", "navy", "slate", "rose",
               "royal", "steel", "midnight", "linen"]
 PHONE_CODES = ["13", "17", "18", "23", "29", "30", "31", "32", "33"]
@@ -89,8 +91,7 @@ def gen_customer(sf: float, seed: int = 13) -> Dict:
     r = np.random.RandomState(seed)
     return {
         "c_custkey": (T.LONG, np.arange(1, n + 1)),
-        "c_name": (T.STRING, np.char.add(
-            "Customer#", np.char.zfill(np.arange(1, n + 1).astype(str), 9))),
+        "c_name": (T.STRING, _numbered("Customer#", n)),
         "c_nationkey": (T.INT, r.randint(0, len(NATIONS), n)),
         "c_mktsegment": (T.STRING, r.choice(SEGMENTS, n)),
         "c_acctbal": (T.DOUBLE, (r.rand(n) * 10000 - 1000).round(2)),
@@ -108,6 +109,23 @@ def _gen_phones(r, n):
     for p in parts[1:]:
         out = np.char.add(np.char.add(out, "-"), p.astype(str))
     return out
+
+
+def _numbered(prefix: str, n: int):
+    """``prefix`` followed by 1..n zero-padded to nine digits."""
+    return np.char.add(prefix,
+                       np.char.zfill(np.arange(1, n + 1).astype(str), 9))
+
+
+def gen_supplier(sf: float, seed: int = 14) -> Dict:
+    n = max(1, int(sf * 100))
+    r = np.random.RandomState(seed)
+    return {
+        "s_suppkey": (T.LONG, np.arange(1, n + 1)),
+        "s_name": (T.STRING, _numbered("Supplier#", n)),
+        "s_nationkey": (T.INT, r.randint(0, len(NATIONS), n)),
+        "s_acctbal": (T.DOUBLE, (r.rand(n) * 11000 - 1000).round(2)),
+    }
 
 
 def gen_part(sf: float, seed: int = 15) -> Dict:
@@ -129,3 +147,54 @@ def gen_part(sf: float, seed: int = 15) -> Dict:
         "p_container": (T.STRING, r.choice(CONTAINERS, n)),
         "p_retailprice": (T.DOUBLE, (r.rand(n) * 2000 + 900).round(2)),
     }
+
+
+def gen_partsupp(sf: float, seed: int = 16) -> Dict:
+    n_part = max(1, int(sf * 2_000))
+    n_supp = max(1, int(sf * 100))
+    # 4 distinct suppliers per part, the TPC-H shape ((partkey, suppkey)
+    # is the table's primary key)
+    pk = np.repeat(np.arange(1, n_part + 1), 4)
+    offset = np.tile(np.arange(4), n_part)
+    sk = (pk * 7 + offset * max(1, n_supp // 4)) % n_supp + 1
+    r = np.random.RandomState(seed)
+    n = len(pk)
+    return {
+        "ps_partkey": (T.LONG, pk),
+        "ps_suppkey": (T.LONG, sk),
+        "ps_availqty": (T.INT, r.randint(1, 10_000, n).astype(np.int32)),
+        "ps_supplycost": (T.DOUBLE, (r.rand(n) * 1000 + 1).round(2)),
+    }
+
+
+def gen_region() -> Dict:
+    n = len(REGIONS)
+    return {
+        "r_regionkey": (T.INT, np.arange(n, dtype=np.int32)),
+        "r_name": (T.STRING, np.array(REGIONS)),
+    }
+
+
+def gen_nation() -> Dict:
+    n = len(NATIONS)
+    return {
+        "n_nationkey": (T.INT, np.arange(n, dtype=np.int32)),
+        "n_name": (T.STRING, np.array(NATIONS)),
+        "n_regionkey": (T.INT, (np.arange(n) % 5).astype(np.int32)),
+    }
+
+
+def register_tpch(session, sf: float = 0.01, num_partitions: int = 4):
+    """Create every TPC-H-like table and register it as a temp view."""
+    for name, data in [
+        ("lineitem", gen_lineitem(sf)),
+        ("orders", gen_orders(sf)),
+        ("customer", gen_customer(sf)),
+        ("supplier", gen_supplier(sf)),
+        ("nation", gen_nation()),
+        ("part", gen_part(sf)),
+        ("partsupp", gen_partsupp(sf)),
+        ("region", gen_region()),
+    ]:
+        df = session.create_dataframe(data, num_partitions=num_partitions)
+        df.create_or_replace_temp_view(name)

@@ -102,6 +102,11 @@ VARIABLE_FLOAT_AGG = conf_bool(
     "spark.rapids.sql.variableFloatAgg.enabled", False,
     "Allow float/double aggregations whose result can vary run-to-run "
     "because of non-deterministic reduction order.")
+HAS_NANS = conf_bool(
+    "spark.rapids.sql.hasNans", True,
+    "Whether float/double data is assumed to possibly contain NaNs; when "
+    "true the planner refuses grouping by a float (the JAX package keeps "
+    "it on the CPU).")
 SHUFFLE_PARTITIONS = conf_int(
     "spark.sql.shuffle.partitions", 8,
     "Number of partitions used for shuffle exchanges.")

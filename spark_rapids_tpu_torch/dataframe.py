@@ -1,7 +1,8 @@
 """Lazy DataFrame frontend over the logical plan (port of the part of
-``spark_rapids_tpu/dataframe.py`` the port runs): filter, with_column,
-join, group_by().agg(), order_by, limit, cache, collect, and the string
-predicates contains, like, startswith and endswith."""
+``spark_rapids_tpu/dataframe.py`` the port runs): select, filter,
+with_column, join, group_by().agg() and agg() without keys, distinct,
+order_by, limit, cache, collect, temp views for the SQL front end, and the
+Column operators of the ported expressions."""
 
 from __future__ import annotations
 
@@ -26,13 +27,46 @@ class Column:
     def _bin(self, other, cls):
         return Column(cls(self.expr, _to_expr(other)))
 
+    def __add__(self, other):
+        from spark_rapids_tpu_torch.exprs.arithmetic import Add
+        return self._bin(other, Add)
+
+    def __radd__(self, other):
+        return Column(_to_expr(other)) + self
+
+    def __sub__(self, other):
+        from spark_rapids_tpu_torch.exprs.arithmetic import Subtract
+        return self._bin(other, Subtract)
+
+    def __rsub__(self, other):
+        return Column(_to_expr(other)) - self
+
     def __mul__(self, other):
         from spark_rapids_tpu_torch.exprs.arithmetic import Multiply
         return self._bin(other, Multiply)
 
+    def __rmul__(self, other):
+        return Column(_to_expr(other)) * self
+
+    def __truediv__(self, other):
+        from spark_rapids_tpu_torch.exprs.arithmetic import Divide
+        return self._bin(other, Divide)
+
+    def __mod__(self, other):
+        from spark_rapids_tpu_torch.exprs.arithmetic import Remainder
+        return self._bin(other, Remainder)
+
+    def __neg__(self):
+        from spark_rapids_tpu_torch.exprs.arithmetic import UnaryMinus
+        return Column(UnaryMinus(self.expr))
+
     def __eq__(self, other):  # type: ignore[override]
         from spark_rapids_tpu_torch.exprs.predicates import Equals
         return self._bin(other, Equals)
+
+    def __ne__(self, other):  # type: ignore[override]
+        from spark_rapids_tpu_torch.exprs.predicates import NotEquals
+        return self._bin(other, NotEquals)
 
     def __lt__(self, other):
         from spark_rapids_tpu_torch.exprs.predicates import LessThan
@@ -46,9 +80,46 @@ class Column:
         from spark_rapids_tpu_torch.exprs.predicates import GreaterThan
         return self._bin(other, GreaterThan)
 
+    def __ge__(self, other):
+        from spark_rapids_tpu_torch.exprs.predicates import GreaterThanOrEqual
+        return self._bin(other, GreaterThanOrEqual)
+
     def __and__(self, other):
         from spark_rapids_tpu_torch.exprs.predicates import And
         return self._bin(other, And)
+
+    def __or__(self, other):
+        from spark_rapids_tpu_torch.exprs.predicates import Or
+        return self._bin(other, Or)
+
+    def __invert__(self):
+        from spark_rapids_tpu_torch.exprs.predicates import Not
+        return Column(Not(self.expr))
+
+    def is_null(self) -> "Column":
+        from spark_rapids_tpu_torch.exprs.nullexprs import IsNull
+        return Column(IsNull(self.expr))
+
+    def is_not_null(self) -> "Column":
+        from spark_rapids_tpu_torch.exprs.nullexprs import IsNotNull
+        return Column(IsNotNull(self.expr))
+
+    isNull = is_null
+    isNotNull = is_not_null
+
+    def isin(self, *values) -> "Column":
+        from spark_rapids_tpu_torch.exprs.predicates import In
+        vals = values[0] if len(values) == 1 and \
+            isinstance(values[0], (list, tuple, set)) else values
+        return Column(In(self.expr, list(vals)))
+
+    def between(self, low, high) -> "Column":
+        return (self >= low) & (self <= high)
+
+    def cast(self, dtype) -> "Column":
+        from spark_rapids_tpu_torch.exprs.cast import Cast
+        dt = T.type_from_name(dtype) if isinstance(dtype, str) else dtype
+        return Column(Cast(self.expr, dt))
 
     def alias(self, name: str) -> "Column":
         return Column(Alias(self.expr, name))
@@ -120,6 +191,23 @@ class DataFrame:
     def _resolve(self, e: Expression) -> Expression:
         return resolve(e, self.schema)
 
+    def select(self, *cols) -> "DataFrame":
+        """Project ``cols``: names (``"*"`` for every column), Columns or
+        expressions; an aliased one takes its alias's name."""
+        exprs, names = [], []
+        for i, c in enumerate(cols):
+            if isinstance(c, str):
+                if c == "*":
+                    for f in self.schema.fields:
+                        exprs.append(ColumnRef(f.name, f.dtype, f.nullable))
+                        names.append(f.name)
+                    continue
+                c = self[c]
+            e = self._resolve(_to_expr(c))
+            exprs.append(e)
+            names.append(output_name(e, i))
+        return DataFrame(L.Project(exprs, names, self.plan), self.session)
+
     def with_column(self, name: str, col) -> "DataFrame":
         exprs, names = [], []
         replaced = False
@@ -146,6 +234,18 @@ class DataFrame:
             keys.append(e)
             names.append(output_name(e, i))
         return GroupedData(self, keys, names)
+
+    def agg(self, *aggs) -> "DataFrame":
+        """Aggregation without grouping keys: one row."""
+        return GroupedData(self, [], []).agg(*aggs)
+
+    def distinct(self) -> "DataFrame":
+        """Distinct rows: an aggregate keyed by every column, with no
+        aggregate function, as the JAX package plans its Distinct node."""
+        keys = [ColumnRef(f.name, f.dtype, f.nullable)
+                for f in self.schema.fields]
+        return DataFrame(L.Aggregate(keys, list(self.schema.names), [],
+                                     self.plan), self.session)
 
     def join(self, other: "DataFrame", on=None, how: str = "inner"
              ) -> "DataFrame":
@@ -237,12 +337,41 @@ class DataFrame:
                          self.session)
 
     def order_by(self, *cols) -> "DataFrame":
-        orders = []
-        for c in cols:
-            o = _to_order(c)
-            orders.append(SortOrder(self._resolve(o.child), o.ascending,
-                                    o.nulls_first))
+        orders = [self._resolve_order(_to_order(c)) for c in cols]
         return DataFrame(L.Sort(orders, True, self.plan), self.session)
+
+    def _resolve_order(self, o: SortOrder) -> SortOrder:
+        """Resolve a sort expression against this DataFrame's schema.  A
+        bare column name the select list renamed away falls back to its
+        alias's output column (SQL's ORDER BY on the pre-alias name)."""
+        try:
+            return SortOrder(self._resolve(o.child), o.ascending,
+                             o.nulls_first)
+        except KeyError:
+            alias = self._order_alias_for(o.child)
+            if alias is None:
+                raise
+            return SortOrder(self._resolve(ColumnRef(alias)), o.ascending,
+                             o.nulls_first)
+
+    def _order_alias_for(self, e: Expression) -> Optional[str]:
+        """Output name of a select-list entry that is a pure rename of the
+        input column ``e`` references, when this plan is a projection
+        (possibly under a limit); None otherwise."""
+        if not isinstance(e, ColumnRef):
+            return None
+        node = self.plan
+        while isinstance(node, L.Limit):
+            node = node.children[0]
+        if not isinstance(node, L.Project):
+            return None
+        for name, pe in zip(node.names, node.exprs):
+            inner = pe
+            while isinstance(inner, Alias):
+                inner = inner.children[0]
+            if isinstance(inner, ColumnRef) and inner.column == e.column:
+                return name
+        return None
 
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(L.Limit(n, self.plan), self.session)
@@ -251,6 +380,11 @@ class DataFrame:
         hb = self.session.execute(self.plan)
         cols = [c.to_list() for c in hb.columns]
         return [tuple(c[i] for c in cols) for i in range(hb.num_rows)]
+
+    def create_or_replace_temp_view(self, name: str) -> None:
+        self.session.register_view(name, self)
+
+    createOrReplaceTempView = create_or_replace_temp_view
 
     def cache(self) -> "DataFrame":
         """Mark for caching: the first execution keeps the device batches

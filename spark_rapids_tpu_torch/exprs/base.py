@@ -46,6 +46,24 @@ class GpuEvalCtx:
         self.device = batch.device
 
 
+def _fp(v) -> str:
+    """Encode a value for :meth:`Expression.fingerprint`."""
+    if isinstance(v, Expression):
+        return v.fingerprint()
+    if isinstance(v, SortOrder):
+        return f"SO({_fp(v.child)},{v.ascending},{v.nulls_first})"
+    if isinstance(v, (str, int, float, bool, type(None))):
+        return repr(v)
+    if isinstance(v, (T.DataType, T.Schema)):
+        return str(v)
+    if isinstance(v, (list, tuple)):
+        return "[" + ",".join(_fp(x) for x in v) + "]"
+    if isinstance(v, dict):
+        return "{" + ",".join(f"{_fp(k)}:{_fp(x)}" for k, x in sorted(
+            v.items(), key=lambda kv: str(kv[0]))) + "}"
+    return f"id:{id(v):x}"
+
+
 class Expression:
     """Declarative expression tree node.
 
@@ -64,6 +82,18 @@ class Expression:
     def __repr__(self) -> str:
         args = ", ".join(repr(c) for c in self.children)
         return f"{self.name}({args})"
+
+    def fingerprint(self) -> str:
+        """Structural identity including the attributes that are not
+        children (a CASE's branch count, a Like's pattern): the key the SQL
+        front end matches group keys and aggregate calls by."""
+        parts = [type(self).__name__]
+        for k, a in sorted(vars(self).items()):
+            if k == "children":
+                continue
+            parts.append(f"{k}={_fp(a)}")
+        kids = ",".join(_fp(c) for c in self.children)
+        return f"{'|'.join(parts)}({kids})"
 
     def with_children(self, children: Sequence["Expression"]) -> "Expression":
         """Rebuild this node with new children (default: positional ctor)."""
@@ -287,6 +317,20 @@ def cast_dev(v: DevVal, to: T.DataType) -> DevVal:
     if v.dtype.is_string or to.is_string:
         raise TypeError(f"cannot cast {v.dtype} to {to} on the device")
     return DevVal(to, v.data.to(to.torch_dtype), v.validity)
+
+
+class UnaryExpression(Expression):
+    def __init__(self, child: Expression):
+        self.children = (child,)
+        self._resolve_type()
+
+    @property
+    def child(self) -> Expression:
+        return self.children[0]
+
+    def _resolve_type(self):
+        self.dtype = self.child.dtype
+        self.nullable = self.child.nullable
 
 
 class BinaryExpression(Expression):

@@ -1,0 +1,85 @@
+"""Conditional expressions: IF and CASE WHEN (port of
+``spark_rapids_tpu/exprs/conditional.py``).  A NULL predicate selects the
+next branch (Spark semantics).  String branches are refused, as in the JAX
+package's device path."""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.exprs.base import DevVal, Expression, cast_dev
+
+
+def _common_type(exprs: Sequence[Expression]) -> T.DataType:
+    out = exprs[0].dtype
+    for e in exprs[1:]:
+        out = T.promote(out, e.dtype)
+    return out
+
+
+def _truth(p: DevVal) -> torch.Tensor:
+    return p.data.to(torch.bool) & p.validity
+
+
+class If(Expression):
+    def __init__(self, predicate: Expression, if_true: Expression,
+                 if_false: Expression):
+        self.children = (predicate, if_true, if_false)
+        self.dtype = _common_type([if_true, if_false])
+        self.nullable = if_true.nullable or if_false.nullable or \
+            predicate.nullable
+
+    def with_children(self, children):
+        return If(*children)
+
+    def gpu_eval(self, ctx) -> DevVal:
+        cond = _truth(self.children[0].gpu_eval(ctx))
+        a = cast_dev(self.children[1].gpu_eval(ctx), self.dtype)
+        b = cast_dev(self.children[2].gpu_eval(ctx), self.dtype)
+        return DevVal(self.dtype, torch.where(cond, a.data, b.data),
+                      torch.where(cond, a.validity, b.validity))
+
+
+class CaseWhen(Expression):
+    """CASE WHEN p1 THEN v1 [WHEN p2 THEN v2 ...] [ELSE e] END."""
+
+    def __init__(self, branches: Sequence[Tuple[Expression, Expression]],
+                 else_value: Optional[Expression] = None):
+        self.branches = [tuple(b) for b in branches]
+        self.else_value = else_value
+        flat: List[Expression] = []
+        for p, v in self.branches:
+            flat.extend((p, v))
+        if else_value is not None:
+            flat.append(else_value)
+        self.children = tuple(flat)
+        values = [v for _, v in self.branches]
+        if else_value is not None:
+            values.append(else_value)
+        self.dtype = _common_type(values)
+        self.nullable = (else_value is None or else_value.nullable
+                         or any(v.nullable for v in values))
+
+    def with_children(self, children):
+        n = len(self.branches)
+        branches = [(children[2 * i], children[2 * i + 1]) for i in range(n)]
+        else_value = children[2 * n] if len(children) > 2 * n else None
+        return CaseWhen(branches, else_value)
+
+    def gpu_eval(self, ctx) -> DevVal:
+        cap, dev = ctx.capacity, ctx.device
+        data = torch.zeros(cap, dtype=self.dtype.torch_dtype, device=dev)
+        validity = torch.zeros(cap, dtype=torch.bool, device=dev)
+        if self.else_value is not None:
+            ev = cast_dev(self.else_value.gpu_eval(ctx), self.dtype)
+            data, validity = ev.data, ev.validity
+        # in reverse, so that the first branch that holds wins
+        for pred, value in reversed(self.branches):
+            cond = _truth(pred.gpu_eval(ctx))
+            v = cast_dev(value.gpu_eval(ctx), self.dtype)
+            data = torch.where(cond, v.data, data)
+            validity = torch.where(cond, v.validity, validity)
+        return DevVal(self.dtype, data, validity)

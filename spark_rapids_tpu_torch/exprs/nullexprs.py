@@ -1,13 +1,46 @@
-"""NULL-handling expressions (port of the ``Coalesce`` of
-``spark_rapids_tpu/exprs/nullexprs.py``, the key projection of a full
-outer USING join)."""
+"""NULL-handling expressions (port of ``spark_rapids_tpu/exprs/nullexprs.py``:
+``IsNull``, ``IsNotNull``, ``IsNan``, ``Coalesce`` (the key projection of a
+full outer USING join), ``NaNvl`` and ``AtLeastNNonNulls``)."""
 
 from __future__ import annotations
 
 import torch
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.exprs.base import DevVal, Expression, cast_dev
+from spark_rapids_tpu_torch.exprs.base import (
+    DevVal, Expression, UnaryExpression, cast_dev,
+)
+
+
+class _NullTest(UnaryExpression):
+    def _resolve_type(self):
+        self.dtype = T.BOOLEAN
+        self.nullable = False
+
+
+class IsNull(_NullTest):
+    def gpu_eval(self, ctx) -> DevVal:
+        v = self.child.gpu_eval(ctx)
+        return DevVal(T.BOOLEAN, ~v.validity, torch.ones_like(v.validity))
+
+
+class IsNotNull(_NullTest):
+    def gpu_eval(self, ctx) -> DevVal:
+        v = self.child.gpu_eval(ctx)
+        return DevVal(T.BOOLEAN, v.validity.clone(),
+                      torch.ones_like(v.validity))
+
+
+class IsNan(_NullTest):
+    def gpu_supported(self, conf):
+        if self.child.dtype.is_string:
+            return "IsNan: the input is a string"
+        return None
+
+    def gpu_eval(self, ctx) -> DevVal:
+        v = self.child.gpu_eval(ctx)
+        return DevVal(T.BOOLEAN, torch.isnan(v.data) & v.validity,
+                      torch.ones_like(v.validity))
 
 
 class Coalesce(Expression):
@@ -39,3 +72,49 @@ class Coalesce(Expression):
             data = torch.where(validity, data, v.data)
             validity = validity | v.validity
         return DevVal(self.dtype, data, validity)
+
+
+class NaNvl(Expression):
+    """nanvl(a, b): b where a is NaN, else a (as DOUBLE)."""
+
+    def __init__(self, left: Expression, right: Expression):
+        self.children = (left, right)
+        self.dtype = T.DOUBLE
+        self.nullable = left.nullable or right.nullable
+
+    def with_children(self, children):
+        return NaNvl(*children)
+
+    def gpu_eval(self, ctx) -> DevVal:
+        a = cast_dev(self.children[0].gpu_eval(ctx), T.DOUBLE)
+        b = cast_dev(self.children[1].gpu_eval(ctx), T.DOUBLE)
+        nan = torch.isnan(a.data)
+        return DevVal(T.DOUBLE, torch.where(nan, b.data, a.data),
+                      torch.where(nan, b.validity, a.validity))
+
+
+class AtLeastNNonNulls(Expression):
+    """TRUE where at least ``n`` children are non-NULL (and, for floats,
+    not NaN): the predicate behind ``dropna``."""
+
+    def __init__(self, n: int, *children: Expression):
+        self.n = int(n)
+        self.children = tuple(children)
+        self.dtype = T.BOOLEAN
+        self.nullable = False
+
+    def with_children(self, children):
+        return AtLeastNNonNulls(self.n, *children)
+
+    def gpu_eval(self, ctx) -> DevVal:
+        total = torch.zeros(ctx.capacity, dtype=torch.int32,
+                            device=ctx.device)
+        for c in self.children:
+            v = c.gpu_eval(ctx)
+            valid = v.validity
+            if c.dtype in (T.FLOAT, T.DOUBLE):
+                valid = valid & ~torch.isnan(v.data.masked_fill(~valid, 0))
+            total = total + valid.to(torch.int32)
+        return DevVal(T.BOOLEAN, total >= self.n,
+                      torch.ones(ctx.capacity, dtype=torch.bool,
+                                 device=ctx.device))

@@ -1,15 +1,21 @@
 """Column functions (port of the part of ``spark_rapids_tpu/functions.py``
-the slice needs)."""
+whose expressions are ported)."""
 
 from __future__ import annotations
 
+from typing import Any
+
 from spark_rapids_tpu_torch.dataframe import Column, _to_expr
 from spark_rapids_tpu_torch.exprs import aggregates as A
-from spark_rapids_tpu_torch.exprs.base import ColumnRef
+from spark_rapids_tpu_torch.exprs.base import ColumnRef, Literal
 
 
 def col(name: str) -> Column:
     return Column(ColumnRef(name))
+
+
+def lit(value: Any) -> Column:
+    return Column(Literal(value))
 
 
 def _agg(cls, c) -> Column:
@@ -36,3 +42,31 @@ def min(c) -> Column:  # noqa: A001
 
 def max(c) -> Column:  # noqa: A001
     return _agg(A.Max, c)
+
+
+# -- CASE WHEN --------------------------------------------------------------
+
+
+def when(condition, value) -> "CaseBuilder":
+    return CaseBuilder().when(condition, value)
+
+
+class CaseBuilder:
+    """``when(...).when(...).otherwise(...)``: a CASE WHEN."""
+
+    def __init__(self):
+        self._branches = []
+
+    def when(self, condition, value) -> "CaseBuilder":
+        self._branches.append((_to_expr(condition), _to_expr(value)))
+        return self
+
+    def otherwise(self, value) -> Column:
+        from spark_rapids_tpu_torch.exprs.conditional import CaseWhen
+        return Column(CaseWhen(self._branches, _to_expr(value)))
+
+    @property
+    def column(self) -> Column:
+        """The CASE with no ELSE: NULL where no branch holds."""
+        from spark_rapids_tpu_torch.exprs.conditional import CaseWhen
+        return Column(CaseWhen(self._branches, None))

@@ -29,7 +29,8 @@ import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.batch import (
-    ColumnBatch, empty_device_batch, host_sizes, round_up_capacity,
+    ColumnBatch, device_scalar, empty_device_batch, host_sizes,
+    round_up_capacity,
 )
 from spark_rapids_tpu_torch.config import (
     HASH_AGG_MXU_ENABLED, HASH_AGG_MXU_SLOTS, MESH_SPMD_JOIN_GROWTH,
@@ -167,6 +168,9 @@ class GpuSortExec(GpuExec):
         return [gen(p) for p in self.children[0].partitions(ctx)]
 
 
+_KEYLESS_SCHEMA = T.Schema([T.Field("__k", T.INT, False)])
+
+
 def _buffer_schema(key_names: List[str], keys: List[Expression],
                    aggs: List[AggregateExpression]) -> T.Schema:
     fields = [T.Field(n, e.dtype, e.nullable)
@@ -206,51 +210,75 @@ class GpuHashAggregateExec(GpuExec):
                                  for a in aggs]
         else:  # the merge reads keys and buffers by position
             self.key_exprs, self.agg_children = list(key_exprs), []
-        self.key_schema = T.Schema([T.Field(n, e.dtype, e.nullable)
-                                    for n, e in zip(key_names, key_exprs)])
+        # an aggregation without keys groups by a synthetic one-slot key
+        self.keyless = not key_exprs
+        self.key_schema = _KEYLESS_SCHEMA if self.keyless else T.Schema(
+            [T.Field(n, e.dtype, e.nullable)
+             for n, e in zip(key_names, key_exprs)])
         self.buffer_schemas = [[s.dtype for s in a.fn.buffers()]
                                for a in aggs]
         self._hash_capable = hash_agg_capable(
-            mode, [e.dtype for e in key_exprs], [a.fn for a in aggs])
+            mode, [f.dtype for f in self.key_schema], [a.fn for a in aggs])
         self._hash_disabled = False  # sticky off after a flagged batch
 
     def describe(self):
         return f"GpuHashAggregate({self.mode}, keys={len(self.key_exprs)})"
 
+    def _key_vals(self, batch: ColumnBatch, ectx) -> List[DevVal]:
+        """The update's group keys over a batch: the key expressions, or
+        without keys one constant key, so every row falls into one group."""
+        if not self.keyless:
+            return [e.gpu_eval(ectx) for e in self.key_exprs]
+        cap, dev = batch.capacity, batch.device
+        return [DevVal(T.INT, torch.zeros(cap, dtype=torch.int32, device=dev),
+                       torch.ones(cap, dtype=torch.bool, device=dev))]
+
+    def _output(self, group_keys: ColumnBatch, cols: List, capacity: int
+                ) -> ColumnBatch:
+        """Group keys, then ``cols``; without keys exactly one row, even
+        over no input (the buffers' identities: SQL's NULL sum, 0
+        count)."""
+        if self.keyless:
+            return ColumnBatch(self.output_schema, cols,
+                               device_scalar(1, group_keys.device), capacity)
+        return ColumnBatch(self.output_schema,
+                           list(group_keys.columns) + cols,
+                           group_keys.num_rows, capacity)
+
     def _aggregate_batch(self, batch: ColumnBatch) -> ColumnBatch:
         """Sort path, both modes."""
-        nk = len(self.key_exprs)
         if self.mode == "update":
             ectx = GpuEvalCtx(batch)
-            key_vals = [e.gpu_eval(ectx) for e in self.key_exprs]
+            key_vals = self._key_vals(batch, ectx)
             agg_inputs = [e.gpu_eval(ectx) for e in self.agg_children]
         else:  # partial batches: keys, then every buffer, by position
-            key_vals = [DevVal.from_column(c) for c in batch.columns[:nk]]
+            nk = len(self.key_exprs)
+            key_vals = self._key_vals(batch, None) if self.keyless else \
+                [DevVal.from_column(c) for c in batch.columns[:nk]]
             agg_inputs = [DevVal.from_column(c) for c in batch.columns[nk:]]
         group_keys, buffers = groupby_aggregate(
             batch, key_vals, agg_inputs, [a.fn for a in self.aggs],
             self.mode == "merge", self.key_schema, self.buffer_schemas)
-        cols = list(group_keys.columns)
         if self.mode == "update":
-            cols += [b.to_column() for bufs in buffers for b in bufs]
+            cols = [b.to_column() for bufs in buffers for b in bufs]
         else:
-            cols += [a.fn.finalize(bufs).to_column()
-                     for a, bufs in zip(self.aggs, buffers)]
-        return ColumnBatch(self.output_schema, cols, group_keys.num_rows,
-                           batch.capacity)
+            cols = [a.fn.finalize(bufs).to_column()
+                    for a, bufs in zip(self.aggs, buffers)]
+        return self._output(group_keys, cols, batch.capacity)
 
     def _aggregate_batch_hash(self, batch: ColumnBatch, table: int):
-        """(partial batch, fallback flag) via the slot aggregate."""
+        """(partial batch, fallback flag) via the slot aggregate.  Without
+        keys every live row of a chunk of 16,384 rows lands on one slot of
+        its own chunk, so the scatters do not all contend for one
+        address."""
         ectx = GpuEvalCtx(batch)
         group_keys, buffers, num_groups, flag = hash_group_aggregate(
-            batch, [e.gpu_eval(ectx) for e in self.key_exprs],
+            batch, self._key_vals(batch, ectx),
             [e.gpu_eval(ectx) for e in self.agg_children],
             [a.fn for a in self.aggs], self.key_schema,
             table=table)
-        cols = list(group_keys.columns) + [
-            b.to_column() for bufs in buffers for b in bufs]
-        return ColumnBatch(self.output_schema, cols, num_groups,
-                           group_keys.capacity), flag
+        cols = [b.to_column() for bufs in buffers for b in bufs]
+        return self._output(group_keys, cols, group_keys.capacity), flag
 
     def _update_partials(self, ctx, batches: Sequence[ColumnBatch]
                          ) -> List[ColumnBatch]:
@@ -284,6 +312,9 @@ class GpuHashAggregateExec(GpuExec):
 
             def gen(part):
                 merged = _concat_all(list(part), child_schema)
+                if merged is None and self.keyless:
+                    # no input at all: still the one row of SQL defaults
+                    merged = empty_device_batch(child_schema, ctx.device)
                 if merged is not None:
                     yield self._aggregate_batch(merged)
 

@@ -1,5 +1,5 @@
 """Planner: lowers a logical plan to device execs (port of
-``spark_rapids_tpu/plan/overrides.py``, reduced to the slice's nodes).
+``spark_rapids_tpu/plan/overrides.py``, reduced to the ported nodes).
 
 The port has no CPU twins of device operators yet, so there is nothing to
 fall back to: a node, expression or setting the port cannot run raises
@@ -21,12 +21,13 @@ from __future__ import annotations
 
 import numpy as np
 
+from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.config import (
-    AUTO_BROADCAST_THRESHOLD, EXCHANGE_COLLAPSE_LOCAL, SHUFFLE_PARTITIONS,
-    RapidsConf,
+    AUTO_BROADCAST_THRESHOLD, EXCHANGE_COLLAPSE_LOCAL, HAS_NANS,
+    SHUFFLE_PARTITIONS, RapidsConf,
 )
 from spark_rapids_tpu_torch.exprs.aggregates import AggregateFunction
-from spark_rapids_tpu_torch.exprs.base import ColumnRef, Expression
+from spark_rapids_tpu_torch.exprs.base import ColumnRef, Expression, SortOrder
 from spark_rapids_tpu_torch.ops import gpu_exec as X
 from spark_rapids_tpu_torch.ops.cpu_exec import CpuInMemoryScanExec
 from spark_rapids_tpu_torch.parallel.exchange import GpuShuffleExchangeExec
@@ -100,10 +101,15 @@ class GpuOverrides:
         self._refuse(node, "no port of this operator yet")
 
     def _convert_aggregate(self, node: L.Aggregate) -> PhysicalOp:
-        if not node.keys:
-            self._refuse(node, "aggregation without grouping keys is not "
-                               "ported yet")
+        """Update per batch, an exchange (hash by the keys; one partition
+        for an aggregation without keys), then the merge."""
         self._check_exprs(node, *node.keys)
+        if any(k.dtype.is_fractional for k in node.keys) and \
+                HAS_NANS.get(self.conf):
+            self._refuse(node, "grouping by a float when NaNs are possible "
+                               "runs on the CPU, whose fallback is not "
+                               "ported yet; set spark.rapids.sql.hasNans="
+                               "false")
         for a in node.aggs:
             self._check_exprs(node, a.fn.child)
             reason = a.fn.gpu_supported(self.conf)
@@ -117,17 +123,41 @@ class GpuOverrides:
                 for n, k in zip(node.key_names, node.keys)]
         return X.GpuHashAggregateExec(
             "merge", keys, node.key_names, node.aggs,
-            self._exchange(node, "hash", partial), node.schema)
+            self._exchange(node, "hash" if node.keys else "single", partial),
+            node.schema)
 
     def _convert_sort(self, node: L.Sort) -> PhysicalOp:
         for o in node.orders:
-            if not isinstance(o.child, ColumnRef):
-                self._refuse(node, "sorting by a computed expression is "
-                                   "not ported yet")
+            self._check_exprs(node, o.child)
         child = _to_device(self._convert(node.children[0]))
+        if any(not isinstance(o.child, ColumnRef) for o in node.orders):
+            return self._sort_computed(node, child)
+        return self._sort(node, node.orders, child)
+
+    def _sort_computed(self, node: L.Sort, child: PhysicalOp) -> PhysicalOp:
+        """Sort keys that are not plain columns are projected into hidden
+        ``__sortkey_i`` columns, sorted on, and projected away, as the JAX
+        package plans them."""
+        schema = node.schema
+        base = [ColumnRef(f.name, f.dtype, f.nullable) for f in schema]
+        extra, fields, orders = [], list(schema.fields), []
+        for i, o in enumerate(node.orders):
+            if isinstance(o.child, ColumnRef):
+                orders.append(o)
+                continue
+            nm = f"__sortkey_{i}"
+            extra.append(o.child)
+            fields.append(T.Field(nm, o.child.dtype, o.child.nullable))
+            orders.append(SortOrder(
+                ColumnRef(nm, o.child.dtype, o.child.nullable),
+                o.ascending, o.nulls_first))
+        proj = X.GpuProjectExec(base + extra, child, T.Schema(fields))
+        return X.GpuProjectExec(base, self._sort(node, orders, proj), schema)
+
+    def _sort(self, node: L.Sort, orders, child: PhysicalOp) -> PhysicalOp:
         if node.is_global:
             child = self._exchange(node, "range", child)
-        return X.GpuSortExec(node.orders, child)
+        return X.GpuSortExec(orders, child)
 
     # Heuristic average payload of a string cell when the values are not
     # visible (the JAX package's _VARLEN_CELL_BYTES).

@@ -5,7 +5,9 @@ A session runs on CUDA unless built with ``device="cpu"``; without a CUDA
 device and without that request it raises at construction.  With
 ``spark.rapids.shuffle.ici.enabled`` it installs a device mesh of every
 visible device, one included (the JAX package only from two devices up;
-see :mod:`spark_rapids_tpu_torch.parallel.mesh_shuffle`).
+see :mod:`spark_rapids_tpu_torch.parallel.mesh_shuffle`).  ``sql`` parses a
+query over the session's temp views (``register_view``, or a DataFrame's
+``create_or_replace_temp_view``) into a DataFrame.
 """
 
 from __future__ import annotations
@@ -23,10 +25,25 @@ class GpuSparkSession:
         self.runtime = DeviceRuntime(self.conf, device)
         self.last_physical_plan = None
         self.last_metrics = {}
+        self._views = {}
 
     @property
     def device(self):
         return self.runtime.device
+
+    def register_view(self, name: str, df) -> None:
+        self._views[name.lower()] = df
+
+    def table(self, name: str):
+        df = self._views.get(name.lower())
+        if df is None:
+            raise KeyError(f"table or view not found: {name}")
+        return df
+
+    def sql(self, query: str):
+        """The DataFrame of a SQL query over the registered views."""
+        from spark_rapids_tpu_torch.sql.parser import parse_sql
+        return parse_sql(query, self)
 
     def create_dataframe(self, data, num_partitions: int = 1):
         """DataFrame over a pydict ``{name: (dtype, values)}`` (values a

@@ -44,12 +44,12 @@ from spark_rapids_tpu_torch.config import RapidsConf
 from spark_rapids_tpu_torch.dataframe import DataFrame
 from spark_rapids_tpu_torch.interop import host_batches
 from spark_rapids_tpu_torch.kernels import cuda_tier
-from spark_rapids_tpu_torch.parallel.exchange import PARTITIONINGS
 from spark_rapids_tpu_torch.plan.logical import InMemoryScan
 from spark_rapids_tpu_torch.plan.overrides import UnsupportedPlanError
 from spark_rapids_tpu_torch.session import GpuSparkSession
 
 from torch_port_util import one_torch_thread  # noqa: F401  (autouse)
+from torch_port_util import plan_shape as _shape
 
 SETTINGS = {"spark.rapids.sql.variableFloatAgg.enabled": True,
             "spark.sql.shuffle.partitions": 1}
@@ -97,26 +97,6 @@ def _port_tables(sess):
         out[name] = DataFrame(InMemoryScan(parts, parts[0].schema, 1),
                               sess).cache()
     return out
-
-
-def _shape(op):
-    """The plan as nested (exec, children) tokens, either package's: the
-    class name without its package prefix, plus what tells two execs of one
-    class apart.  The JAX package's coalesced shuffle reader above a range
-    exchange (adaptive partition coalescing, not ported) is skipped."""
-    name = type(op).__name__
-    if name == "TpuCoalescedShuffleReaderExec":
-        return _shape(op.children[0])
-    tok = name.replace("Tpu", "").replace("Gpu", "").replace("Exec", "")
-    if tok == "ShuffleExchange":
-        kind = getattr(op, "kind", None)
-        tok += "/" + (PARTITIONINGS[kind] if kind else
-                      type(op.partitioning).__name__)
-    if "HashJoin" in tok:
-        tok += f"/{op.how}/{getattr(op, 'broadcast_side', '')}"
-    if tok == "HashAggregate":
-        tok += "/" + op.mode
-    return (tok, tuple(_shape(c) for c in op.children))
 
 
 @pytest.fixture(scope="module")

@@ -78,3 +78,25 @@ def headline_query(df, F):
                  F.min("ss_sales_price").alias("min_price"),
                  F.max("revenue").alias("max_rev"))
             .order_by("ss_item_sk", "ss_promo_sk"))
+
+
+def plan_shape(op):
+    """A physical plan as nested (exec, children) tokens, either
+    package's: the class name without its package prefix, plus what tells
+    two execs of one class apart.  The JAX package's coalesced shuffle
+    reader above a range exchange (adaptive partition coalescing, not
+    ported) is skipped."""
+    from spark_rapids_tpu_torch.parallel.exchange import PARTITIONINGS
+    name = type(op).__name__
+    if name == "TpuCoalescedShuffleReaderExec":
+        return plan_shape(op.children[0])
+    tok = name.replace("Tpu", "").replace("Gpu", "").replace("Exec", "")
+    if tok == "ShuffleExchange":
+        kind = getattr(op, "kind", None)
+        tok += "/" + (PARTITIONINGS[kind] if kind else
+                      type(op.partitioning).__name__)
+    if "HashJoin" in tok:
+        tok += f"/{op.how}/{getattr(op, 'broadcast_side', '')}"
+    if tok == "HashAggregate":
+        tok += "/" + op.mode
+    return (tok, tuple(plan_shape(c) for c in op.children))
