@@ -67,6 +67,18 @@ Phases, in order; any failure exits non-zero:
      joinProbe's output away, so no row check sees it); then the casts
      from DOUBLE and FLOAT to every integral type at NaN, ±inf, ±2^63 and
      ±2^31 ± 1 on the card against Java's rules and the CPU;
+   * the scan lane, over parquet files written with pyarrow at its
+     default row groups into a temporary directory: bench.py's scan query
+     (``bench.py:273-296``: read, filter, project revenue, group by
+     ss_item_sk, sum and count) over 4,194,304 rows of bench.py's table
+     (4 row groups, so 4 batches and 4 partials: one gatherScatter launch
+     a collect) with the v2 scan and the staging read-ahead at 2, at 0,
+     and with the v1 scan, every row against numpy and the three ways
+     against each other; then SQL Q1, Q6 and Q3 (host-driven, the join
+     strategies from the files' sizes) over parquet views of lineitem,
+     orders and customer at TPC-H SF1's counts: Q1 must launch stringHash
+     8 times and gatherScatter once a collect, as the cached Q1 does, and
+     Q3's rows must equal the cached SQL Q3's;
    each query must launch every kernel of its path;
 5. timings at the main paths' own shapes (gatherScatter: the headline
    merge's concat of its partials, every buffer, and a concat of the cached
@@ -98,6 +110,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1443,6 +1456,92 @@ def largest(calls, origin: str):
     return max(mine, key=lambda cols: sum(int(off.numel()) for _, off in cols))
 
 
+# ---------------------------------------------------------------------------
+# main paths over parquet files: the scan lane
+# ---------------------------------------------------------------------------
+
+SCAN_ROWS = 1 << 22  # bench.py:SCAN_ROWS: 4 row groups at pyarrow's default
+#: bench.py's scan query three ways: the v2 scan with the staging
+#: read-ahead at its default (2 batches), the same staged synchronously on
+#: the consumer's stream, and the v1 scan
+SCAN_MODES = {
+    "v2, read-ahead 2": {},
+    "v2, read-ahead 0": {"spark.rapids.sql.tpu.stage.readAheadBatches": 0},
+    "v1": {"spark.rapids.sql.tpu.scan.v2.enabled": False},
+}
+
+
+def scan_query(df):
+    """bench.py:time_scan_engine's query."""
+    from spark_rapids_tpu_torch import functions as F
+    return (df
+            .filter((df["ss_quantity"] < 25) &
+                    (df["ss_ext_discount_amt"] > 10.0))
+            .with_column("revenue",
+                         df["ss_sales_price"] * df["ss_ext_discount_amt"])
+            .group_by("ss_item_sk")
+            .agg(F.sum("revenue").alias("sum_rev"),
+                 F.count("revenue").alias("cnt")))
+
+
+def scan_reference(data):
+    """Independent group-by of the scan query: item keys ascending, each
+    group's revenue sum and count."""
+    col = {k: v for k, (_, v) in data.items()}
+    keep = (col["ss_quantity"] < 25) & (col["ss_ext_discount_amt"] > 10.0)
+    rev = col["ss_sales_price"][keep] * col["ss_ext_discount_amt"][keep]
+    item, gid = np.unique(col["ss_item_sk"][keep], return_inverse=True)
+    return {"item": item, "cnt": np.bincount(gid),
+            "sum_rev": np.bincount(gid, weights=rev)}
+
+
+def check_scan_rows(rows, ref, label: str) -> None:
+    """Keys and counts exact; sums within 1e-9 relative (another summing
+    order than numpy's; every revenue is >= 0).  The query has no ORDER
+    BY, so rows are compared by key."""
+    rows = sorted(rows)
+    if len(rows) != len(ref["item"]):
+        raise AssertionError(f"{label}: {len(rows)} rows, numpy has "
+                             f"{len(ref['item'])}")
+    if [r[0] for r in rows] != ref["item"].tolist() or \
+            [r[2] for r in rows] != ref["cnt"].tolist():
+        raise AssertionError(f"{label}: keys or counts differ from numpy")
+    got = np.array([r[1] for r in rows], dtype=np.float64)
+    if not np.all(np.isfinite(got)):
+        raise AssertionError(f"{label}: non-finite sum_rev")
+    np.testing.assert_allclose(got, ref["sum_rev"], rtol=1e-9, atol=0,
+                               err_msg=f"{label}: sum_rev")
+
+
+def write_tables(data, root: str) -> dict:
+    """Each generator table as one parquet file (pyarrow's default row
+    groups) in a directory of its own under ``root``; name -> directory."""
+    from spark_rapids_tpu_torch.benchmarks import datagen
+    out = {}
+    for name, table in data.items():
+        out[name] = os.path.join(root, name)
+        os.makedirs(out[name], exist_ok=True)
+        datagen.write_parquet(table, os.path.join(out[name],
+                                                  "part-0.parquet"))
+    return out
+
+
+def parquet_views(session, dirs: dict) -> None:
+    for name, path in dirs.items():
+        session.read.parquet(path).create_or_replace_temp_view(name)
+
+
+def join_strategies(session) -> list:
+    """(exec, how) of every join in the last physical plan, top down."""
+    out, todo = [], [session.last_physical_plan]
+    while todo:
+        op = todo.pop(0)
+        if "HashJoin" in type(op).__name__:
+            out.append(f"{type(op).__name__}({op.how})")
+        todo.extend(op.children)
+    return out
+
+
 def cast_edges():
     """DOUBLE and FLOAT values at and around the integral types' bounds,
     NaN and both infinities, with each cast's answer by Java's rules
@@ -1527,8 +1626,11 @@ def main() -> int:
     from spark_rapids_tpu_torch.plan.logical import InMemoryScan
     from spark_rapids_tpu_torch.session import GpuSparkSession
 
+    t_start = time.monotonic()
     card = card_line()
     device = torch.device("cuda", 0)
+    # the scan lane's parquet files live here, never in the tree
+    scan_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_scan_")
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
@@ -1663,6 +1765,10 @@ def main() -> int:
                "orders": datagen.gen_orders(Q3_SF),
                "lineitem": datagen.gen_lineitem(Q3_SF)}
     q3_ref = q3_reference(**q3_data)
+    t1 = time.monotonic()
+    pq_dirs = write_tables(q3_data, scan_tmp.name)
+    print(f"Q3 tables written as parquet in {time.monotonic() - t1:.1f} s",
+          flush=True)
     print("Q3 tables: " + ", ".join(
         f"{k} {len(next(iter(v.values()))[1])} rows"
         for k, v in q3_data.items()) +
@@ -1803,6 +1909,7 @@ def main() -> int:
                     check_same_rows(rows, kept[f"q3 {m}"], f"{label} vs Q3")
                 else:
                     check_sql_rows(rows, sql_refs[name], label)
+                kept[f"sql {name} {m}"] = rows
 
             rec = run_sql(sql_session, name, check, label)
             path = rec["path"]
@@ -1881,6 +1988,98 @@ def main() -> int:
           "integral types on the card == Java's rules == the CPU's",
           flush=True)
 
+    # ---- main paths over parquet files: the scan lane --------------------
+    t0 = time.monotonic()
+    scan_data = headline_data(SCAN_ROWS)
+    scan_ref = scan_reference(scan_data)
+    scan_dir = write_tables({"store_sales": scan_data},
+                            scan_tmp.name)["store_sales"]
+    import pyarrow.parquet as pq
+    groups = pq.ParquetFile(os.path.join(
+        scan_dir, "part-0.parquet")).metadata.num_row_groups
+    print(f"scan table: {SCAN_ROWS} rows in {groups} row groups, written "
+          f"in {time.monotonic() - t0:.1f} s", flush=True)
+    if groups != 4:
+        raise AssertionError(f"the scan table has {groups} row groups, "
+                             "not 4")
+    del scan_data
+    scan_paths, scan_rows = {}, {}
+    for mode, extra in SCAN_MODES.items():
+        scan_session = GpuSparkSession(RapidsConf(dict(SETTINGS, **extra)))
+        label = f"scan query, {mode}"
+
+        def check_scan(rows, label=label, mode=mode):
+            check_scan_rows(rows, scan_ref, label)
+            scan_rows[mode] = sorted(rows)
+
+        path = run_path(scan_session.read.parquet(scan_dir), scan_query,
+                        check_scan, label)
+        metrics = dict(scan_session.last_metrics)
+        print(f"{label}: plan\n"
+              f"{scan_session.last_physical_plan.tree_string()}metrics "
+              f"{metrics}, per operator {scan_session.last_op_metrics}",
+              flush=True)
+        for i in (1, 2):
+            n = path[f"collect{i}"]["launches"]["gatherScatter"]
+            if n != 1:
+                raise AssertionError(f"{label} collect {i} launched "
+                                     f"gatherScatter {n} times, not once")
+        if (metrics.get("rowGroupsRead"), metrics.get("rowGroupsTotal")) \
+                != (4, 4):
+            raise AssertionError(f"{label}: row groups {metrics}")
+        scan_paths[label] = path
+        sql_metrics[label] = metrics
+        del scan_session
+    first = next(iter(SCAN_MODES))
+    for mode, rows in scan_rows.items():
+        check_same_rows(rows, scan_rows[first], f"scan query, {mode} vs "
+                        f"{first}")
+    print(f"scan query: the {len(SCAN_MODES)} ways give the same "
+          f"{len(scan_rows[first])} rows", flush=True)
+
+    # SQL Q1, Q6 and Q3 over parquet views at TPC-H SF1's counts
+    pq_session = GpuSparkSession(RapidsConf(SQL_SETTINGS))
+    parquet_views(pq_session, pq_dirs)
+
+    def check_pq(name, label):
+        def check(rows):
+            if name == "q1":
+                check_string_rows(rows, q1_names, q1_ref, label)
+                check_same_rows(rows, kept["sql q1 host-driven"],
+                                f"{label} vs cached SQL Q1")
+            elif name == "q3":
+                check_q3_rows(rows, q3_ref, label)
+                check_same_rows(rows, kept["sql q3 host-driven"],
+                                f"{label} vs cached SQL Q3")
+            else:
+                check_sql_rows(rows, sql_refs[name], label)
+        return check
+
+    for name in ("q1", "q6", "q3"):
+        label = f"SQL {name.upper()} over parquet"
+        rec = run_sql(pq_session, name, check_pq(name, label), label)
+        path = rec["path"]
+        metrics = dict(pq_session.last_metrics)
+        print(f"{label}: plan\n"
+              f"{pq_session.last_physical_plan.tree_string()}metrics "
+              f"{metrics}, joins {join_strategies(pq_session)}", flush=True)
+        _require(path, label, SQL_KERNELS[name])
+        for i in (1, 2):
+            launches = path[f"collect{i}"]["launches"]
+            if launches["joinProbe"]:
+                raise AssertionError(f"{label} launched joinProbe")
+            if name == "q1" and (launches["stringHash"],
+                                 launches["gatherScatter"]) != (8, 1):
+                raise AssertionError(
+                    f"{label} collect {i}: stringHash "
+                    f"{launches['stringHash']} and gatherScatter "
+                    f"{launches['gatherScatter']} launches, not 8 and 1 as "
+                    "the cached Q1")
+        keep(rec, label, metrics)
+        del rec
+    del pq_session
+    scan_tmp.cleanup()
+
     # ---- string kernels: matrix and timings at the main paths' shapes ----
     p_type = cached_column(p_df, "p_type")
     p_brand = cached_column(p_df, "p_brand")
@@ -1936,6 +2135,8 @@ def main() -> int:
              "Q3 broadcast mesh-fused": bc_path["collect2"]["launches"]}
     paths.update({label: p["collect2"]["launches"]
                   for label, p in sql_paths.items()})
+    paths.update({label: p["collect2"]["launches"]
+                  for label, p in scan_paths.items()})
 
     def by_path(name):
         return {p: launches[name] for p, launches in paths.items()}
@@ -1970,10 +2171,11 @@ def main() -> int:
     summary = {"main_path": {"multi_batch": multi, "one_batch": single,
                              "q1": q1, "part": part_path, "q3": q3_paths,
                              "q3_broadcast_mesh_fused": bc_path,
-                             "sql": sql_paths},
+                             "sql": sql_paths, "scan": scan_paths},
                "q3_overflow_reruns": q3_fallbacks,
                "sql_metrics": sql_metrics, "card": card}
     print(f"summary: {json.dumps(summary)}", flush=True)
+    print(f"wall: {time.monotonic() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 """Where the time goes in one of the PyTorch port's main paths on one GPU.
 
     python3 profile_torch.py [--query headline|q1|part|q3|q1sql|q3sql|
-                              q5|q6|q10|q12|q14] [--mesh]
-                             [--batches 16] [--out build/profile.txt]
+                              q5|q6|q10|q12|q14|scan|q1pq|q6pq|q3pq]
+                             [--mesh] [--batches 16] [--set KEY=VALUE ...]
+                             [--out build/profile.txt]
 
 Runs one of chip_smoke.py's main paths, cached and warmed: ``headline``
 (bench.py's headline query over 16,777,216 rows cached as ``--batches``
@@ -15,7 +16,13 @@ or a TPC-H text through ``session.sql`` (``q1sql``, ``q3sql``, ``q5``,
 ``q6``, ``q10``, ``q12``, ``q14``: ``benchmarks/tpch_like.py`` over views
 of the tables at TPC-H SF1's counts, ``--mesh`` for the join queries); all
 but the headline are cached as batches of ``reader.batchSizeRows`` rows.
-Then it measures:
+The scan lane's paths read parquet files instead, written with pyarrow at
+its default row groups into a temporary directory, in every collect:
+``scan`` (bench.py's scan query over 4,194,304 rows of its table, 4 row
+groups), ``q1pq``, ``q6pq`` and ``q3pq`` (SQL Q1, Q6 and Q3 over parquet
+views of lineitem, orders and customer at TPC-H SF1's counts,
+host-driven).  ``--set`` overrides a setting of the session (for example
+``spark.rapids.sql.tpu.stage.readAheadBatches=0``).  Then it measures:
 
 * the collect wall: median of 7 collects, each ending in a synchronize;
 * the host syncs of one collect, as ``torch.cuda.set_sync_debug_mode``
@@ -30,6 +37,14 @@ Then it measures:
   wall, the device busy time (sum of the device-side events' self time),
   the idle share (1 - busy / wall) and the kernels by device time.
 
+For the scan lane it also reports the scan's own metrics apart from the
+device layers: the decode wall summed over the decode threads
+(``scanDecodeWallNs``), the part of it the consumer did not wait for
+(``scanH2dOverlapNs``), the bytes decoded, the staging's host time
+(``stageTime``), the device bytes one collect stages, the device time of
+its host-to-device copies in the profiled collect, and the rate of one
+256 MiB pinned host-to-device copy on this card.
+
 Prints one JSON line, with the static capacities of every fused join;
 the profiler's table goes to ``--out``.  A fused query that runs out of
 device memory prints those capacities and the allocator's message instead
@@ -40,6 +55,7 @@ import argparse
 import json
 import os
 import sys
+import tempfile
 import time
 import warnings
 
@@ -66,6 +82,41 @@ def record_static_joins() -> list:
     return joins
 
 
+def pinned_h2d_gbps() -> float:
+    """GB/s of a 256 MiB pinned host-to-device copy (median of 5)."""
+    import torch
+    host = torch.empty(256 << 20, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty_like(host, device="cuda")
+    times = []
+    for _ in range(6):
+        start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+        start.record()
+        dev.copy_(host, non_blocking=True)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return host.numel() / (sorted(times[1:])[2] * 1e-3) / 1e9
+
+
+def staged_bytes(plan, session) -> int:
+    """Device bytes every HostToDeviceExec of ``plan`` stages in one
+    drive (each batch's buffers at their capacities)."""
+    from spark_rapids_tpu_torch.plan.physical import (
+        ExecContext, HostToDeviceExec, _batch_tensors,
+    )
+    total, todo = 0, [plan]
+    while todo:
+        op = todo.pop()
+        todo.extend(op.children)
+        if isinstance(op, HostToDeviceExec):
+            ctx = ExecContext(session.conf, session.device)
+            for part in op.partitions(ctx):
+                for b in part:
+                    total += sum(t.numel() * t.element_size()
+                                 for t in _batch_tensors(b))
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -86,13 +137,17 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     sql = {"q1sql": "q1", "q3sql": "q3", "q5": "q5", "q6": "q6",
            "q10": "q10", "q12": "q12", "q14": "q14"}
+    on_parquet = {"scan": None, "q1pq": "q1", "q6pq": "q6", "q3pq": "q3"}
     ap.add_argument("--query", choices=("headline", "q1", "part", "q3",
-                                        *sql), default="headline")
+                                        *sql, *on_parquet),
+                    default="headline")
     ap.add_argument("--mesh", action="store_true",
                     help="join queries only: install a one-device mesh "
                          "(spark.rapids.shuffle.ici.enabled)")
     ap.add_argument("--batches", type=int, default=16,
                     help="headline only: batches the table is cached as")
+    ap.add_argument("--set", action="append", default=[],
+                    metavar="KEY=VALUE", help="a session setting")
     ap.add_argument("--out", default="build/profile.txt")
     args = ap.parse_args()
 
@@ -100,11 +155,35 @@ def main() -> int:
         ap.error(f"--mesh needs a join query, not {args.query}")
     cuda_tier.build_all()
     conf = RapidsConf(dict(
-        C.SQL_SETTINGS if args.query in sql else C.SETTINGS,
+        C.SQL_SETTINGS if args.query in sql or args.query in on_parquet
+        else C.SETTINGS,
         **C.Q3_MODES["mesh-fused" if args.mesh else "host-driven"]))
+    for kv in args.set:
+        key, _, value = kv.partition("=")
+        conf.set(key, value)
     session = GpuSparkSession(conf)
     batch_rows = READER_BATCH_SIZE_ROWS.get(conf)
-    if args.query in sql:
+    tmp = tempfile.TemporaryDirectory(prefix="profile_torch_")
+    if args.query in on_parquet:
+        import pyarrow.parquet as pq
+        if args.query == "scan":
+            data = {"store_sales": C.headline_data(C.SCAN_ROWS)}
+        else:
+            data = {"lineitem": datagen.gen_lineitem(C.Q3_SF)}
+            if args.query == "q3pq":
+                data.update(customer=datagen.gen_customer(C.Q3_SF),
+                            orders=datagen.gen_orders(C.Q3_SF))
+        dirs = C.write_tables(data, tmp.name)
+        del data
+        n_batches = sum(pq.ParquetFile(os.path.join(
+            d, "part-0.parquet")).metadata.num_row_groups
+            for d in dirs.values())
+        if args.query == "scan":
+            query = C.scan_query(session.read.parquet(dirs["store_sales"]))
+        else:
+            C.parquet_views(session, dirs)
+            query = C.sql_query(session, on_parquet[args.query])(None)
+    elif args.query in sql:
         data = {"customer": datagen.gen_customer(C.Q3_SF),
                 "orders": datagen.gen_orders(C.Q3_SF),
                 "lineitem": datagen.gen_lineitem(C.Q3_SF),
@@ -209,16 +288,31 @@ def main() -> int:
     on_device = [e for e in events
                  if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in on_device)
+    h2d_us = sum(e.self_device_time_total for e in on_device
+                 if "HtoD" in e.key)
     kernels = sorted(((e.key, e.self_device_time_total, e.count)
                       for e in on_device), key=lambda x: -x[1])
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         f.write(events.table(sort_by="self_device_time_total",
                              row_limit=40))
+    scan = {}
+    if args.query in on_parquet:
+        stage_s = sum(ms.get("stageTime", 0.0)
+                      for ms in session.last_op_metrics.values())
+        m = session.last_metrics
+        scan = {"decode_wall_ms": m["scanDecodeWallNs"] / 1e6,
+                "h2d_overlap_ms": m["scanH2dOverlapNs"] / 1e6,
+                "bytes_decoded": m["scanBytesDecoded"],
+                "stage_host_ms": stage_s * 1e3,
+                "staged_device_bytes": staged_bytes(
+                    session.last_physical_plan, session),
+                "h2d_copy_device_ms": h2d_us / 1e3,
+                "pinned_h2d_gbps": pinned_h2d_gbps()}
     print(json.dumps({
         "card": C.card_line(), "query": args.query, "mesh": args.mesh,
-        "batches": n_batches, "rows": len(rows),
-        "metrics": session.last_metrics,
+        "settings": args.set, "batches": n_batches, "rows": len(rows),
+        "metrics": session.last_metrics, "scan": scan,
         "collect_median_ms": collect_ms, "profiled_collect_ms": wall * 1e3,
         "launches": {n: cuda_tier.launch_count(n)
                      for n in cuda_tier.SOURCES},
@@ -229,6 +323,7 @@ def main() -> int:
         "top_kernels": [{"name": k[:80], "device_ms": t / 1e3, "calls": c}
                         for k, t, c in kernels[:12]],
     }), flush=True)
+    tmp.cleanup()
     return 0
 
 

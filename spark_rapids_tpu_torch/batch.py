@@ -10,6 +10,12 @@ Port of ``spark_rapids_tpu/batch.py``.  The layout is the JAX package's:
 * strings are int32 ``offsets[capacity+1]`` into a flat uint8 byte buffer
   (itself padded to a power of two), offsets constant past ``num_rows``.
 
+A host string column comes in one of two forms: one Python/numpy string a
+row, or, as Arrow and the file scans hand it over, the UTF-8 byte buffer
+with int32 offsets from 0 (:func:`string_column`); the second stages with
+no Python step a row.  Staging onto a CUDA device goes through pinned host
+buffers with non-blocking copies, on the caller's current stream.
+
 Host syncs are explicit: :func:`host_sizes` fetches every row count and
 string byte total the caller needs in ONE ``.tolist()`` of a stacked tensor,
 and :func:`device_to_host_many` issues every copy before one synchronize.
@@ -18,7 +24,8 @@ and :func:`device_to_host_many` issues every copy before one synchronize.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Sequence, Tuple
+import functools
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,18 +53,27 @@ def round_up_capacity(n: int, minimum: int = MIN_CAPACITY) -> int:
 @dataclasses.dataclass
 class HostColumn:
     dtype: T.DataType
-    values: np.ndarray  # object ndarray of str for strings
+    #: one value a row (an object or numpy str array for strings), or,
+    #: when ``offsets`` is set, a string column's UTF-8 bytes (uint8)
+    values: np.ndarray
     validity: np.ndarray  # bool, True = valid
+    #: a string column as Arrow holds it: int32 ``offsets[n+1]`` from 0
+    #: into ``values``, NULL rows empty (see :func:`string_column`)
+    offsets: Optional[np.ndarray] = None
 
     def __post_init__(self):
         self.values = np.asarray(self.values)
         self.validity = np.asarray(self.validity, dtype=np.bool_)
-        if len(self.values) != len(self.validity):
+        if self.offsets is not None:
+            if len(self.offsets) != len(self.validity) + 1:
+                raise ValueError(f"{len(self.offsets)} offsets for "
+                                 f"{len(self.validity)} rows")
+        elif len(self.values) != len(self.validity):
             raise ValueError(f"{len(self.values)} values but "
                              f"{len(self.validity)} validity flags")
 
     def __len__(self) -> int:
-        return len(self.values)
+        return len(self.validity)
 
     @staticmethod
     def from_list(dtype: T.DataType, items: Sequence[Any]) -> "HostColumn":
@@ -78,9 +94,34 @@ class HostColumn:
                               dtype=dtype.np_dtype)
         return HostColumn(dtype, values, validity)
 
+    def string_values(self) -> np.ndarray:
+        """A string column one value a row (decoded from its bytes when it
+        is held as bytes and offsets; NULL rows empty)."""
+        if self.offsets is None:
+            return self.values
+        raw = self.values.tobytes()
+        offs = self.offsets.tolist()
+        out = np.empty(len(self), dtype=object)
+        for i in range(len(self)):
+            out[i] = raw[offs[i]:offs[i + 1]].decode("utf-8")
+        return out
+
+    def slice(self, start: int, length: int) -> "HostColumn":
+        """Rows ``[start, start + length)``; a bytes-and-offsets column
+        keeps its form, offsets rebased to 0."""
+        validity = self.validity[start:start + length]
+        if self.offsets is None:
+            return HostColumn(self.dtype, self.values[start:start + length],
+                              validity)
+        offs = self.offsets[start:start + len(validity) + 1]
+        return HostColumn(self.dtype, self.values[offs[0]:offs[-1]],
+                          validity, offs - offs[0])
+
     def to_list(self) -> List[Any]:
         out: List[Any] = []
-        for v, ok in zip(self.values, self.validity):
+        values = self.string_values() if self.dtype.is_string else \
+            self.values
+        for v, ok in zip(values, self.validity):
             if not ok:
                 out.append(None)
             elif self.dtype.is_string:
@@ -92,6 +133,36 @@ class HostColumn:
             else:
                 out.append(int(v))
         return out
+
+
+def string_column(dtype: T.DataType, data, offsets,
+                  validity) -> HostColumn:
+    """A string :class:`HostColumn` over a UTF-8 byte buffer and its
+    offsets, as Arrow holds a string array: offsets of any integer width
+    and any start (a sliced array's) are rebased to int32 from 0, and a
+    NULL row that owns bytes (Arrow allows it) is made empty, since the
+    device layout gives a NULL row none.  Columns past 2^31 - 1 bytes are
+    refused."""
+    data = np.asarray(data, dtype=np.uint8)
+    offsets = np.asarray(offsets)
+    validity = np.asarray(validity, dtype=np.bool_)
+    base, end = int(offsets[0]), int(offsets[-1])
+    if end - base > np.iinfo(np.int32).max:
+        raise ValueError(f"a string column of {end - base} bytes does not "
+                         "fit int32 offsets")
+    offs = (offsets - base).astype(np.int32)
+    data = data[base:end]
+    lengths = np.diff(offs)
+    if not validity.all() and lengths[~validity].any():
+        starts = offs[:-1]
+        lengths = np.where(validity, lengths, 0)
+        new = np.zeros(len(offs), dtype=np.int32)
+        np.cumsum(lengths, out=new[1:])
+        # byte j of row r comes from old_start[r] + (j - new_start[r])
+        shift = np.repeat((starts - new[:-1]).astype(np.int64), lengths)
+        data = data[np.arange(int(new[-1]), dtype=np.int64) + shift]
+        offs = new
+    return HostColumn(dtype, data, validity, offs)
 
 
 class HostBatch:
@@ -118,14 +189,31 @@ class HostBatch:
         return {f.name: c.to_list()
                 for f, c in zip(self.schema.fields, self.columns)}
 
+    def slice(self, start: int, length: int) -> "HostBatch":
+        return HostBatch(self.schema, [c.slice(start, length)
+                                       for c in self.columns])
+
     @staticmethod
     def concat(batches: Sequence["HostBatch"]) -> "HostBatch":
         schema = batches[0].schema
         cols = []
         for i, f in enumerate(schema.fields):
-            values = np.concatenate([b.columns[i].values for b in batches])
-            validity = np.concatenate([b.columns[i].validity
-                                       for b in batches])
+            parts = [b.columns[i] for b in batches]
+            validity = np.concatenate([p.validity for p in parts])
+            if all(p.offsets is not None for p in parts):
+                ends = np.cumsum([0] + [int(p.offsets[-1]) for p in parts])
+                offsets = np.concatenate(
+                    [np.zeros(1, np.int64)] +
+                    [p.offsets[1:].astype(np.int64) + e
+                     for p, e in zip(parts, ends)])
+                cols.append(string_column(
+                    f.dtype, np.concatenate([p.values[:p.offsets[-1]]
+                                             for p in parts]),
+                    offsets, validity))
+                continue
+            values = np.concatenate([
+                p.string_values() if p.offsets is not None else p.values
+                for p in parts])
             cols.append(HostColumn(f.dtype, values, validity))
         return HostBatch(schema, cols)
 
@@ -251,26 +339,53 @@ def _string_host_to_buffers(values: np.ndarray, validity: np.ndarray
     return offsets, data
 
 
+@functools.lru_cache(maxsize=None)
+def _torch_dtype(np_dtype: np.dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype=np_dtype)).dtype
+
+
+def _stage(head: np.ndarray, size: int, np_dtype, fill, device
+           ) -> torch.Tensor:
+    """One device buffer of ``size`` elements: ``head``, then ``fill``.
+    For a CUDA device it is written into pinned host memory and copied
+    with ``non_blocking`` on the current stream (the pinned block is not
+    handed out again before that copy ends); for the CPU a numpy buffer
+    is wrapped as it is."""
+    n = len(head)
+    if device.type == "cuda":
+        host = torch.empty(size, dtype=_torch_dtype(np.dtype(np_dtype)),
+                           pin_memory=True)
+        buf = host.numpy()
+        buf[:n] = head
+        buf[n:] = fill
+        return host.to(device, non_blocking=True)
+    buf = np.full(size, fill, dtype=np_dtype)
+    buf[:n] = head
+    return torch.from_numpy(buf).to(device)
+
+
 def host_column_to_device(col: HostColumn, capacity: int,
                           device) -> DeviceColumn:
     n = len(col)
     if capacity < n:
         raise ValueError(f"capacity {capacity} < {n} rows")
-    validity = np.zeros(capacity, dtype=np.bool_)
-    validity[:n] = col.validity
-
-    def put(a):
-        return torch.from_numpy(a).to(device)
-
+    device = torch.device(device)
+    validity = _stage(col.validity, capacity, np.bool_, False, device)
     if col.dtype.is_string:
-        offsets, data = _string_host_to_buffers(col.values, col.validity)
-        full_offsets = np.full(capacity + 1, offsets[-1], dtype=np.int32)
-        full_offsets[: n + 1] = offsets
-        return DeviceColumn(col.dtype, put(data), put(validity),
-                            put(full_offsets))
-    data = np.zeros(capacity, dtype=col.dtype.np_dtype)
-    data[:n] = col.values
-    return DeviceColumn(col.dtype, put(data), put(validity))
+        if col.offsets is not None:
+            offsets = col.offsets
+            total = int(offsets[-1])
+            data = _stage(col.values[:total],
+                          round_up_capacity(max(total, 1),
+                                            MIN_BYTE_CAPACITY),
+                          np.uint8, 0, device)
+        else:
+            offsets, raw = _string_host_to_buffers(col.values, col.validity)
+            data = _stage(raw, len(raw), np.uint8, 0, device)
+        full = _stage(offsets, capacity + 1, np.int32, offsets[-1], device)
+        return DeviceColumn(col.dtype, data, validity, full)
+    data = _stage(col.values, capacity, col.dtype.np_dtype, 0, device)
+    return DeviceColumn(col.dtype, data, validity)
 
 
 def host_to_device(batch: HostBatch, device,
@@ -281,6 +396,22 @@ def host_to_device(batch: HostBatch, device,
     cols = [host_column_to_device(c, cap, device) for c in batch.columns]
     return ColumnBatch(batch.schema, cols,
                        device_scalar(batch.num_rows, device), cap)
+
+
+def host_batch_bytes(hb: HostBatch) -> int:
+    """Host bytes a :class:`HostBatch` holds: each column's values and
+    validity; a string column its UTF-8 bytes plus a byte a row (the JAX
+    package counts characters there, which differ on non-ASCII text)."""
+    total = 0
+    for c in hb.columns:
+        if c.dtype.is_string:
+            total += (int(c.offsets[-1]) if c.offsets is not None else
+                      sum(len(str(x).encode("utf-8")) for x in c.values)) \
+                + len(c)
+        else:
+            total += c.values.nbytes
+        total += c.validity.nbytes
+    return total
 
 
 def host_sizes(batches: Sequence[ColumnBatch]

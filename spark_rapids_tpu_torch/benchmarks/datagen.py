@@ -198,3 +198,31 @@ def register_tpch(session, sf: float = 0.01, num_partitions: int = 4):
     ]:
         df = session.create_dataframe(data, num_partitions=num_partitions)
         df.create_or_replace_temp_view(name)
+
+
+def to_arrow(data: Dict):
+    """A generator's table ``{name: (type, values)}`` as a pyarrow Table:
+    DATE as date32, TIMESTAMP as microseconds in UTC, strings as utf8."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.io.arrow_convert import sql_type_to_arrow
+    cols = {}
+    for name, (dtype, values) in data.items():
+        values = np.asarray(values)
+        if dtype == T.DATE:
+            cols[name] = pa.array(values.astype(np.int32), pa.int32()).cast(
+                pa.date32())
+        elif dtype == T.TIMESTAMP:
+            cols[name] = pa.array(values.astype(np.int64), pa.int64()).cast(
+                sql_type_to_arrow(dtype))
+        else:
+            cols[name] = pa.array(values, sql_type_to_arrow(dtype))
+    return pa.table(cols)
+
+
+def write_parquet(data: Dict, path: str, row_group_size=None) -> str:
+    """Write a generator's table to one parquet file with pyarrow (its
+    default row groups unless ``row_group_size`` is given); returns
+    ``path``."""
+    import pyarrow.parquet as pq
+    pq.write_table(to_arrow(data), path, row_group_size=row_group_size)
+    return path

@@ -55,6 +55,24 @@ def conf_float(key: str, default: float, doc: str) -> ConfEntry:
     return _register(ConfEntry(key, default, doc, float))
 
 
+def conf_bytes(key: str, default: int, doc: str) -> ConfEntry:
+    """A byte size: an int, or a string with a k/m/g/t suffix (``64m``,
+    ``1gb``)."""
+    def parse(s: str) -> int:
+        s = str(s).strip().lower()
+        mult = 1
+        for suffix, m in (("k", 1 << 10), ("m", 1 << 20), ("g", 1 << 30),
+                          ("t", 1 << 40)):
+            if s.endswith(suffix + "b"):
+                s, mult = s[:-2], m
+                break
+            if s.endswith(suffix):
+                s, mult = s[:-1], m
+                break
+        return int(float(s) * mult)
+    return _register(ConfEntry(key, default, doc, parse))
+
+
 class RapidsConf:
     """A snapshot of configuration values.
 
@@ -89,6 +107,15 @@ class RapidsConf:
         for k, v in overrides.items():
             c.set(k, v)
         return c
+
+    def explicitly_set(self, key: str) -> bool:
+        """True when the user pinned ``key``: an explicit setting or an
+        environment override.  The adaptive read-ahead honors a pinned
+        ``scan.readAhead.depth`` instead of tuning over it."""
+        if key in self._settings:
+            return True
+        env_key = "SPARK_RAPIDS_TPU_" + key.replace(".", "_").upper()
+        return env_key in os.environ
 
 
 READER_BATCH_SIZE_ROWS = conf_int(
@@ -144,3 +171,75 @@ MESH_SPMD_JOIN_GROWTH = conf_float(
     "capacity is the probe capacity times this factor, rounded up to a "
     "power of two.  Joins whose true pair count exceeds it set an overflow "
     "flag and rerun host-driven.")
+
+# ---- the scan lane (io/scan.py, io/scan_v2.py, HostToDeviceExec) ----
+MULTITHREADED_READ_THREADS = conf_int(
+    "spark.rapids.sql.format.parquet.multiThreadedRead.numThreads", 8,
+    "Threads used to read+decode file footers and column chunks in "
+    "parallel ahead of device staging.")
+STAGE_READAHEAD_BATCHES = conf_int(
+    "spark.rapids.sql.tpu.stage.readAheadBatches", 2,
+    "Host batches decoded AND staged onto the device ahead of the consumer "
+    "by a background thread, so scan decode + host->device transfer "
+    "overlap downstream device compute.  0 = synchronous staging.")
+PARQUET_ENABLED = conf_bool(
+    "spark.rapids.sql.format.parquet.enabled", True,
+    "Enable the accelerated parquet scan path: multi-threaded read-ahead "
+    "decode plus row-group predicate pushdown.  Disabled falls back to "
+    "single-threaded plain decode.")
+CSV_ENABLED = conf_bool(
+    "spark.rapids.sql.format.csv.enabled", True,
+    "Enable the accelerated CSV scan path (multi-threaded read-ahead "
+    "decode).  Disabled falls back to single-threaded decode.")
+SCAN_PUSHDOWN_ENABLED = conf_bool(
+    "spark.rapids.sql.scan.pushdown.enabled", True,
+    "Push filter conjuncts into file scans: parquet row groups are "
+    "skipped on min/max statistics and Hive key=value partition "
+    "directories are pruned before any decode.")
+SCAN_V2_ENABLED = conf_bool(
+    "spark.rapids.sql.tpu.scan.v2.enabled", True,
+    "Parallel scan pipeline (io/scan_v2): sub-file decode parallelism "
+    "(parquet row groups / ORC stripes as independent tasks on a "
+    "process-shared decode pool), streaming chunk emission so decode "
+    "overlaps host->device staging, plus lateMaterialization below.  Off "
+    "restores the v1 file-at-a-time scan (same results either way).")
+SCAN_READAHEAD_DEPTH = conf_int(
+    "spark.rapids.sql.tpu.scan.readAhead.depth", 4,
+    "Decode tasks kept in flight ahead of the scan consumer by the v2 "
+    "pipeline (bounded sliding window over the shared decode pool). "
+    "Chunks are still yielded in deterministic file/chunk order.  "
+    "<=1 decodes one chunk at a time (no read-ahead).")
+SCAN_READAHEAD_ADAPTIVE = conf_bool(
+    "spark.rapids.sql.tpu.scan.readAhead.adaptive.enabled", True,
+    "Close the read-ahead control loop: the v2 scan adjusts its in-flight "
+    "decode-task depth between chunk drains from its own blocked-drain "
+    "ratio and the decode pool's utilization gauge, deepening while the "
+    "consumer starves and the pool has headroom, shallowing when chunks "
+    "are always ready.  Clamped to [1, scan.readAhead.maxDepth].  Ignored "
+    "(static depth honored) when scan.readAhead.depth is set explicitly.")
+SCAN_READAHEAD_MAX_DEPTH = conf_int(
+    "spark.rapids.sql.tpu.scan.readAhead.maxDepth", 16,
+    "Upper clamp for the adaptive read-ahead controller "
+    "(scan.readAhead.adaptive.enabled): at most this many decode tasks "
+    "in flight ahead of the scan consumer.")
+SCAN_PAGE_CHUNK_MIN_BYTES = conf_bytes(
+    "spark.rapids.sql.tpu.scan.pageChunk.minBytes", 64 << 20,
+    "Sub-row-group decode granularity (v2 parquet): a row group whose "
+    "compressed footprint exceeds this is decoded as several column-slab "
+    "subtasks on the pool and reassembled column-wise on the consumer "
+    "thread, so one fat row group cannot serialize the decode pool.  <=0 "
+    "disables (always one task per row group).")
+SCAN_FILE_HANDLE_CACHE_SIZE = conf_int(
+    "spark.rapids.sql.tpu.scan.fileHandleCache.size", 8,
+    "Per-thread pyarrow file-handle cache capacity (io.decode_pool): "
+    "scan chunk tasks reuse the thread's open ParquetFile/ORC reader for "
+    "the same path instead of paying open()+footer-parse per row group; "
+    "least-recently-used handles past the bound are closed.  <=0 "
+    "disables caching.")
+SCAN_LATE_MAT_ENABLED = conf_bool(
+    "spark.rapids.sql.tpu.scan.lateMaterialization.enabled", True,
+    "Late materialization for pushed-predicate scans (v2): decode the "
+    "predicate columns of a row-group chunk first, evaluate the pushed "
+    "conjuncts, and decode the remaining projected columns only when "
+    "the chunk has surviving rows; chunks with zero survivors are "
+    "skipped entirely (the Filter above re-applies the predicate).")

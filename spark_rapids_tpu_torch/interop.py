@@ -12,7 +12,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.batch import HostBatch, HostColumn
+from spark_rapids_tpu_torch.batch import HostBatch, HostColumn, string_column
 
 
 def host_batch_from_numpy(fields: Sequence, columns: Sequence) -> HostBatch:
@@ -22,23 +22,21 @@ def host_batch_from_numpy(fields: Sequence, columns: Sequence) -> HostBatch:
     its name (``"int"``, ``"bigint"``, ``"double"``, ``"string"``...).
     ``columns``: one ``(data, validity)`` or ``(data, validity, offsets)``
     tuple per field.  Fixed-width data is one value per row (any value
-    under a NULL); string data is the flat UTF-8 byte buffer with int32
-    ``offsets[n+1]``."""
+    under a NULL); string data is the flat UTF-8 byte buffer with
+    ``offsets[n+1]``, kept as bytes and offsets (:func:`string_column`:
+    rebased to int32 from 0, NULL rows emptied), never decoded row by
+    row."""
     out_fields, cols = [], []
     for (name, dtype), col in zip(fields, columns):
         if isinstance(dtype, str):
             dtype = T.type_from_name(dtype)
         data, validity = np.asarray(col[0]), np.asarray(col[1], np.bool_)
-        if dtype.is_string:
-            offsets = np.asarray(col[2], dtype=np.int64)
-            raw = data.astype(np.uint8).tobytes()
-            values = np.array(
-                [raw[offsets[i]:offsets[i + 1]].decode("utf-8") if ok else ""
-                 for i, ok in enumerate(validity)], dtype=object)
-        else:
-            values = data.astype(dtype.np_dtype)
         out_fields.append(T.Field(name, dtype))
-        cols.append(HostColumn(dtype, values, validity))
+        if dtype.is_string:
+            cols.append(string_column(dtype, data, col[2], validity))
+        else:
+            cols.append(HostColumn(dtype, data.astype(dtype.np_dtype),
+                                   validity))
     return HostBatch(T.Schema(out_fields), cols)
 
 

@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exprs.aggregates import AggregateExpression
@@ -41,6 +41,34 @@ class InMemoryScan(LogicalPlan):
 
     def describe(self):
         return f"InMemoryScan({self._schema})"
+
+
+class FileScan(LogicalPlan):
+    """File-source scan (parquet/csv/orc); decode happens on the host and
+    the planner stages the batches onto the device above it."""
+
+    def __init__(self, fmt: str, paths: List[str], schema: T.Schema,
+                 options: Optional[Dict[str, Any]] = None,
+                 pushed_filters: Optional[List[Expression]] = None,
+                 partitions=None):
+        self.fmt = fmt
+        self.paths = paths
+        self._schema = schema
+        self.options = options or {}
+        self.pushed_filters = pushed_filters or []
+        # Hive-layout partition columns: (partition_schema,
+        # {file: [values...]}), appended as constants per file by the scan
+        self.partitions = partitions
+        self.children = ()
+
+    @property
+    def schema(self):
+        return self._schema
+
+    def describe(self):
+        extra = f", pushed={len(self.pushed_filters)}" \
+            if self.pushed_filters else ""
+        return f"FileScan({self.fmt}, {len(self.paths)} files{extra})"
 
 
 class Project(LogicalPlan):

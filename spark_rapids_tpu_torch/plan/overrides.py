@@ -14,17 +14,28 @@ broadcast (the right one first; the left one for inner and right joins,
 when it is the smaller), otherwise both sides go through hash exchanges
 into a shuffled hash join.  Estimates measure an in-memory scan's values
 exactly and multiply every other node's row estimate by its output
-schema's per-column widths; joins and aggregates make no guess.
+schema's per-column widths; joins and aggregates make no guess.  A file
+scan is estimated by its files' bytes on disk.
+
+File scans decode on the host (``io/scan.py`` v1, ``io/scan_v2.py`` v2, the
+default) and the planner stages their batches onto the device above them.
+Filter conjuncts over a file scan are pushed into it (advisory: the
+Filter stays) so row groups and partition directories that cannot match
+are skipped.
 """
 
 from __future__ import annotations
+
+import copy
+import os
+from typing import List
 
 import numpy as np
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.config import (
     AUTO_BROADCAST_THRESHOLD, EXCHANGE_COLLAPSE_LOCAL, HAS_NANS,
-    SHUFFLE_PARTITIONS, RapidsConf,
+    SCAN_PUSHDOWN_ENABLED, SCAN_V2_ENABLED, SHUFFLE_PARTITIONS, RapidsConf,
 )
 from spark_rapids_tpu_torch.exprs.aggregates import AggregateFunction
 from spark_rapids_tpu_torch.exprs.base import ColumnRef, Expression, SortOrder
@@ -50,6 +61,8 @@ class GpuOverrides:
         self.conf = conf
 
     def apply(self, plan: L.LogicalPlan) -> PhysicalOp:
+        if SCAN_PUSHDOWN_ENABLED.get(self.conf):
+            plan = _pushdown_scan_filters(plan)
         return _to_device(self._convert(plan))
 
     def _refuse(self, node: L.LogicalPlan, reason: str):
@@ -77,6 +90,12 @@ class GpuOverrides:
         if isinstance(node, L.InMemoryScan):
             return CpuInMemoryScanExec(node.batches, node.schema,
                                        node.num_partitions)
+        if isinstance(node, L.FileScan):
+            if SCAN_V2_ENABLED.get(self.conf):
+                from spark_rapids_tpu_torch.io.scan_v2 import FileScanV2Exec
+                return FileScanV2Exec(node, self.conf)
+            from spark_rapids_tpu_torch.io.scan import CpuFileScanExec
+            return CpuFileScanExec(node, self.conf)
         if isinstance(node, L.CachedRelation):
             child = None if node.holder.is_materialized else \
                 _to_device(self._convert(node.children[0]))
@@ -194,10 +213,16 @@ class GpuOverrides:
             for hb in node.batches:
                 for f, c in zip(hb.schema.fields, hb.columns):
                     if f.dtype.is_string:
-                        total += _string_chars(c.values) + 5 * len(c.values)
+                        total += _string_chars(c.string_values()) + \
+                            5 * len(c)
                     else:
                         total += c.values.nbytes + len(c.values)
             return total
+        if isinstance(node, L.FileScan):
+            try:
+                return sum(os.path.getsize(p) for p in node.paths)
+            except OSError:
+                return None
         rows = self._estimate_rows(node)
         if rows is None or not node.schema.fields:
             return None
@@ -241,6 +266,40 @@ class GpuOverrides:
             node.n, _to_device(self._convert(node.children[0])))
         return X.GpuLocalLimitExec(node.n,
                                    self._exchange(node, "single", local))
+
+
+def _split_conjuncts(e: Expression) -> List[Expression]:
+    from spark_rapids_tpu_torch.exprs.predicates import And
+    if isinstance(e, And):
+        return _split_conjuncts(e.children[0]) + \
+            _split_conjuncts(e.children[1])
+    return [e]
+
+
+def _pushdown_scan_filters(plan: L.LogicalPlan) -> L.LogicalPlan:
+    """Push Filter conjuncts into a child FileScan so the reader can skip
+    row groups on statistics and prune partition directories (the
+    GpuParquetScan.scala:217-281 filterBlocks role).  Advisory: the Filter
+    stays in place for exact row filtering.  Non-mutating: untouched
+    subtrees return the original nodes, and the user's plan never
+    changes."""
+    from spark_rapids_tpu_torch.io.scan import extract_pushdown_descriptors
+    new_children = [_pushdown_scan_filters(c) for c in plan.children]
+    changed = any(n is not o for n, o in zip(new_children, plan.children))
+    if isinstance(plan, L.Filter) and \
+            isinstance(new_children[0], L.FileScan):
+        scan = new_children[0]
+        pushable = [c for c in _split_conjuncts(plan.condition)
+                    if extract_pushdown_descriptors([c])]
+        if pushable:
+            return L.Filter(plan.condition, L.FileScan(
+                scan.fmt, scan.paths, scan.schema, scan.options,
+                pushed_filters=pushable, partitions=scan.partitions))
+    if not changed:
+        return plan
+    clone = copy.copy(plan)
+    clone.children = tuple(new_children)
+    return clone
 
 
 def _string_chars(values) -> int:
