@@ -64,7 +64,15 @@ Phases, in order; any failure exits non-zero:
      of the same run), and every stringHash and joinProbe call of each
      query's second collect held equal to its plain version on the
      inputs the path handed it (a fused join that overflows throws
-     joinProbe's output away, so no row check sees it); then the casts
+     joinProbe's output away, so no row check sees it); then the other
+     fifteen texts (Q2, Q4, Q7, Q8, Q9, Q11, Q13, Q15-Q22: residual join
+     conditions, the nested-loop joins of Q11, Q15 and Q22, the date
+     parts, substring, count(DISTINCT)) host-driven over the same views
+     with part at 200,000 and partsupp at 800,000 rows (TPC-H SF1's
+     counts), rows against independent numpy answers
+     (``sql_references_more``), every stringHash and contains call of
+     the second collect held equal to its plain version, each text's
+     rows, collect time and launches on a line of its own; then the casts
      from DOUBLE and FLOAT to every integral type at NaN, ±inf, ±2^63 and
      ±2^31 ± 1 on the card against Java's rules and the CPU;
    * the scan lane, over parquet files written with pyarrow at its
@@ -1280,7 +1288,33 @@ SQL_KERNELS = {"q1": ("gatherScatter", "stringHash"),
                "q6": ("gatherScatter",),
                "q10": ("gatherScatter", "stringHash"),
                "q12": ("gatherScatter", "stringHash"),
-               "q14": ("gatherScatter",)}
+               "q14": ("gatherScatter",),
+               # the other fifteen texts, host-driven: gatherScatter
+               # wherever a side or the partials span batches (lineitem's
+               # 6 and orders' 2; part, partsupp and customer are one
+               # batch each), contains at LIKE '%needle%'
+               "q2": ("stringHash",),
+               "q4": ("gatherScatter", "stringHash"),
+               "q7": ("gatherScatter", "stringHash"),
+               "q8": ("gatherScatter", "stringHash"),
+               "q9": ("gatherScatter", "stringHash", "strings"),
+               "q11": ("stringHash",),
+               "q13": ("gatherScatter", "stringHash"),
+               "q15": ("gatherScatter",),
+               "q16": ("stringHash", "strings"),
+               "q17": ("gatherScatter", "stringHash"),
+               "q18": ("gatherScatter", "stringHash"),
+               "q19": ("gatherScatter", "stringHash"),
+               "q20": ("gatherScatter", "stringHash"),
+               "q21": ("gatherScatter", "stringHash"),
+               "q22": ("gatherScatter", "stringHash")}
+#: the texts of the eighth slice (residual conditions, nested-loop and
+#: cross joins, date parts, substring, count(DISTINCT)), host-driven
+SQL_MORE = ("q2", "q4", "q7", "q8", "q9", "q11", "q13", "q15", "q16",
+            "q17", "q18", "q19", "q20", "q21", "q22")
+#: the texts whose plan holds a nested-loop join (their CROSS JOIN)
+SQL_NESTED_LOOP = ("q11", "q15", "q22")
+SQL_PART_SF = 100   # 200,000 part and 800,000 partsupp rows: TPC-H SF1's
 
 
 def _np(table):
@@ -1367,6 +1401,278 @@ def sql_references(data):
     return out
 
 
+def _year(days):
+    """Calendar year of each day since the epoch (numpy's calendar)."""
+    return np.asarray(days).astype("datetime64[D]").astype(
+        "datetime64[Y]").astype(np.int64) + 1970
+
+
+def _group_rows(*keys):
+    """(unique key columns, group index of each row) of the rows' key
+    tuples, groups in ascending key order."""
+    uniq, inv = np.unique(np.rec.fromarrays(keys), return_inverse=True)
+    return [uniq[f] for f in uniq.dtype.names], inv.ravel()
+
+
+def _pair_index(a, b, keys_a, keys_b, n):
+    """Row of (keys_a, keys_b) holding each (a, b) pair, or -1: both key
+    pairs packed into one int64 (b < n)."""
+    table = keys_a.astype(np.int64) * (n + 2) + keys_b
+    order = np.argsort(table, kind="stable")
+    probe = np.asarray(a, np.int64) * (n + 2) + b
+    at = np.searchsorted(table[order], probe)
+    at_c = np.minimum(at, len(order) - 1)
+    hit = (at < len(order)) & (table[order][at_c] == probe)
+    return np.where(hit, order[at_c], -1)
+
+
+def _ordered(cols, keys, limit=None):
+    """Every column of ``cols`` in the order of ``keys`` (first key
+    major; a key array is negated for descending), cut to ``limit``."""
+    order = np.lexsort(tuple(reversed(keys)))
+    if limit is not None:
+        order = order[:limit]
+    return {k: v[order] for k, v in cols.items()}
+
+
+def sql_references_more(data):
+    """Independent numpy answers of Q2, Q4, Q7, Q8, Q9, Q11, Q13 and
+    Q15-Q22 (``benchmarks/tpch_like.py``) over the same arrays, in the
+    form of :func:`sql_references`.  Every order the texts ask for is a
+    total order of the answer here (its last keys are unique), so a LIMIT
+    cuts at one place.  A join to a dense key is an index lookup (one past
+    the end: no partner); partsupp's (partkey, suppkey) pairs and
+    lineitem's (orderkey, suppkey) pairs are found by a sorted search."""
+    c, o, li = _np(data["customer"]), _np(data["orders"]), \
+        _np(data["lineitem"])
+    s, n, r = _np(data["supplier"]), _np(data["nation"]), \
+        _np(data["region"])
+    p, ps = _np(data["part"]), _np(data["partsupp"])
+    n_c, n_o, n_s, n_p = len(c["c_custkey"]), len(o["o_orderkey"]), \
+        len(s["s_suppkey"]), len(p["p_partkey"])
+    region_of = r["r_name"][n["n_regionkey"]]     # nation -> region name
+    s_nat = s["s_nationkey"]
+    l_ord = _partner(li["l_orderkey"], n_o)
+    l_supp = _partner(li["l_suppkey"], n_s)
+    l_part = _partner(li["l_partkey"], n_p)
+    o_cust = _partner(o["o_custkey"], n_c)
+    o_ok = np.append(o_cust < n_c, False)          # order has a customer
+    l_cust = np.append(o_cust, n_c)[l_ord]
+    price, qty = li["l_extendedprice"], li["l_quantity"]
+    ship = li["l_shipdate"]
+    commit, receipt = li["l_commitdate"], li["l_receiptdate"]
+    out = {}
+
+    # Q2: the cheapest European supplier of each size-15 part
+    ps_s = ps["ps_suppkey"] - 1
+    ps_p = ps["ps_partkey"] - 1
+    cost = ps["ps_supplycost"]
+    eu = region_of[s_nat[ps_s]] == "EUROPE"
+    min_cost = np.full(n_p, np.inf)
+    np.minimum.at(min_cost, ps_p[eu], cost[eu])
+    keep = eu & (p["p_size"][ps_p] == 15) & (cost == min_cost[ps_p])
+    rows = {"s_acctbal": s["s_acctbal"][ps_s[keep]],
+            "s_name": s["s_name"][ps_s[keep]],
+            "n_name": n["n_name"][s_nat[ps_s[keep]]],
+            "p_partkey": ps["ps_partkey"][keep],
+            "p_mfgr": p["p_mfgr"][ps_p[keep]]}
+    out["q2"] = (list(rows), _ordered(rows, [
+        -rows["s_acctbal"], rows["n_name"], rows["s_name"],
+        rows["p_partkey"]], 100),
+        ["s_name", "n_name", "p_partkey", "p_mfgr"])
+
+    # Q4: orders of a quarter with a late line, by priority
+    late = np.zeros(n_o + 1, bool)
+    late[l_ord[commit < receipt]] = True
+    od = o["o_orderdate"]
+    keep = late[:n_o] & (od >= 8582) & (od < 8674)
+    prio, counts = np.unique(o["o_orderpriority"][keep], return_counts=True)
+    out["q4"] = (["o_orderpriority", "order_count"],
+                 {"o_orderpriority": prio, "order_count": counts},
+                 ["o_orderpriority", "order_count"])
+
+    # Q7: revenue between France and Germany by year
+    ok = (l_supp < n_s) & (l_ord < n_o) & (l_cust < n_c)
+    sn = np.where(ok, n["n_name"][s_nat[np.minimum(l_supp, n_s - 1)]], "")
+    cn = np.where(ok, n["n_name"][c["c_nationkey"][
+        np.minimum(l_cust, n_c - 1)]], "")
+    keep = ok & (((sn == "FRANCE") & (cn == "GERMANY")) |
+                 ((sn == "GERMANY") & (cn == "FRANCE"))) & \
+        (ship >= 9131) & (ship <= 9861)
+    (gs, gc, gy), inv = _group_rows(sn[keep], cn[keep], _year(ship[keep]))
+    out["q7"] = (["supp_nation", "cust_nation", "l_year", "revenue"],
+                 {"supp_nation": gs, "cust_nation": gc, "l_year": gy,
+                  "revenue": np.bincount(inv, weights=price[keep],
+                                         minlength=len(gs))},
+                 ["supp_nation", "cust_nation", "l_year"])
+
+    # Q8: Brazil's share of America's revenue by order year
+    ok = (l_part < n_p) & (l_supp < n_s) & (l_ord < n_o) & (l_cust < n_c)
+    lp, ls = np.minimum(l_part, n_p - 1), np.minimum(l_supp, n_s - 1)
+    lo, lc = np.minimum(l_ord, n_o - 1), np.minimum(l_cust, n_c - 1)
+    odate = od[lo]
+    keep = ok & (region_of[c["c_nationkey"][lc]] == "AMERICA") & \
+        (odate >= 9131) & (odate <= 9861) & (p["p_size"][lp] < 30)
+    (years,), inv = _group_rows(_year(odate[keep]))
+    brazil = np.where(n["n_name"][s_nat[ls[keep]]] == "BRAZIL",
+                      price[keep], 0.0)
+    out["q8"] = (["o_year", "mkt_share"],
+                 {"o_year": years,
+                  "mkt_share": np.bincount(inv, weights=brazil) /
+                  np.bincount(inv, weights=price[keep])}, ["o_year"])
+
+    # Q9: profit of the green parts by nation and year
+    at = _pair_index(li["l_partkey"], li["l_suppkey"], ps["ps_partkey"],
+                     ps["ps_suppkey"], n_s)
+    green = np.char.find(p["p_name"], "green") >= 0
+    keep = (at >= 0) & (l_supp < n_s) & (l_ord < n_o) & (l_part < n_p)
+    keep &= green[lp]
+    profit = price * (1 - li["l_discount"]) - \
+        ps["ps_supplycost"][at] * qty
+    (gn, gy), inv = _group_rows(n["n_name"][s_nat[ls[keep]]],
+                            _year(od[lo[keep]]))
+    rows = {"n_name": gn, "o_year": gy,
+            "profit": np.bincount(inv, weights=profit[keep],
+                                  minlength=len(gn))}
+    out["q9"] = (list(rows), _ordered(rows, [gn, -gy]), ["n_name", "o_year"])
+
+    # Q11: the German stock worth more than 0.01 % of the total
+    de = n["n_name"][s_nat[ps_s]] == "GERMANY"
+    worth = cost * ps["ps_availqty"]
+    value = np.bincount(ps_p[de], weights=worth[de], minlength=n_p)
+    held = np.bincount(ps_p[de], minlength=n_p) > 0
+    keep = held & (value > worth[de].sum() * 0.0001)
+    rows = {"ps_partkey": np.nonzero(keep)[0] + 1, "value": value[keep]}
+    out["q11"] = (list(rows), _ordered(rows, [-rows["value"],
+                                              rows["ps_partkey"]]),
+                  ["ps_partkey"])
+
+    # Q13: customers by their count of orders that are not urgent
+    mine = (o_cust < n_c) & (o["o_orderpriority"] != "1-URGENT")
+    per = np.bincount(o_cust[mine], minlength=n_c)
+    c_count, custdist = np.unique(per, return_counts=True)
+    rows = {"c_count": c_count, "custdist": custdist}
+    out["q13"] = (list(rows), _ordered(rows, [-custdist, -c_count]),
+                  list(rows))
+
+    # Q15: the suppliers of the largest quarter revenue
+    keep = (ship >= 9496) & (ship < 9587)
+    rev = np.bincount(li["l_suppkey"][keep], weights=price[keep],
+                      minlength=n_s + 2)
+    has = np.bincount(li["l_suppkey"][keep], minlength=n_s + 2) > 0
+    top = rev[has].max()
+    best = np.nonzero(has & (np.abs(rev - top) <= top * 0.000001))[0]
+    best = best[best <= n_s]
+    out["q15"] = (["s_suppkey", "s_name", "total_revenue"],
+                  {"s_suppkey": best, "s_name": s["s_name"][best - 1],
+                   "total_revenue": rev[best]}, ["s_suppkey", "s_name"])
+
+    # Q16: suppliers of the sizes asked for, without complaints
+    bad = np.char.find(s["s_name"], "0000009") >= 0
+    keep = ~bad[ps_s] & (p["p_brand"][ps_p] != "Brand#45") & \
+        np.isin(p["p_size"][ps_p], [1, 4, 7, 10, 15])
+    (gb, gt, gz, _), inv = _group_rows(p["p_brand"][ps_p[keep]],
+                                   p["p_type"][ps_p[keep]],
+                                   p["p_size"][ps_p[keep]],
+                                   ps["ps_suppkey"][keep])
+    (gb, gt, gz), inv2 = _group_rows(gb, gt, gz)
+    rows = {"p_brand": gb, "p_type": gt, "p_size": gz,
+            "supplier_cnt": np.bincount(inv2, minlength=len(gb))}
+    out["q16"] = (list(rows), _ordered(rows, [
+        -rows["supplier_cnt"], gb, gt, gz], 100), list(rows))
+
+    # Q17: small orders of Brand#23 parts
+    pk = li["l_partkey"]
+    avg_qty = np.bincount(pk, weights=qty) / np.maximum(np.bincount(pk), 1)
+    keep = (l_part < n_p) & (p["p_brand"][lp] == "Brand#23") & \
+        (qty < avg_qty[pk] * 0.5)
+    out["q17"] = (["avg_yearly"],
+                  {"avg_yearly": np.array([price[keep].sum() / 7.0])}, [])
+
+    # Q18: orders of more than 150 units, with their customers
+    big_qty = np.bincount(l_ord, weights=qty, minlength=n_o + 1)[:n_o]
+    keep = (big_qty > 150) & (o_cust < n_c)
+    idx = np.nonzero(keep)[0]
+    rows = {"c_name": c["c_name"][o_cust[idx]],
+            "c_custkey": c["c_custkey"][o_cust[idx]],
+            "o_orderkey": o["o_orderkey"][idx], "o_orderdate": od[idx],
+            "o_totalprice": o["o_totalprice"][idx],
+            "total_qty": big_qty[idx]}
+    out["q18"] = (list(rows), _ordered(rows, [
+        -rows["o_totalprice"], rows["o_orderdate"], rows["o_orderkey"]],
+        100), ["c_name", "c_custkey", "o_orderkey", "o_orderdate"])
+
+    # Q19: three kinds of parts bought in some quantity
+    brand, cont = p["p_brand"][lp], p["p_container"][lp]
+    size = p["p_size"][lp]
+
+    def kind(b, conts, lo, hi, max_size):
+        return (brand == b) & np.isin(cont, conts) & (qty >= lo) & \
+            (qty <= hi) & (size >= 1) & (size <= max_size)
+
+    keep = (l_part < n_p) & (
+        (kind("Brand#12", ["SM CASE", "SM BOX", "SM PACK", "SM PKG"],
+              1, 11, 5) & np.isin(li["l_shipmode"], ["AIR", "REG AIR"])) |
+        kind("Brand#23", ["MED BAG", "MED BOX", "MED PKG", "MED PACK"],
+             10, 20, 10) |
+        kind("Brand#34", ["LG CASE", "LG BOX", "LG PACK", "LG PKG"],
+             20, 30, 15))
+    out["q19"] = (["revenue"], {"revenue": np.array([price[keep].sum()])},
+                  [])
+
+    # Q20: Canadian suppliers with excess stock of forest parts
+    keep = (ship >= 8766) & (ship < 9131)
+    (hp, hs), inv = _group_rows(li["l_partkey"][keep], li["l_suppkey"][keep])
+    period = np.bincount(inv, weights=qty[keep], minlength=len(hp))
+    at = _pair_index(ps["ps_partkey"], ps["ps_suppkey"], hp, hs, n_s)
+    forest = np.char.startswith(p["p_name"], "forest")
+    ok = forest[ps_p] & (at >= 0)
+    ok &= ps["ps_availqty"] > period[np.maximum(at, 0)] * 0.5
+    good = np.zeros(n_s, bool)
+    good[ps_s[ok]] = True
+    keep = good & (n["n_name"][s_nat] == "CANADA")
+    out["q20"] = (["s_name"], {"s_name": np.sort(s["s_name"][keep])},
+                  ["s_name"])
+
+    # Q21: German suppliers who alone kept a multi-supplier order waiting
+    lk, sk = li["l_orderkey"], li["l_suppkey"]
+    is_late = receipt > commit
+
+    def others(rows_mask):
+        """Per lineitem row: rows of ``rows_mask`` in its order with
+        another supplier."""
+        per_order = np.bincount(lk[rows_mask], minlength=n_o + 2)
+        (po, psk), inv = _group_rows(lk[rows_mask], sk[rows_mask])
+        per_pair = np.bincount(inv, minlength=len(po))
+        at = _pair_index(lk, sk, po, psk, n_s)
+        same = np.where(at >= 0, per_pair[np.maximum(at, 0)], 0)
+        return per_order[lk] - same
+
+    keep = (l_ord < n_o) & (l_supp < n_s) & is_late
+    keep &= np.append(o["o_orderstatus"] == "F", False)[l_ord]
+    keep &= n["n_name"][s_nat[ls]] == "GERMANY"
+    keep &= (others(np.ones(len(lk), bool)) > 0) & (others(is_late) == 0)
+    names, counts = np.unique(s["s_name"][ls[keep]], return_counts=True)
+    rows = {"s_name": names, "numwait": counts}
+    out["q21"] = (list(rows), _ordered(rows, [-counts, names], 100),
+                  list(rows))
+
+    # Q22: rich customers of some countries who never ordered
+    bal = c["c_acctbal"]
+    code = np.array([x[:2] for x in c["c_phone"].tolist()])
+    has_order = np.bincount(o["o_custkey"], minlength=n_c + 2)[1:n_c + 1] > 0
+    keep = (bal > bal[bal > 0.0].mean()) & ~has_order & \
+        np.isin(code, ["13", "31", "23", "29", "30", "18", "17"])
+    (codes,), inv = _group_rows(code[keep])
+    out["q22"] = (["cntrycode", "numcust", "totacctbal"],
+                  {"cntrycode": codes,
+                   "numcust": np.bincount(inv, minlength=len(codes)),
+                   "totacctbal": np.bincount(inv, weights=bal[keep],
+                                             minlength=len(codes))},
+                  ["cntrycode", "numcust"])
+    return out
+
+
 def check_sql_rows(rows, ref, label: str) -> None:
     """Keys and counts exact, in order; sums within 1e-9 relative: the
     port sums each group's prices in another order than numpy (the merge
@@ -1426,26 +1732,81 @@ def run_sql(session, name: str, check, label: str) -> dict:
     Returns the path, the recorded (origin, args) calls and the largest
     differences (0 when equal)."""
     with Recorder("probe_join") as probes, \
-            Recorder("string_hash_columns") as hashes:
+            Recorder("string_hash_columns") as hashes, \
+            Recorder("rows_with_match") as matches:
         path = run_path(None, sql_query(session, name), check, label,
-                        (probes, hashes))
+                        (probes, hashes, matches))
     launches = path["collect2"]["launches"]
     if len(hashes.calls) < launches["stringHash"] or \
-            len(probes.calls) != launches["joinProbe"]:
-        raise AssertionError(f"{label}: {len(hashes.calls)} stringHash and "
-                             f"{len(probes.calls)} joinProbe calls recorded "
+            len(probes.calls) != launches["joinProbe"] or \
+            len(matches.calls) < launches["strings"]:
+        raise AssertionError(f"{label}: {len(hashes.calls)} stringHash, "
+                             f"{len(probes.calls)} joinProbe and "
+                             f"{len(matches.calls)} contains calls recorded "
                              f"for launches {launches}")
     hash_err = max((check_hashes(args[0], f"{label}, {origin}")
                     for origin, args in hashes.calls), default=0)
     probe_err = max((check_probe(args[:-1], args[-1], f"{label}, join {i}")
                      for i, (_, args) in enumerate(probes.calls)), default=0)
+    for origin, args in matches.calls:
+        check_contains(*args, f"{label}, {origin}")
     origins = sorted({origin for origin, _ in hashes.calls})
     print(f"{label}: the second collect's {len(hashes.calls)} stringHash "
-          f"calls ({', '.join(origins) or 'none'}) and {len(probes.calls)} "
-          "joinProbe calls == plain versions on their own inputs",
-          flush=True)
+          f"calls ({', '.join(origins) or 'none'}), {len(probes.calls)} "
+          f"joinProbe calls and {len(matches.calls)} contains calls == "
+          "plain versions on their own inputs", flush=True)
     return {"path": path, "probes": probes.calls, "hashes": hashes.calls,
-            "hash_err": hash_err, "probe_err": probe_err}
+            "matches": matches.calls, "hash_err": hash_err,
+            "probe_err": probe_err}
+
+
+def check_contains(data, offsets, needle: bytes, label: str) -> None:
+    """contains against its plain version on the same inputs: the row
+    flags equal (torch.equal)."""
+    import torch
+    from spark_rapids_tpu_torch.kernels import cuda_tier
+    got = cuda_tier.rows_with_match(data, offsets, needle)
+    want = cuda_tier.rows_with_match_reference(data, offsets, needle)
+    if not torch.equal(got, want):
+        raise AssertionError(f"contains != plain version on {label}")
+
+
+def run_sql_more(session, refs):
+    """The fifteen texts of :data:`SQL_MORE`, host-driven, each through
+    :func:`run_sql` with its rows held to ``refs``.  Every text runs
+    before any failure is reported, so one run names them all.  Returns
+    ({label: (run_sql's result, the query's metrics)}, [faults])."""
+    runs, faults = {}, []
+    for name in SQL_MORE:
+        label = f"SQL {name.upper()} host-driven"
+        try:
+            rec = run_sql(session, name,
+                          lambda rows, n=name, lb=label:
+                          check_sql_rows(rows, refs[n], lb), label)
+        except Exception as e:  # noqa: BLE001  (named with the others)
+            faults.append(f"{label}: {type(e).__name__}: {e}")
+            print(f"{label}: FAILED {type(e).__name__}: {e}", flush=True)
+            continue
+        metrics = dict(session.last_metrics)
+        plan = session.last_physical_plan.tree_string()
+        c2 = rec["path"]["collect2"]
+        print(f"{label}: {c2['rows']} rows, collect {c2['wall_s'] * 1e3:.1f}"
+              f" ms, launches {c2['launches']}, metrics {metrics}",
+              flush=True)
+        if not len(next(iter(refs[name][1].values()))):
+            print(f"{label}: the numpy answer is empty", flush=True)
+        missing = [k for k in SQL_KERNELS[name]
+                   if any(rec["path"][f"collect{i}"]["launches"][k] == 0
+                          for i in (1, 2))]
+        if missing:
+            faults.append(f"{label} never launched {missing}")
+        if c2["launches"]["joinProbe"]:
+            faults.append(f"{label} launched joinProbe")
+        if ("GpuNestedLoopJoin" in plan) != (name in SQL_NESTED_LOOP):
+            faults.append(f"{label}: a nested-loop join in the plan is "
+                          f"{'GpuNestedLoopJoin' in plan}")
+        runs[label] = (rec, metrics)
+    return runs, faults
 
 
 def largest(calls, origin: str):
@@ -1860,8 +2221,11 @@ def main() -> int:
     # queries fused on a one-device mesh too
     t0 = time.monotonic()
     sql_data = dict(q3_data, supplier=datagen.gen_supplier(SUPPLIER_SF),
-                    nation=datagen.gen_nation(), region=datagen.gen_region())
+                    nation=datagen.gen_nation(), region=datagen.gen_region(),
+                    part=datagen.gen_part(SQL_PART_SF),
+                    partsupp=datagen.gen_partsupp(SQL_PART_SF))
     sql_refs = sql_references(sql_data)
+    sql_refs.update(sql_references_more(sql_data))
     sql_refs["q1"] = q1_ref
     print("SQL tables: " + ", ".join(
         f"{k} {len(next(iter(v.values()))[1])} rows"
@@ -1895,8 +2259,8 @@ def main() -> int:
                                                       **extra)))
         sql_tables(sql_session, sql_data, batch_rows)
         for name in SQL_KERNELS:
-            if extra and name not in SQL_JOIN_QUERIES or \
-                    extra and name == "q5":
+            if name in SQL_MORE or extra and (
+                    name not in SQL_JOIN_QUERIES or name == "q5"):
                 continue
             label = f"SQL {name.upper()} {mode}"
 
@@ -1958,6 +2322,21 @@ def main() -> int:
     keep(rec, label, metrics)
     time_probes(rec, label, ("orders x lineitem",))
     del sql_session, rec
+    torch.cuda.empty_cache()
+    # the other fifteen texts, host-driven, at the same counts (part and
+    # partsupp at TPC-H SF1's too); every text runs before any failure
+    # is raised, so one run names them all
+    sql_session = GpuSparkSession(RapidsConf(SQL_SETTINGS))
+    sql_tables(sql_session, sql_data, batch_rows)
+    runs, faults = run_sql_more(sql_session, sql_refs)
+    for label, run in runs.items():
+        keep(run[0], label, run[1])
+    del runs
+    if faults:
+        raise AssertionError("; ".join(faults))
+    print(f"SQL phase: the fifteen other texts == numpy; nested-loop joins "
+          f"in {', '.join(q.upper() for q in SQL_NESTED_LOOP)}", flush=True)
+    del sql_session
     torch.cuda.empty_cache()
     del q3_data, sql_data
     small = {"customer": datagen.gen_customer(Q5_FUSED_SF),

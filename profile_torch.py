@@ -2,7 +2,9 @@
 """Where the time goes in one of the PyTorch port's main paths on one GPU.
 
     python3 profile_torch.py [--query headline|q1|part|q3|q1sql|q3sql|
-                              q5|q6|q10|q12|q14|scan|q1pq|q6pq|q3pq]
+                              q2|q4|q5|q6|q7|q8|q9|q10|q11|q12|q13|q14|
+                              q15|q16|q17|q18|q19|q20|q21|q22|
+                              scan|q1pq|q6pq|q3pq ...]
                              [--mesh] [--batches 16] [--set KEY=VALUE ...]
                              [--out build/profile.txt]
 
@@ -12,10 +14,13 @@ batches), ``q1`` (TPC-H Q1 over lineitem, 6,000,000 rows), ``part`` (the
 ``LIKE '%green%'`` part query, 2,000,000 rows), ``q3`` (TPC-H Q3 over
 customer, orders and lineitem at TPC-H SF1's counts; host-driven joins, or
 with ``--mesh`` both joins fused on a one-device mesh through joinProbe),
-or a TPC-H text through ``session.sql`` (``q1sql``, ``q3sql``, ``q5``,
-``q6``, ``q10``, ``q12``, ``q14``: ``benchmarks/tpch_like.py`` over views
-of the tables at TPC-H SF1's counts, ``--mesh`` for the join queries); all
-but the headline are cached as batches of ``reader.batchSizeRows`` rows.
+or a TPC-H text through ``session.sql`` (``q1sql``, ``q3sql`` and
+``q2``, ``q4`` to ``q22``: ``benchmarks/tpch_like.py`` over views of the
+tables at TPC-H SF1's counts, part and partsupp included, ``--mesh`` for
+the join queries Q3, Q5, Q10 and Q12); all but the headline are cached as
+batches of ``reader.batchSizeRows`` rows.  ``--query`` may be given
+several times for SQL texts: the tables are made once and each text is
+measured in turn, one JSON line each.
 The scan lane's paths read parquet files instead, written with pyarrow at
 its default row groups into a temporary directory, in every collect:
 ``scan`` (bench.py's scan query over 4,194,304 rows of its table, 4 row
@@ -45,10 +50,11 @@ device layers: the decode wall summed over the decode threads
 its host-to-device copies in the profiled collect, and the rate of one
 256 MiB pinned host-to-device copy on this card.
 
-Prints one JSON line, with the static capacities of every fused join;
-the profiler's table goes to ``--out``.  A fused query that runs out of
-device memory prints those capacities and the allocator's message instead
-and exits 4.  Needs a CUDA device.
+Prints one JSON line per query, with the static capacities of every fused
+join; the profiler's table goes to ``--out`` (one file per query, the
+query's name before the extension, when there are several).  A fused
+query that runs out of device memory prints those capacities and the
+allocator's message instead and exits 4.  Needs a CUDA device.
 """
 
 import argparse
@@ -135,12 +141,15 @@ def main() -> int:
     from spark_rapids_tpu_torch.session import GpuSparkSession
 
     ap = argparse.ArgumentParser()
-    sql = {"q1sql": "q1", "q3sql": "q3", "q5": "q5", "q6": "q6",
-           "q10": "q10", "q12": "q12", "q14": "q14"}
+    sql = {"q1sql": "q1", "q3sql": "q3",
+           **{q: q for q in ("q2", "q4", "q5", "q6", "q7", "q8", "q9",
+                             "q10", "q11", "q12", "q13", "q14", "q15",
+                             "q16", "q17", "q18", "q19", "q20", "q21",
+                             "q22")}}
     on_parquet = {"scan": None, "q1pq": "q1", "q6pq": "q6", "q3pq": "q3"}
-    ap.add_argument("--query", choices=("headline", "q1", "part", "q3",
-                                        *sql, *on_parquet),
-                    default="headline")
+    ap.add_argument("--query", action="append",
+                    choices=("headline", "q1", "part", "q3", *sql,
+                             *on_parquet))
     ap.add_argument("--mesh", action="store_true",
                     help="join queries only: install a one-device mesh "
                          "(spark.rapids.shuffle.ici.enabled)")
@@ -150,9 +159,13 @@ def main() -> int:
                     metavar="KEY=VALUE", help="a session setting")
     ap.add_argument("--out", default="build/profile.txt")
     args = ap.parse_args()
-
-    if args.mesh and args.query not in ("q3", "q3sql", "q5", "q10", "q12"):
-        ap.error(f"--mesh needs a join query, not {args.query}")
+    queries = args.query or ["headline"]
+    if len(queries) > 1 and not all(q in sql for q in queries):
+        ap.error("several --query are SQL texts only")
+    for q in queries:
+        if args.mesh and q not in ("q3", "q3sql", "q5", "q10", "q12"):
+            ap.error(f"--mesh needs a join query, not {q}")
+    args.query = queries[0]
     cuda_tier.build_all()
     conf = RapidsConf(dict(
         C.SQL_SETTINGS if args.query in sql or args.query in on_parquet
@@ -188,10 +201,13 @@ def main() -> int:
                 "orders": datagen.gen_orders(C.Q3_SF),
                 "lineitem": datagen.gen_lineitem(C.Q3_SF),
                 "supplier": datagen.gen_supplier(C.SUPPLIER_SF),
-                "nation": datagen.gen_nation(), "region": datagen.gen_region()}
+                "nation": datagen.gen_nation(), "region": datagen.gen_region(),
+                "part": datagen.gen_part(C.SQL_PART_SF),
+                "partsupp": datagen.gen_partsupp(C.SQL_PART_SF)}
         C.sql_tables(session, data, batch_rows)
         n_batches = sum(len(session.table(name).plan.children[0].batches)
                         for name in data)
+        del data
         query = C.sql_query(session, sql[args.query])(None)
     elif args.query == "q3":
         tables = C.q3_tables(session, {
@@ -215,6 +231,29 @@ def main() -> int:
                        session).cache()
         query = build(df)
     joins = record_static_joins()
+    for name in queries:
+        if name != args.query:
+            args.query = name
+            query = C.sql_query(session, sql[name])(None)
+            joins.clear()
+        out = args.out if len(queries) == 1 else \
+            "{0}_{2}{1}".format(*os.path.splitext(args.out), name)
+        code = measure(args, query, session, joins, n_batches, out,
+                       on_parquet)
+        if code:
+            return code
+    tmp.cleanup()
+    return 0
+
+
+def measure(args, query, session, joins, n_batches, out, on_parquet) -> int:
+    """Collect walls, host syncs, per-layer times and one profiled collect
+    of ``query``; prints its JSON line.  4 when it runs out of device
+    memory."""
+    import torch
+    import chip_smoke as C
+    from spark_rapids_tpu_torch.kernels import cuda_tier
+    from spark_rapids_tpu_torch.plan.physical import ExecContext
     try:
         for _ in range(3):  # materialize the cache, warm the allocator
             query.collect()
@@ -292,8 +331,8 @@ def main() -> int:
                  if "HtoD" in e.key)
     kernels = sorted(((e.key, e.self_device_time_total, e.count)
                       for e in on_device), key=lambda x: -x[1])
-    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-    with open(args.out, "w") as f:
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    with open(out, "w") as f:
         f.write(events.table(sort_by="self_device_time_total",
                              row_limit=40))
     scan = {}
@@ -323,7 +362,6 @@ def main() -> int:
         "top_kernels": [{"name": k[:80], "device_ms": t / 1e3, "calls": c}
                         for k, t, c in kernels[:12]],
     }), flush=True)
-    tmp.cleanup()
     return 0
 
 

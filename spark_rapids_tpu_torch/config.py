@@ -149,6 +149,11 @@ HASH_AGG_MXU_SLOTS = conf_int(
     "Slot-table capacity of the slot hash aggregate: the product of the "
     "per-key value ranges (plus one per nullable key) must fit here or "
     "the batch falls back to the sort path.")
+NLJ_PAIR_CAPACITY = conf_int(
+    "spark.rapids.sql.nestedLoopJoin.pairCapacity", 1 << 22,
+    "Max cross-pair slots a single nested-loop-join step may allocate; "
+    "a stream side whose pair space exceeds this is joined in row chunks "
+    "(the reference streams broadcast NLJ per stream batch).")
 EXCHANGE_COLLAPSE_LOCAL = conf_bool(
     "spark.rapids.sql.tpu.exchange.collapseLocal", True,
     "Collapse shuffle exchanges to a single logical partition in "

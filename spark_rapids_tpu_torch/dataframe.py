@@ -1,14 +1,16 @@
 """Lazy DataFrame frontend over the logical plan (port of the part of
 ``spark_rapids_tpu/dataframe.py`` the port runs): select, filter,
-with_column, join, group_by().agg() and agg() without keys, distinct,
-order_by, limit, cache, collect, temp views for the SQL front end, and the
-Column operators of the ported expressions."""
+with_column, join and cross_join, group_by().agg() and agg() without keys
+(count(DISTINCT) through the two-level rewrite), distinct, order_by, limit,
+cache, collect, temp views for the SQL front end, and the Column operators
+of the ported expressions."""
 
 from __future__ import annotations
 
 from typing import List, Optional
 
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.exprs import aggregates as A
 from spark_rapids_tpu_torch.exprs.aggregates import (
     AggregateExpression, AggregateFunction,
 )
@@ -294,6 +296,13 @@ class DataFrame:
         node = L.Join(self.plan, right.plan, lkeys, rkeys, how, condition)
         return DataFrame(node, self.session)
 
+    def cross_join(self, other: "DataFrame") -> "DataFrame":
+        """Every pair of rows (a nested-loop join without condition)."""
+        node = L.Join(self.plan, other.plan, [], [], "cross", None)
+        return DataFrame(node, self.session)
+
+    crossJoin = cross_join
+
     def _join_using(self, other: "DataFrame", names: List[str], how: str
                     ) -> "DataFrame":
         """USING-join semantics: one output column per key name (the left
@@ -471,5 +480,90 @@ class GroupedData:
             e = e.with_children([resolve(e.child, self.df.schema)])
             out.append(AggregateExpression(
                 e, name or f"{e.name.lower()}_{i}"))
+        if any(isinstance(a.fn, A.CountDistinct) for a in out):
+            return self._agg_with_distinct(out)
         return DataFrame(L.Aggregate(self.keys, self.names, out,
                                      self.df.plan), self.df.session)
+
+    def _agg_with_distinct(self, out: List[AggregateExpression]
+                           ) -> DataFrame:
+        """The distinct-aggregate rewrite (Spark's
+        RewriteDistinctAggregates)::
+
+            Agg(k, [count(DISTINCT v), regular...])
+              -> Agg(k, [count(v'), re-agg(regular)],
+                     Agg(k + [v], [regular per (k, v)]))
+
+        The inner aggregation dedups the (k, v) pairs and computes the
+        regular aggregates once per pair; the outer one counts the now
+        unique non-NULL values and re-aggregates the regulars (sum of
+        sums, sum of counts, min of mins, avg as sum over count).
+        Without keys the outer aggregation is keyless."""
+        from spark_rapids_tpu_torch.exprs.arithmetic import Divide
+        from spark_rapids_tpu_torch.exprs.cast import Cast
+
+        dvals = [a.fn.child for a in out if isinstance(a.fn, A.CountDistinct)]
+        if any(repr(e) != repr(dvals[0]) for e in dvals[1:]):
+            raise NotImplementedError(
+                "count_distinct over different expressions in one "
+                "aggregation needs the Expand-based rewrite (not yet "
+                "implemented); split into separate aggregations")
+        dname = "__cd_val"
+        inner_aggs: List[AggregateExpression] = []
+        plans = []  # per output: how the outer level produces it
+        for i, a in enumerate(out):
+            fn = a.fn
+            if isinstance(fn, A.CountDistinct):
+                plans.append(("count_distinct",))
+            elif isinstance(fn, A.Average):
+                ns, nc = f"__cd_s{i}", f"__cd_c{i}"
+                inner_aggs.append(AggregateExpression(A.Sum(fn.child), ns))
+                inner_aggs.append(AggregateExpression(A.Count(fn.child), nc))
+                plans.append(("avg", ns, nc))
+            elif isinstance(fn, (A.Sum, A.Count, A.Min, A.Max)):
+                nm = f"__cd_a{i}"
+                inner_aggs.append(AggregateExpression(fn, nm))
+                plans.append(("reagg", nm, fn))
+            else:
+                raise NotImplementedError(
+                    f"{type(fn).__name__} cannot be combined with "
+                    "count_distinct (no re-aggregation rule)")
+
+        inner = GroupedData(self.df, self.keys + [dvals[0]],
+                            self.names + [dname]).agg(*inner_aggs)
+        o_aggs: List[AggregateExpression] = []
+        avg_slots = {}  # output index -> (sum name, count name)
+        for i, (a, plan) in enumerate(zip(out, plans)):
+            if plan[0] == "count_distinct":
+                o_aggs.append(AggregateExpression(
+                    A.Count(inner._resolve(ColumnRef(dname))),
+                    a.output_name))
+            elif plan[0] == "avg":
+                _, ns, nc = plan
+                os_, oc = f"__cd_os{i}", f"__cd_oc{i}"
+                o_aggs.append(AggregateExpression(
+                    A.Sum(inner._resolve(ColumnRef(ns))), os_))
+                o_aggs.append(AggregateExpression(
+                    A.Sum(inner._resolve(ColumnRef(nc))), oc))
+                avg_slots[i] = (os_, oc)
+            else:
+                _, nm, fn = plan
+                ref = inner._resolve(ColumnRef(nm))
+                # a count re-aggregates as the sum of the per-(k, v) counts
+                o_fn = A.Sum(ref) if isinstance(fn, A.Count) else \
+                    type(fn)(ref)
+                o_aggs.append(AggregateExpression(o_fn, a.output_name))
+        outer = inner.group_by(*self.names).agg(*o_aggs)
+        if not avg_slots:
+            return outer
+        # avg outputs as sum / count, in the requested order and names
+        sel: List[Column] = [Column(ColumnRef(n)) for n in self.names]
+        for i, a in enumerate(out):
+            if i in avg_slots:
+                os_, oc = avg_slots[i]
+                e = Divide(Cast(ColumnRef(os_), T.DOUBLE),
+                           Cast(ColumnRef(oc), T.DOUBLE))
+                sel.append(Column(Alias(e, a.output_name)))
+            else:
+                sel.append(Column(ColumnRef(a.output_name)))
+        return outer.select(*sel)

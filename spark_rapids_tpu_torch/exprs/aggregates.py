@@ -1,5 +1,6 @@
 """Declarative aggregate functions (port of
-``spark_rapids_tpu/exprs/aggregates.py``: sum, count, avg, min, max).
+``spark_rapids_tpu/exprs/aggregates.py``: sum, count, avg, min, max, and
+count(DISTINCT), which the DataFrame layer rewrites away).
 
 Each aggregate declares per-group buffers and three kernels:
 ``segment_update`` folds raw rows into buffers, ``segment_merge`` folds
@@ -238,6 +239,24 @@ class Average(AggregateFunction):
         nonzero = c.data > 0
         data = s.data / c.data.masked_fill(~nonzero, 1).to(torch.float64)
         return DevVal(T.DOUBLE, data, nonzero)
+
+
+class CountDistinct(AggregateFunction):
+    """count(DISTINCT x).  Never executed: ``GroupedData.agg`` rewrites an
+    aggregation that holds it into two stacked aggregations (group by the
+    keys and the value, then by the keys), Spark's distinct-aggregate
+    rewrite."""
+
+    def _resolve_type(self):
+        self.dtype = T.LONG
+        self.nullable = False
+
+    def gpu_supported(self, conf):
+        return None
+
+    def buffers(self):
+        raise AssertionError(
+            "CountDistinct must be rewritten before execution")
 
 
 @dataclasses.dataclass

@@ -13,6 +13,8 @@ bases ``HASH_BASES``):
 * :func:`_rows_with_match`, the contains scan behind ``contains`` and
   ``LIKE '%needle%'`` (the ``strings`` kernel).
 
+``substring`` slices every row in one byte gather (:func:`_gather_substring`).
+
 Patterns (needles) must be literals; the port has no CPU twins, so anything
 else is refused by the planner.  Dictionary-encoded columns are not ported:
 the port's batches always hold materialized strings.
@@ -25,7 +27,9 @@ from typing import Optional, Tuple
 import torch
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.exprs.base import DevVal, Expression, Literal
+from spark_rapids_tpu_torch.exprs.base import (
+    DevVal, Expression, Literal, UnaryExpression,
+)
 from spark_rapids_tpu_torch.kernels import cuda_tier
 
 
@@ -207,3 +211,81 @@ class Like(Expression):
                     & _match_suffix(v, suf.encode())
                     & (string_lengths(v) >= len(pre) + len(suf)))
         return DevVal(T.BOOLEAN, data, v.validity)
+
+
+# ---------------------------------------------------------------------------
+# substring
+# ---------------------------------------------------------------------------
+
+
+def _substr_bounds(length: torch.Tensor, pos: int, sublen: Optional[int]):
+    """(start, n) int32 of Spark's substring (``UTF8String.substringSQL``)
+    over row lengths: 1-based ``pos``, counted from the end when
+    negative; the length window is measured from the raw (possibly
+    negative) start before either end is clamped into the row."""
+    length = length.to(torch.int64)
+    if pos > 0:
+        start_raw = torch.full_like(length, pos - 1)
+    elif pos == 0:
+        start_raw = torch.zeros_like(length)
+    else:
+        start_raw = length + pos
+    end_raw = length if sublen is None else start_raw + max(sublen, 0)
+    start = torch.minimum(start_raw.clamp(min=0), length)
+    end = torch.minimum(end_raw.clamp(min=0), length)
+    n = (end - start).clamp(min=0)
+    return start.to(torch.int32), n.to(torch.int32)
+
+
+def _gather_substring(v: DevVal, starts: torch.Tensor, new_lens: torch.Tensor,
+                      out_byte_cap: int, validity: torch.Tensor) -> DevVal:
+    """A string column whose row r is bytes ``[starts[r], starts[r] +
+    new_lens[r])`` of input row r: offsets from one cumsum of the new
+    lengths, then one gather, each output byte finding its row with a
+    ``searchsorted``.  Bytes past the new total are 0."""
+    dev = v.data.device
+    cap = int(new_lens.shape[0])
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                         torch.cumsum(new_lens, 0, dtype=torch.int32)])
+    pos = torch.arange(out_byte_cap, dtype=torch.int32, device=dev)
+    rows = cuda_tier.rows_of_positions(offsets, out_byte_cap)
+    rows_c = rows.clamp(0, cap - 1).long()
+    src = v.offsets[:-1][rows_c] + starts[rows_c] + pos - offsets[rows_c]
+    src = src.clamp(0, int(v.data.shape[0]) - 1).long()
+    data = torch.where(pos < offsets[-1], v.data[src], 0).to(torch.uint8)
+    return DevVal(T.STRING, data, validity, offsets)
+
+
+class Substring(UnaryExpression):
+    """``substring(str, pos[, len])`` over UTF-8 bytes, as the JAX
+    package's device path counts them (Spark counts characters: the two
+    agree on ASCII).  NULL rows and rows past ``num_rows`` come out
+    empty; the output keeps the input's byte capacity."""
+
+    def __init__(self, child: Expression, pos: int,
+                 length: Optional[int] = None):
+        self.pos = int(pos)
+        self.sublen = None if length is None else int(length)
+        super().__init__(child)
+
+    def with_children(self, children):
+        return Substring(children[0], self.pos, self.sublen)
+
+    def _resolve_type(self):
+        self.dtype = T.STRING
+        self.nullable = self.child.nullable
+
+    def gpu_supported(self, conf):
+        if not self.child.dtype.is_string:
+            return "Substring: the input is not a string"
+        return None
+
+    def gpu_eval(self, ctx) -> DevVal:
+        v = self.children[0].gpu_eval(ctx)
+        start, n = _substr_bounds(string_lengths(v), self.pos, self.sublen)
+        cap = int(v.validity.shape[0])
+        live = torch.arange(cap, dtype=torch.int32,
+                            device=v.validity.device) < ctx.batch.num_rows
+        n = torch.where(v.validity & live, n, 0)
+        return _gather_substring(v, start, n, int(v.data.shape[0]),
+                                 v.validity)

@@ -44,6 +44,43 @@ def max(c) -> Column:  # noqa: A001
     return _agg(A.Max, c)
 
 
+def count_distinct(c) -> Column:
+    """count(DISTINCT c): rewritten by ``GroupedData.agg`` into two
+    stacked aggregations."""
+    return _agg(A.CountDistinct, c)
+
+
+countDistinct = count_distinct
+
+
+# -- scalar functions --------------------------------------------------------
+
+
+def _unary(cls, c) -> Column:
+    return Column(cls(_to_expr(col(c) if isinstance(c, str) else c)))
+
+
+def year(c) -> Column:
+    from spark_rapids_tpu_torch.exprs.datetime import Year
+    return _unary(Year, c)
+
+
+def month(c) -> Column:
+    from spark_rapids_tpu_torch.exprs.datetime import Month
+    return _unary(Month, c)
+
+
+def dayofmonth(c) -> Column:
+    from spark_rapids_tpu_torch.exprs.datetime import DayOfMonth
+    return _unary(DayOfMonth, c)
+
+
+def substring(c, pos: int, length: int) -> Column:
+    from spark_rapids_tpu_torch.exprs.strings import Substring
+    return Column(Substring(_to_expr(col(c) if isinstance(c, str) else c),
+                            pos, length))
+
+
 # -- CASE WHEN --------------------------------------------------------------
 
 

@@ -13,6 +13,11 @@ output size depends on the data, so there are two forms:
   is the **joinProbe** kernel (:func:`cuda_tier.probe_join`), and an
   overflow flag stays on the device for the caller to read once.
 
+A residual join condition (:func:`_filter_pairs`) gates the matched pairs
+before any NULL padding, host-driven only.  Cross and nested-loop joins
+(:func:`nested_loop_join`, :func:`nested_loop_join_streamed`) pair every
+left row with every right row and filter the pairs the same way.
+
 NULL keys never match (SQL semantics), NULL = NULL included.  u32 hashes
 and key words are held in int64 tensors, as everywhere in the port, and
 every multiply wraps mod 2^32 through ``cuda_tier._mul32``.  Every gather
@@ -20,13 +25,12 @@ index is clipped as the JAX package's ``jnp.clip`` calls clip it: a CUDA
 gather with a bad index kills the context where ``jnp`` clamps.
 
 Not ported yet: dictionary-encoded keys (``align_dict_codes`` and the
-``codes`` branches), residual conditions (``_filter_pairs``), cross and
-nested-loop joins.
+``codes`` branches).
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import Iterable, List, Optional
 
 import torch
 
@@ -34,7 +38,9 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.batch import (
     ColumnBatch, DeviceColumn, round_up_capacity,
 )
-from spark_rapids_tpu_torch.exprs.base import DevVal
+from spark_rapids_tpu_torch.exprs.base import (
+    ColumnRef, DevVal, Expression, GpuEvalCtx,
+)
 from spark_rapids_tpu_torch.exprs.strings import string_hash2, string_lengths
 from spark_rapids_tpu_torch.kernels import cuda_tier
 from spark_rapids_tpu_torch.kernels.cuda_tier import _mul32
@@ -443,13 +449,67 @@ def stitch_join_output_static(left: ColumnBatch, right: ColumnBatch,
     raise ValueError(f"unsupported join type: {join_type}")
 
 
+def _filter_pairs(left: ColumnBatch, right: ColumnBatch, l_idx, r_idx,
+                  n_pairs, condition: Expression):
+    """A residual join condition applied to the matched pairs before any
+    NULL padding: the condition gates matches, so a row whose every match
+    fails becomes an unmatched outer row.
+
+    Only the columns the condition names are gathered, into a batch of
+    the pair capacity (their string byte capacities read in one sync).
+    The pairs that pass move stably to the front.  Returns the filtered
+    ``(l_idx, r_idx, n_pairs, l_counts, r_matched)``."""
+    pair_cap = int(l_idx.shape[0])
+    dev = left.device
+    refs = {e.column for e in condition.collect(
+        lambda e: isinstance(e, ColumnRef))}
+    live = _live(pair_cap, n_pairs, dev)
+    picked = [(side, idx, f, c)
+              for side, idx in ((left, l_idx), (right, r_idx))
+              for f, c in zip(side.schema.fields, side.columns)
+              if f.name in refs]
+    needs = [torch.where(live, _string_lens(c)[
+        idx.long().clamp(0, side.capacity - 1)], 0).sum()
+        for side, idx, _, c in picked if c.is_varlen]
+    byte_caps = iter([round_up_capacity(int(n), minimum=16)
+                      for n in torch.stack(needs).tolist()] if needs else [])
+    fields, cols = [], []
+    for side, idx, f, c in picked:
+        sub = ColumnBatch(T.Schema([f]), [c], side.num_rows, side.capacity)
+        g = gather_rows(sub, idx, n_pairs, out_capacity=pair_cap,
+                        out_byte_caps=[next(byte_caps)] if c.is_varlen
+                        else None)
+        fields.append(f)
+        cols.append(g.columns[0])
+    paired = ColumnBatch(T.Schema(fields), cols, n_pairs, pair_cap)
+    v = condition.gpu_eval(GpuEvalCtx(paired))
+    keep = live & v.validity & v.data.to(torch.bool)
+
+    _, order = torch.sort(torch.where(keep, 0, 1).to(torch.int32),
+                          stable=True)
+    ones = keep.to(torch.int32)
+    l_counts = torch.zeros(left.capacity, dtype=torch.int32, device=dev)
+    l_counts.index_add_(0, l_idx.long().clamp(0, left.capacity - 1), ones)
+    r_hits = torch.zeros(right.capacity, dtype=torch.int32, device=dev)
+    r_hits.scatter_reduce_(0, r_idx.long().clamp(0, right.capacity - 1),
+                           ones, "amax")
+    return (l_idx[order], r_idx[order], keep.sum(dtype=torch.int32),
+            l_counts, r_hits > 0)
+
+
 def hash_join(left: ColumnBatch, left_keys: List[DevVal],
               right: ColumnBatch, right_keys: List[DevVal],
-              join_type: str, out_schema: T.Schema) -> ColumnBatch:
+              join_type: str, out_schema: T.Schema,
+              condition: Optional[Expression] = None) -> ColumnBatch:
     """Equi-join of two batches, host-driven.  Output columns are the left
-    columns then the right ones (semi/anti: the left only)."""
+    columns then the right ones (semi/anti: the left only).
+    ``condition``, a residual expression over the columns of both sides
+    by name, gates the matched pairs (:func:`_filter_pairs`)."""
     l_idx, r_idx, n_pairs, l_counts, r_matched = join_pairs(
         left_keys, left.num_rows, right_keys, right.num_rows)
+    if condition is not None:
+        l_idx, r_idx, n_pairs, l_counts, r_matched = _filter_pairs(
+            left, right, l_idx, r_idx, n_pairs, condition)
     return stitch_join_output(left, right, l_idx, r_idx, n_pairs, l_counts,
                               r_matched, join_type, out_schema)
 
@@ -469,3 +529,88 @@ def hash_join_static(left: ColumnBatch, left_keys: List[DevVal],
         left, right, l_idx, r_idx, n_pairs, l_counts, r_matched,
         join_type, out_schema, growth)
     return out, ovf | ovf2
+
+
+# ---------------------------------------------------------------------------
+# cross and nested-loop joins
+# ---------------------------------------------------------------------------
+
+
+def cross_join(left: ColumnBatch, right: ColumnBatch,
+               out_schema: T.Schema) -> ColumnBatch:
+    """Cartesian product."""
+    return nested_loop_join(left, right, "cross", None, out_schema)
+
+
+def _cross_pairs(left: ColumnBatch, right: ColumnBatch,
+                 condition: Optional[Expression]):
+    """Every (left, right) pair, condition-filtered when there is one:
+    ``(l_idx, r_idx, n_pairs, l_counts, r_matched)``.  Both row counts are
+    read in one sync; the pair capacity is ``n_l * n_r`` rounded up, and
+    callers keep it within int32 by chunking the left side."""
+    l_cap, r_cap = left.capacity, right.capacity
+    dev = left.device
+    n_l, n_r = torch.stack([left.num_rows.to(torch.int64),
+                            right.num_rows.to(torch.int64)]).tolist()
+    total = n_l * n_r
+    pair_cap = round_up_capacity(max(total, 1))
+    i = torch.arange(pair_cap, dtype=torch.int32, device=dev)
+    if n_r > 0:
+        li, ri = i // n_r, i % n_r
+    else:
+        li = ri = torch.zeros_like(i)
+    n_pairs = torch.full((), total, dtype=torch.int32, device=dev)
+    if condition is not None:
+        return _filter_pairs(left, right, li, ri, n_pairs, condition)
+    l_counts = torch.where(_live(l_cap, left.num_rows, dev), n_r,
+                           0).to(torch.int32)
+    r_matched = _live(r_cap, right.num_rows, dev) & (n_l > 0)
+    return li, ri, n_pairs, l_counts, r_matched
+
+
+def nested_loop_join(left: ColumnBatch, right: ColumnBatch, join_type: str,
+                     condition: Optional[Expression],
+                     out_schema: T.Schema) -> ColumnBatch:
+    """All-pairs join with an optional condition, every join type: the
+    matched pairs are the cross pairs that pass the condition; unmatched
+    rows are NULL-padded as the join type says."""
+    li, ri, n_pairs, l_counts, r_matched = _cross_pairs(
+        left, right, condition)
+    if join_type == "cross":
+        join_type = "inner"
+    return stitch_join_output(left, right, li, ri, n_pairs, l_counts,
+                              r_matched, join_type, out_schema)
+
+
+def nested_loop_join_streamed(left_chunks: Iterable[ColumnBatch],
+                              left_empty: ColumnBatch, right: ColumnBatch,
+                              join_type: str,
+                              condition: Optional[Expression],
+                              out_schema: T.Schema):
+    """A right or full nested-loop join with the left side in chunks, so no
+    ``n_l * n_r`` pair space is allocated.  Whether a right row matched is
+    a property of the whole left side: the matched flags accumulate over
+    the chunks and the right rows no chunk matched are emitted once at the
+    end, against ``left_empty`` (an empty batch of the left schema).
+    Yields one batch per chunk, then that remainder."""
+    if join_type not in ("right", "full"):
+        raise ValueError(f"a streamed nested-loop join is right or full, "
+                         f"not {join_type}")
+    acc = torch.zeros(right.capacity, dtype=torch.bool, device=right.device)
+    # a left row lies in one chunk and the right side is whole, so each
+    # chunk emits its pairs (and, for a full join, its unmatched rows)
+    per_chunk = "inner" if join_type == "right" else "left"
+    for lb in left_chunks:
+        li, ri, n_pairs, l_counts, r_matched = _cross_pairs(
+            lb, right, condition)
+        acc = acc | r_matched
+        yield stitch_join_output(lb, right, li, ri, n_pairs, l_counts,
+                                 r_matched, per_chunk, out_schema)
+    dev = right.device
+    zero_idx = torch.zeros(round_up_capacity(1), dtype=torch.int32,
+                           device=dev)
+    yield stitch_join_output(
+        left_empty, right, zero_idx, zero_idx,
+        torch.zeros((), dtype=torch.int32, device=dev),
+        torch.zeros(left_empty.capacity, dtype=torch.int32, device=dev),
+        acc, "right", out_schema)

@@ -1,4 +1,5 @@
-"""Row-movement kernels: gather, filter compaction, head, k-way concat.
+"""Row-movement kernels: gather, row slices, filter compaction, head, k-way
+concat.
 
 Port of ``spark_rapids_tpu/kernels/layout.py``.  Plain functions over
 :class:`ColumnBatch`; output capacities are host ints, live row counts stay
@@ -14,7 +15,7 @@ from typing import Optional, Sequence
 import torch
 
 from spark_rapids_tpu_torch.batch import (
-    ColumnBatch, DeviceColumn, device_scalar,
+    ColumnBatch, DeviceColumn, device_scalar, round_up_capacity,
 )
 from spark_rapids_tpu_torch.kernels import cuda_tier
 
@@ -82,6 +83,27 @@ def gather_rows(batch: ColumnBatch, indices: torch.Tensor, num_rows,
         validity = col.validity[idx] & live
         cols.append(DeviceColumn(col.dtype, data, validity))
     return ColumnBatch(batch.schema, cols, num_rows, out_cap)
+
+
+def row_slices(batch: ColumnBatch, total_rows: int, rows_per: int):
+    """Yield right-sized slices of ``batch``, ``rows_per`` rows each, up to
+    ``total_rows``.  ONE host read of the string offsets at the slice
+    bounds sizes every slice's byte buffers."""
+    bounds = list(range(0, total_rows, max(rows_per, 1))) + [total_rows]
+    varlen = [c for c in batch.columns if c.is_varlen]
+    marks = []
+    if varlen:
+        at = torch.tensor(bounds, dtype=torch.int64, device=batch.device)
+        marks = torch.stack([c.offsets[at] for c in varlen]).tolist()
+    for i in range(len(bounds) - 1):
+        start, cnt = bounds[i], bounds[i + 1] - bounds[i]
+        pcap = round_up_capacity(cnt)
+        idx = start + torch.arange(pcap, dtype=torch.int32,
+                                   device=batch.device)
+        bcaps = [round_up_capacity(max(m[i + 1] - m[i], 16), minimum=16)
+                 for m in marks]
+        yield gather_rows(batch, idx, device_scalar(cnt, batch.device),
+                          out_capacity=pcap, out_byte_caps=bcaps or None)
 
 
 def compaction_indices(mask: torch.Tensor, num_rows):

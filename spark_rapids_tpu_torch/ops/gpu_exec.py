@@ -1,6 +1,6 @@
 """Device operators (port of ``spark_rapids_tpu/ops/tpu_exec.py``: project,
-filter, sort, hash aggregate, cached scan, local limit, and the shuffled
-and broadcast hash joins).
+filter, sort, hash aggregate, cached scan, local limit, the shuffled and
+broadcast hash joins, and the nested-loop join).
 
 Each exec runs its per-batch work eagerly as torch ops on ``ctx.device``.
 String columns ride every operator as offsets + bytes; string group keys
@@ -16,9 +16,11 @@ which runs eagerly and has no stage fusion, runs the same static-capacity
 join (``kernels/join.py:hash_join_static``, the joinProbe kernel) per join
 and reads its overflow flag once.  On overflow it discards the output,
 reruns the join host-driven from the same input batches, and counts
-``joinOverflowFallback``.  The JAX package keeps a stage that holds a
-single-partition exchange (a LIMIT) out of mesh fusion as a whole; the port
-decides join by join, with the same rows either way.
+``joinOverflowFallback``.  A join with a residual condition never runs
+fused: the condition sizes its gathers on the host.  The JAX package
+keeps a stage that holds a single-partition exchange (a LIMIT) out of mesh
+fusion as a whole; the port decides join by join, with the same rows
+either way.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from spark_rapids_tpu_torch.batch import (
 )
 from spark_rapids_tpu_torch.config import (
     HASH_AGG_MXU_ENABLED, HASH_AGG_MXU_SLOTS, MESH_SPMD_JOIN_GROWTH,
+    NLJ_PAIR_CAPACITY,
 )
 from spark_rapids_tpu_torch.exprs.aggregates import AggregateExpression
 from spark_rapids_tpu_torch.exprs.base import (
@@ -44,10 +47,10 @@ from spark_rapids_tpu_torch.kernels.hashagg import (
     hash_agg_capable, hash_group_aggregate,
 )
 from spark_rapids_tpu_torch.kernels.join import (
-    hash_join, hash_join_static,
+    hash_join, hash_join_static, nested_loop_join, nested_loop_join_streamed,
 )
 from spark_rapids_tpu_torch.kernels.layout import (
-    compact, concat_kway, gather_rows, take_head,
+    compact, concat_kway, gather_rows, row_slices, take_head,
 )
 from spark_rapids_tpu_torch.kernels.sort import sort_batch
 from spark_rapids_tpu_torch.plan.physical import GpuExec, PhysicalOp
@@ -392,15 +395,19 @@ def _walk(op: PhysicalOp):
 
 class _HashJoinBase(GpuExec):
     """Shared by both hash joins: the host-driven join of one (left,
-    right) pair and the fused static join with its overflow rerun."""
+    right) pair, with the residual condition when there is one, and the
+    fused static join with its overflow rerun.  The condition's column
+    references stay by name: the join evaluates it over a batch of only
+    the columns it reads."""
 
     def __init__(self, children, left_keys, right_keys, how: str,
-                 schema: T.Schema, left_schema: T.Schema,
-                 right_schema: T.Schema):
+                 condition: Optional[Expression], schema: T.Schema,
+                 left_schema: T.Schema, right_schema: T.Schema):
         super().__init__(children, schema)
         self.left_keys = list(left_keys)
         self.right_keys = list(right_keys)
         self.how = how
+        self.condition = condition
         self.left_schema = left_schema
         self.right_schema = right_schema
 
@@ -420,7 +427,7 @@ class _HashJoinBase(GpuExec):
             rb = empty_device_batch(self.right_schema, device)
         return hash_join(lb, _eval_join_keys(self.left_keys, lb), rb,
                          _eval_join_keys(self.right_keys, rb), self.how,
-                         self.output_schema)
+                         self.output_schema, condition=self.condition)
 
     def _join_fused(self, ctx, lbs: List[ColumnBatch],
                     rbs: List[ColumnBatch], rerun) -> List[ColumnBatch]:
@@ -444,18 +451,19 @@ class GpuShuffledHashJoinExec(_HashJoinBase):
     """Equi-join of co-partitioned (left, right) pairs; on one device each
     side is one partition, concatenated and joined once.  Host-driven by
     default; fused when a mesh is active and both children are mesh
-    exchanges.  Not ported: residual conditions (the planner refuses
-    them), AQE pair coalescing, the skew split and the dynamic broadcast
-    switch."""
+    exchanges and the join has no residual condition.  Not ported: AQE
+    pair coalescing, the skew split and the dynamic broadcast switch."""
 
     _FUSABLE_HOWS = ("inner", "left", "right", "full", "left_semi",
                      "left_anti")
 
     def __init__(self, left: PhysicalOp, right: PhysicalOp,
                  left_keys: List[Expression], right_keys: List[Expression],
-                 how: str, schema: T.Schema):
-        super().__init__([left, right], left_keys, right_keys, how, schema,
-                         left.output_schema, right.output_schema)
+                 how: str, condition: Optional[Expression],
+                 schema: T.Schema):
+        super().__init__([left, right], left_keys, right_keys, how,
+                         condition, schema, left.output_schema,
+                         right.output_schema)
 
     def describe(self):
         return f"GpuShuffledHashJoin({self.how})"
@@ -464,7 +472,7 @@ class GpuShuffledHashJoinExec(_HashJoinBase):
         from spark_rapids_tpu_torch.parallel.exchange import (
             GpuShuffleExchangeExec,
         )
-        return ctx.mesh_spmd_active() and \
+        return ctx.mesh_spmd_active() and self.condition is None and \
             self.how in self._FUSABLE_HOWS and \
             all(isinstance(c, GpuShuffleExchangeExec) for c in self.children)
 
@@ -499,9 +507,10 @@ class GpuBroadcastHashJoinExec(_HashJoinBase):
     with no exchange on either side.  ``broadcast_side`` is "right" (inner,
     left, semi, anti) or "left" (inner, right): the planner never
     broadcasts a side whose unmatched rows the join must emit.  Fused under
-    an active mesh when the build subtree holds no exchange and shares no
-    node with the stream subtree: then each stream partition is joined
-    whole, with static sizing.  Not ported: registering the build side in
+    an active mesh when the join has no residual condition, the build
+    subtree holds no exchange and it shares no node with the stream
+    subtree: then each stream partition is joined whole, with static
+    sizing.  Not ported: registering the build side in
     a spill catalog."""
 
     _FUSABLE_HOWS = {"right": ("inner", "left", "left_semi", "left_anti"),
@@ -509,13 +518,14 @@ class GpuBroadcastHashJoinExec(_HashJoinBase):
 
     def __init__(self, stream: PhysicalOp, broadcast: PhysicalOp,
                  left_keys: List[Expression], right_keys: List[Expression],
-                 how: str, broadcast_side: str, schema: T.Schema):
+                 how: str, broadcast_side: str,
+                 condition: Optional[Expression], schema: T.Schema):
         if broadcast_side == "right":
             lsch, rsch = stream.output_schema, broadcast.output_schema
         else:
             lsch, rsch = broadcast.output_schema, stream.output_schema
         super().__init__([stream, broadcast], left_keys, right_keys, how,
-                         schema, lsch, rsch)
+                         condition, schema, lsch, rsch)
         self.broadcast_side = broadcast_side
         self._bc_cache = None  # (weakref(ctx), build batches)
 
@@ -539,8 +549,8 @@ class GpuBroadcastHashJoinExec(_HashJoinBase):
         from spark_rapids_tpu_torch.parallel.exchange import (
             GpuShuffleExchangeExec,
         )
-        if not ctx.mesh_spmd_active() or self.how not in \
-                self._FUSABLE_HOWS[self.broadcast_side]:
+        if not ctx.mesh_spmd_active() or self.condition is not None or \
+                self.how not in self._FUSABLE_HOWS[self.broadcast_side]:
             return False
         bc_nodes = list(_walk(self.children[1]))
         if any(isinstance(o, GpuShuffleExchangeExec) for o in bc_nodes):
@@ -575,3 +585,73 @@ class GpuBroadcastHashJoinExec(_HashJoinBase):
                 yield from host(sbs)
 
         return [gen(p) for p in self.children[0].partitions(ctx)]
+
+
+class GpuNestedLoopJoinExec(GpuExec):
+    """All-pairs join with an optional condition, every join type (the
+    planner's choice for a cross join and a join without equi-keys).  The
+    right side is materialized once per query as one device batch; a left
+    batch whose pair space ``n_l * n_r`` exceeds
+    ``spark.rapids.sql.nestedLoopJoin.pairCapacity`` is joined in slices
+    of ``pairCapacity // n_r`` rows (``nljChunks`` counts them).  Inner,
+    left, semi and anti joins are exact per slice, since a left row's
+    outcome needs only the whole right side; right and full joins gather
+    the whole left side into one partition and stream its slices,
+    accumulating which right rows matched.  Never fused.  Not ported:
+    registering the right side in a spill catalog."""
+
+    def __init__(self, left: PhysicalOp, right: PhysicalOp, how: str,
+                 condition: Optional[Expression], schema: T.Schema):
+        super().__init__([left, right], schema)
+        self.how = how
+        self.condition = condition
+
+    def describe(self):
+        return f"GpuNestedLoopJoin({self.how})"
+
+    def partitions(self, ctx):
+        budget = max(NLJ_PAIR_CAPACITY.get(ctx.conf), 1)
+        lsch = self.children[0].output_schema
+        rsch = self.children[1].output_schema
+        rb = _concat_all([b for p in self.children[1].partitions(ctx)
+                          for b in p], rsch)
+        n_r = int(rb.num_rows) if rb is not None else 0
+        if rb is None:
+            rb = empty_device_batch(rsch, ctx.device)
+        lparts = self.children[0].partitions(ctx)
+        rows_per = max(1, budget // max(n_r, 1))
+
+        def slice_rows(n_l: int) -> int:
+            """Count ``n_l`` left rows' slices; the rows a slice holds."""
+            ctx.metric(self.op_id, "nljChunks").add(-(-n_l // rows_per))
+            return rows_per
+
+        def join(lb):
+            return nested_loop_join(lb, rb, self.how, self.condition,
+                                    self.output_schema)
+
+        if self.how in ("right", "full"):
+            def gen_all():
+                lb = _concat_all([b for p in lparts for b in p], lsch) or \
+                    empty_device_batch(lsch, ctx.device)
+                n_l = int(lb.num_rows)
+                if n_l * max(n_r, 1) <= budget:
+                    yield join(lb)
+                    return
+                yield from nested_loop_join_streamed(
+                    row_slices(lb, n_l, slice_rows(n_l)),
+                    empty_device_batch(lsch, ctx.device), rb, self.how,
+                    self.condition, self.output_schema)
+
+            return [gen_all()]
+
+        def gen(part):
+            for lb in part:
+                n_l = int(lb.num_rows)
+                if n_l * max(n_r, 1) <= budget:
+                    yield join(lb)
+                    continue
+                for chunk in row_slices(lb, n_l, slice_rows(n_l)):
+                    yield join(chunk)
+
+        return [gen(p) for p in lparts]

@@ -15,7 +15,9 @@ when it is the smaller), otherwise both sides go through hash exchanges
 into a shuffled hash join.  Estimates measure an in-memory scan's values
 exactly and multiply every other node's row estimate by its output
 schema's per-column widths; joins and aggregates make no guess.  A file
-scan is estimated by its files' bytes on disk.
+scan is estimated by its files' bytes on disk.  A residual join condition
+rides the hash join, which then runs host-driven; a cross join or a join
+without equi-keys is a nested-loop join.
 
 File scans decode on the host (``io/scan.py`` v1, ``io/scan_v2.py`` v2, the
 default) and the planner stages their batches onto the device above them.
@@ -38,7 +40,9 @@ from spark_rapids_tpu_torch.config import (
     SCAN_PUSHDOWN_ENABLED, SCAN_V2_ENABLED, SHUFFLE_PARTITIONS, RapidsConf,
 )
 from spark_rapids_tpu_torch.exprs.aggregates import AggregateFunction
-from spark_rapids_tpu_torch.exprs.base import ColumnRef, Expression, SortOrder
+from spark_rapids_tpu_torch.exprs.base import (
+    ColumnRef, Expression, SortOrder, resolve,
+)
 from spark_rapids_tpu_torch.ops import gpu_exec as X
 from spark_rapids_tpu_torch.ops.cpu_exec import CpuInMemoryScanExec
 from spark_rapids_tpu_torch.parallel.exchange import GpuShuffleExchangeExec
@@ -229,14 +233,16 @@ class GpuOverrides:
         return rows * sum(self._field_width(f) for f in node.schema.fields)
 
     def _convert_join(self, node: L.Join) -> PhysicalOp:
-        if node.how == "cross" or not node.left_keys:
-            self._refuse(node, "nested-loop and cross joins are not ported "
-                               "yet")
-        if node.condition is not None:
-            self._refuse(node, "a residual join condition is not ported yet")
         self._check_exprs(node, *node.left_keys, *node.right_keys)
+        cond = None
+        if node.condition is not None:
+            cond = _paired_resolve(node)
+            self._check_exprs(node, cond)
         left = _to_device(self._convert(node.children[0]))
         right = _to_device(self._convert(node.children[1]))
+        if node.how == "cross" or not node.left_keys:
+            return X.GpuNestedLoopJoinExec(left, right, node.how, cond,
+                                           node.schema)
         threshold = AUTO_BROADCAST_THRESHOLD.get(self.conf)
         l_est = self._estimate_size(node.children[0])
         r_est = self._estimate_size(node.children[1])
@@ -251,21 +257,30 @@ class GpuOverrides:
         if bc_side == "right":
             return X.GpuBroadcastHashJoinExec(
                 left, right, node.left_keys, node.right_keys, node.how,
-                "right", node.schema)
+                "right", cond, node.schema)
         if bc_side == "left":
             return X.GpuBroadcastHashJoinExec(
                 right, left, node.left_keys, node.right_keys, node.how,
-                "left", node.schema)
+                "left", cond, node.schema)
         return X.GpuShuffledHashJoinExec(
             self._exchange(node, "hash", left),
             self._exchange(node, "hash", right), node.left_keys,
-            node.right_keys, node.how, node.schema)
+            node.right_keys, node.how, cond, node.schema)
 
     def _convert_limit(self, node: L.Limit) -> PhysicalOp:
         local = X.GpuLocalLimitExec(
             node.n, _to_device(self._convert(node.children[0])))
         return X.GpuLocalLimitExec(node.n,
                                    self._exchange(node, "single", local))
+
+
+def _paired_resolve(node: L.Join) -> Expression:
+    """A join's residual condition resolved against both sides' columns
+    (the left ones first), so each expression can say whether the port
+    runs it; its column references stay by name."""
+    left, right = node.children
+    return resolve(node.condition, T.Schema(list(left.schema.fields) +
+                                            list(right.schema.fields)))
 
 
 def _split_conjuncts(e: Expression) -> List[Expression]:

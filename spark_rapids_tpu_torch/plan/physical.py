@@ -30,10 +30,11 @@ from spark_rapids_tpu_torch.batch import (
 from spark_rapids_tpu_torch.config import STAGE_READAHEAD_BATCHES, RapidsConf
 
 #: per-operator metrics that a query sums over its operators into
-#: ``session.last_metrics`` (the scan lane's); readaheadDepthEffective
-#: takes the deepest instead
+#: ``session.last_metrics`` (the scan lane's, and the nested-loop join's
+#: left slices); readaheadDepthEffective takes the deepest instead
 SUMMED_METRICS = ("scanDecodeWallNs", "scanH2dOverlapNs", "scanBytesDecoded",
-                  "scanChunksSkipped", "rowGroupsRead", "rowGroupsTotal")
+                  "scanChunksSkipped", "rowGroupsRead", "rowGroupsTotal",
+                  "nljChunks")
 
 
 class Metric:

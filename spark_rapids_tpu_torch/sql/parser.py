@@ -10,6 +10,7 @@ Grammar, as in the JAX package:
   source    := ident [[AS] alias] | ( query ) [AS] alias
   join      := [INNER|LEFT [OUTER]|RIGHT [OUTER]|FULL [OUTER]|LEFT SEMI|
                LEFT ANTI] JOIN source (ON expr | USING (cols))
+             | CROSS JOIN source
   expr      := standard precedence: OR > AND > NOT > cmp > add > mul > unary
 
 The same text builds the same logical plan as the JAX package, with the
@@ -17,9 +18,10 @@ same output names (``_default_name``, the hidden ``__agg_i`` and
 ``__having_i`` columns).  A construct whose expression or operator the port
 does not have yet raises :class:`NotImplementedError` naming it and saying
 "not ported yet": window functions and ``OVER``, ``explode``, GROUPING SETS,
-ROLLUP and CUBE, UNION, INTERSECT and EXCEPT, CROSS JOIN, ``||`` and every
-function whose expression is not ported.  Nothing is guessed at and nothing
-is handed to the JAX package.
+ROLLUP and CUBE, UNION, INTERSECT and EXCEPT, ``||`` and every function
+whose expression is not ported.  ``COUNT(DISTINCT x)`` is the one DISTINCT
+aggregate, over one column, as in the JAX package.  Nothing is guessed at
+and nothing is handed to the JAX package.
 """
 
 from __future__ import annotations
@@ -288,12 +290,15 @@ class Parser:
                 self.accept("keyword", "outer")
                 how = "full"
             elif self.at_kw("cross"):
-                _not_ported("CROSS JOIN")
+                self.next()
+                how = "cross"
             else:
                 return df
             self.expect("keyword", "join")
             right = self.parse_source()
-            if self.accept("keyword", "using"):
+            if how == "cross":
+                df = df.cross_join(right)
+            elif self.accept("keyword", "using"):
                 self.expect("op", "(")
                 cols = [self.expect("ident").value]
                 while self.accept("op", ","):
@@ -508,11 +513,10 @@ _UNPORTED_FUNCTIONS = frozenset("""
     first last stddev stddev_samp std stddev_pop variance var_samp var_pop
     sqrt exp ln log log2 log10 floor ceil ceiling sin cos tan asin acos atan
     signum sign sinh cosh tanh asinh acosh atanh cot upper ucase lower
-    initcap hex lcase length char_length trim ltrim rtrim year month day
-    dayofmonth dayofweek dayofyear quarter hour weekday minute second
+    initcap hex lcase length char_length trim ltrim rtrim hour minute second
     substring_index split grouping_id corr covar_pop covar_samp percentile
-    substr substring concat pow power round hash row_number rank dense_rank
-    lag lead date_add date_sub datediff replace regexp_replace split_part
+    concat pow power round hash row_number rank dense_rank
+    lag lead replace regexp_replace split_part
     concat_ws lpad rpad unix_timestamp to_unix_timestamp to_date date_format
     from_unixtime shiftleft shiftright shiftrightunsigned size
     array_contains array_min array_max sort_array array_position explode
@@ -522,12 +526,17 @@ _UNPORTED_FUNCTIONS = frozenset("""
 
 def _build_function(name: str, args: List[Expression], star: bool,
                     distinct: bool) -> Expression:
+    from spark_rapids_tpu_torch.exprs import datetime as D
     from spark_rapids_tpu_torch.exprs import nullexprs as N
     if name == "count":
         if star or not args:
             return A.count_star()
         if distinct:
-            _not_ported("COUNT(DISTINCT ...)")
+            if len(args) != 1:
+                raise NotImplementedError(
+                    "COUNT(DISTINCT a, b, ...) over multiple columns is "
+                    "not supported")
+            return A.CountDistinct(args[0])
         return A.Count(args[0])
     if distinct:
         raise NotImplementedError(
@@ -541,6 +550,18 @@ def _build_function(name: str, args: List[Expression], star: bool,
     if name == "abs":
         from spark_rapids_tpu_torch.exprs.arithmetic import Abs
         return Abs(args[0])
+    dates = {"year": D.Year, "month": D.Month, "day": D.DayOfMonth,
+             "dayofmonth": D.DayOfMonth, "dayofweek": D.DayOfWeek,
+             "dayofyear": D.DayOfYear, "quarter": D.Quarter,
+             "weekday": D.WeekDay, "date_add": D.DateAdd,
+             "date_sub": D.DateSub, "datediff": D.DateDiff}
+    if name in dates:
+        return dates[name](*args)
+    if name in ("substr", "substring"):
+        from spark_rapids_tpu_torch.exprs.strings import Substring
+        pos = args[1].value
+        ln = args[2].value if len(args) > 2 else None
+        return Substring(args[0], pos, ln)
     if name == "coalesce":
         return N.Coalesce(*args)
     if name == "nvl":

@@ -45,7 +45,6 @@ from spark_rapids_tpu_torch.dataframe import DataFrame
 from spark_rapids_tpu_torch.interop import host_batches
 from spark_rapids_tpu_torch.kernels import cuda_tier
 from spark_rapids_tpu_torch.plan.logical import InMemoryScan
-from spark_rapids_tpu_torch.plan.overrides import UnsupportedPlanError
 from spark_rapids_tpu_torch.session import GpuSparkSession
 
 from torch_port_util import one_torch_thread  # noqa: F401  (autouse)
@@ -286,16 +285,28 @@ def test_using_join_matches_jax_schema():
         [("red", 1, 10), ("blue", 4, 20), ("red", 5, 10), ("", 6, 50)])
 
 
-@pytest.mark.parametrize("build,reason", [
-    (lambda l, r: l.join(r), "nested-loop and cross joins"),
+def _python_pairs(keep):
+    """Every (left row, right row) pair that ``keep(left, right)`` holds,
+    in the order of a nested loop over the left rows."""
+    lrows = list(zip(LEFT["name"], LEFT["age"]))
+    rrows = list(zip(RIGHT["name"], RIGHT["bonus"]))
+    return [lr + rr for lr in lrows for rr in rrows if keep(lr, rr)]
+
+
+@pytest.mark.parametrize("build,keep", [
+    (lambda l, r: l.join(r), lambda lr, rr: True),
     (lambda l, r: l.join(r, (PF.col("name") == PF.col("name")) &
-                         (PF.col("age") < PF.col("bonus"))),
-     "residual join condition"),
+                         (PF.col("age") < PF.col("bonus")) &
+                         (PF.col("bonus") != 50)),
+     lambda lr, rr: lr[0] is not None and lr[0] == rr[0] and
+     lr[1] < rr[1] and rr[1] != 50),
 ], ids=["cross", "residual-condition"])
-def test_unported_join_is_refused(build, reason):
+def test_cross_and_residual_joins_match_python(build, keep):
+    """A join without keys is a nested-loop join; the conjuncts of an ON
+    that are not key equalities gate the matched pairs."""
     left, right = _frames(_port_session({}))
-    with pytest.raises(UnsupportedPlanError, match=reason):
-        build(left, right).collect()
+    rows = build(left, right).collect()
+    assert sorted(rows, key=repr) == sorted(_python_pairs(keep), key=repr)
 
 
 def test_q3_runs_without_jax():

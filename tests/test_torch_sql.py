@@ -133,8 +133,7 @@ def test_lexer_tokens_match_jax():
 
 
 def test_port_queries_are_the_reference_texts():
-    assert sorted(PQ.QUERIES) == ["q1", "q10", "q12", "q14", "q3", "q5",
-                                  "q6"]
+    assert sorted(PQ.QUERIES) == sorted(JQ.QUERIES)  # all 22
     for name, text in PQ.QUERIES.items():
         assert text == JQ.QUERIES[name], name
 
@@ -254,14 +253,14 @@ REFUSED = {
     "union": "SELECT a FROM t UNION ALL SELECT a FROM t",
     "intersect": "SELECT a FROM t INTERSECT SELECT a FROM t",
     "except": "SELECT a FROM t EXCEPT SELECT a FROM t",
-    "cross-join": "SELECT * FROM t CROSS JOIN t",
     "cast-to-string": "SELECT CAST(a AS string) FROM t",
     "cast-from-string": "SELECT CAST(s AS int) FROM t",
-    "year": "SELECT year(a) FROM t",
+    "time-part": "SELECT hour(a) FROM t",
+    "date-format": "SELECT date_format(a, 'yyyy') FROM t",
+    "string-length": "SELECT length(s) FROM t",
     "math": "SELECT sqrt(d) FROM t",
     "string-function": "SELECT upper(s) FROM t",
     "concat-op": "SELECT s || s FROM t",
-    "count-distinct": "SELECT count(DISTINCT a) FROM t",
     "float-group-key": "SELECT d, count(*) FROM t GROUP BY d",
 }
 

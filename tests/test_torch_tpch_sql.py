@@ -53,7 +53,9 @@ SETTINGS = {"spark.rapids.sql.variableFloatAgg.enabled": True,
 MESH = {"spark.rapids.shuffle.ici.enabled": True}
 SF = 0.02
 PARTITIONS = 3
-QUERIES = sorted(PQ.QUERIES)
+#: the seven texts of this slice; the other fifteen are
+#: tests/test_torch_tpch_sql_more.py's, at a scale where they have rows
+QUERIES = sorted(["q1", "q3", "q5", "q6", "q10", "q12", "q14"])
 #: per join query: (joins, joins that overflow at the default growth
 #: factor and rerun host-driven) at this scale
 JOINS = {"q3": (2, 2), "q5": (4, 2), "q10": (2, 2), "q12": (1, 1)}
@@ -163,7 +165,7 @@ def test_sql_queries_run_without_jax():
         from spark_rapids_tpu_torch.session import GpuSparkSession
         s = GpuSparkSession(RapidsConf({SETTINGS!r}), device="cpu")
         D.register_tpch(s, sf={SF}, num_partitions={PARTITIONS})
-        counts = [len(s.sql(QUERIES[q]).collect()) for q in sorted(QUERIES)]
+        counts = [len(s.sql(QUERIES[q]).collect()) for q in {QUERIES!r}]
         assert all(counts), counts
         print("jax" in sys.modules,
               any(m.split(".")[0] == "spark_rapids_tpu" for m in sys.modules))

@@ -97,6 +97,8 @@ def plan_shape(op):
                       type(op.partitioning).__name__)
     if "HashJoin" in tok:
         tok += f"/{op.how}/{getattr(op, 'broadcast_side', '')}"
+    if tok == "NestedLoopJoin":
+        tok += f"/{op.how}"
     if tok == "HashAggregate":
         tok += "/" + op.mode
     return (tok, tuple(plan_shape(c) for c in op.children))
