@@ -72,9 +72,23 @@ Phases, in order; any failure exits non-zero:
      counts), rows against independent numpy answers
      (``sql_references_more``), every stringHash and contains call of
      the second collect held equal to its plain version, each text's
-     rows, collect time and launches on a line of its own; then the casts
-     from DOUBLE and FLOAT to every integral type at NaN, ±inf, ±2^63 and
-     ±2^31 ± 1 on the card against Java's rules and the CPU;
+     rows, collect time and launches on a line of its own; then the
+     fallback phase, operators the planner places on the host by their
+     tags and the confs, over the same views: (a) SQL Q1 without
+     ``variableFloatAgg`` (the aggregate on the host, the filter, project
+     and sort on the card: stringHash launches, the explain names the
+     reason, and the test mode over it raises naming the aggregate), (b)
+     SQL Q10 at the default ``hasNans`` (the joins and filter on the card,
+     the aggregate keyed on the DOUBLE c_acctbal on the host, the sort
+     and limit on the card), (c) the part query with
+     ``spark.rapids.sql.exec.Aggregate`` off (contains in the device
+     filter, the string-keyed aggregate on the host), (d) SQL Q6 with
+     ``spark.rapids.sql.enabled`` off (every operator on the host, no
+     launch, ``torch.cuda.memory_allocated()`` unchanged across the
+     collect), each against numpy with its explain lines, collect ms, the
+     host operators' ms and the bytes the transitions moved; then the
+     casts from DOUBLE and FLOAT to every integral type at NaN, ±inf,
+     ±2^63 and ±2^31 ± 1 on the card against Java's rules and the CPU;
    * the scan lane, over parquet files written with pyarrow at its
      default row groups into a temporary directory: bench.py's scan query
      (``bench.py:273-296``: read, filter, project revenue, group by
@@ -87,7 +101,10 @@ Phases, in order; any failure exits non-zero:
      orders and customer at TPC-H SF1's counts: Q1 must launch stringHash
      8 times and gatherScatter once a collect, as the cached Q1 does, and
      Q3's rows must equal the cached SQL Q3's;
-   each query must launch every kernel of its path;
+   each query must launch every kernel of its path, and every path but
+   the fallback phase's must plan wholly on the card in the test mode
+   (``spark.rapids.sql.test.enabled``: no host exec but a scan, a
+   transition or a collapsed host exchange);
 5. timings at the main paths' own shapes (gatherScatter: the headline
    merge's concat of its partials, every buffer, and a concat of the cached
    lineitem batches with its string columns; stringHash: Q1's two keys
@@ -527,6 +544,7 @@ def run_query(df, label: str, ref) -> dict:
               f"{wall:.4f} s, launches {launches}", flush=True)
         out[f"collect{i + 1}"] = {"rows": len(rows), "wall_s": wall,
                                   "launches": launches}
+    check_on_gpu(headline_query(df), f"headline {label}")
     return out
 
 
@@ -715,7 +733,8 @@ _FLUSH = []  # a buffer larger than the L2 cache, made at first use
 
 def launch_ms(call, reps: int = 20, cold: bool = False) -> dict:
     """Device ms of each kernel one ``call()`` launches, by kernel name:
-    the mean over ``reps`` calls under ``torch.profiler``.  With ``cold``
+    the mean over ``reps`` calls under ``torch.profiler`` (where it
+    records no device time, the whole call's by CUDA events).  With ``cold``
     the 50 MB L2 cache is flushed before each call (a 256 MiB fill, whose
     own kernel is left out), so the kernel reads device memory as a
     caller that last touched its inputs long ago would."""
@@ -742,7 +761,22 @@ def launch_ms(call, reps: int = 20, cold: bool = False) -> dict:
                and not (cold and "elementwise" in e.key)}
         if got:
             return got
-    raise RuntimeError("torch.profiler recorded no device time in 3 tries")
+    # no device events in 3 sessions: CUDA events around each call instead
+    # (all of the call's launches together, the host gaps between them too)
+    total = 0.0
+    for _ in range(reps):
+        if cold:
+            _FLUSH[0].zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        call()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    print("launch_ms: torch.profiler recorded no device time in 3 tries; "
+          "timed each call with CUDA events", flush=True)
+    return {"whole call (CUDA events)": total / reps}
 
 
 def string_kernel_numbers(call, plain, nbytes: int) -> dict:
@@ -925,10 +959,13 @@ def check_string_rows(rows, names, ref, label: str) -> None:
                                    err_msg=f"{label}: {name}")
 
 
-def run_path(df, query, check, label: str, recorders=()) -> dict:
+def run_path(df, query, check, label: str, recorders=(),
+             on_gpu: bool = True) -> dict:
     """Two collects of one query, launch counts zeroed just before each
     and read just after; rows checked after each.  Each of ``recorders``
-    is emptied before each collect, so it keeps the second one's calls."""
+    is emptied before each collect, so it keeps the second one's calls.
+    With ``on_gpu`` the query must also plan wholly on the GPU in the test
+    mode (:func:`check_on_gpu`)."""
     import torch
     from spark_rapids_tpu_torch.kernels import cuda_tier
     out = {}
@@ -947,7 +984,25 @@ def run_path(df, query, check, label: str, recorders=()) -> dict:
               f"{wall:.4f} s, launches {launches}", flush=True)
         out[f"collect{i + 1}"] = {"rows": len(rows), "wall_s": wall,
                                   "launches": launches}
+    if on_gpu:
+        check_on_gpu(query(df), label)
     return out
+
+
+#: the labels of the paths the test mode has planned
+ON_GPU_CHECKED = []
+
+
+def check_on_gpu(frame, label: str) -> None:
+    """The test mode over one path: its plan at its session's own settings
+    plus ``spark.rapids.sql.test.enabled`` must hold no host exec but a
+    scan, a transition or a collapsed host exchange (the session's check
+    raises naming the first other one)."""
+    from spark_rapids_tpu_torch.plan.overrides import GpuOverrides
+    from spark_rapids_tpu_torch.session import _assert_on_gpu
+    conf = frame.session.conf.copy(**{"spark.rapids.sql.test.enabled": True})
+    _assert_on_gpu(GpuOverrides(conf).apply(frame.plan))
+    ON_GPU_CHECKED.append(label)
 
 
 def _require(path: dict, label: str, names) -> None:
@@ -1724,7 +1779,12 @@ def sql_query(session, name: str):
 
 
 def run_sql(session, name: str, check, label: str) -> dict:
-    """``run_path`` of one TPC-H text with stringHash and joinProbe
+    """``run_path`` of one TPC-H text through :func:`run_checked`."""
+    return run_checked(sql_query(session, name), check, label)
+
+
+def run_checked(query, check, label: str, on_gpu: bool = True) -> dict:
+    """``run_path`` of one query with stringHash, joinProbe and contains
     recorded, then each call of the second collect held equal to its plain
     version on its own inputs: a launch at a shape no earlier path makes
     is checked where it ran (and a fused join that overflows and reruns
@@ -1734,8 +1794,8 @@ def run_sql(session, name: str, check, label: str) -> dict:
     with Recorder("probe_join") as probes, \
             Recorder("string_hash_columns") as hashes, \
             Recorder("rows_with_match") as matches:
-        path = run_path(None, sql_query(session, name), check, label,
-                        (probes, hashes, matches))
+        path = run_path(None, query, check, label, (probes, hashes, matches),
+                        on_gpu=on_gpu)
     launches = path["collect2"]["launches"]
     if len(hashes.calls) < launches["stringHash"] or \
             len(probes.calls) != launches["joinProbe"] or \
@@ -1968,6 +2028,193 @@ def check_cast_edges(device) -> int:
     if rows[str(device)] != rows["cpu"]:
         raise AssertionError("casts differ between the card and the CPU")
     return len(dbl) * 8
+
+
+# ---------------------------------------------------------------------------
+# the fallback phase: operators the planner places on the host
+# ---------------------------------------------------------------------------
+
+#: SETTINGS without variableFloatAgg: Q1's float sums and averages go to
+#: the host, as a user who leaves the confs alone gets them
+FALLBACK_Q1_SETTINGS = {k: v for k, v in SETTINGS.items()
+                        if k != "spark.rapids.sql.variableFloatAgg.enabled"}
+#: per path: its settings over SETTINGS, the logical nodes its explain
+#: must place on the host, and the kernels each collect must launch
+FALLBACK_PATHS = {
+    "a": ("SQL Q1, aggregate on the host", "q1", FALLBACK_Q1_SETTINGS,
+          ("Aggregate",), ("stringHash",)),
+    "b": ("SQL Q10 at the default hasNans", "q10", SETTINGS,
+          ("Aggregate",), ("stringHash",)),
+    "c": ("part query, exec.Aggregate off", None,
+          dict(SETTINGS, **{"spark.rapids.sql.exec.Aggregate": False}),
+          ("Aggregate",), ("strings", "stringHash")),
+    "d": ("SQL Q6, spark.rapids.sql.enabled off", "q6",
+          dict(SQL_SETTINGS, **{"spark.rapids.sql.enabled": False}),
+          ("Filter", "Aggregate", "InMemoryScan"), ()),
+}
+
+
+def placement(session):
+    """(host nodes, GPU nodes) of the last plan's explain: the logical
+    node names of its "!" and "*" lines."""
+    host, gpu = [], []
+    for line in session.last_explain.splitlines():
+        line = line.strip()
+        name = line[1:].split(" ", 1)[0]
+        (host if line.startswith("!") else gpu).append(name)
+    return host, gpu
+
+
+def host_numbers(session) -> dict:
+    """The last query's host side from its per-operator metrics: the host
+    operators' own ms, the transitions' bytes and the copies' ms."""
+    out = {"host_ops_ms": 0.0, "d2h_bytes": 0, "d2h_ms": 0.0,
+           "h2d_bytes": 0, "h2d_stage_ms": 0.0, "host_ops": {}}
+    for op_id, ms in session.last_op_metrics.items():
+        name = op_id.split("@", 1)[0]
+        if "hostTime" in ms:
+            out["host_ops_ms"] += ms["hostTime"] * 1e3
+            out["host_ops"][name] = out["host_ops"].get(name, 0.0) + \
+                ms["hostTime"] * 1e3
+        out["d2h_bytes"] += int(ms.get("d2hBytes", 0))
+        out["d2h_ms"] += ms.get("d2hTime", 0.0) * 1e3
+        out["h2d_bytes"] += int(ms.get("h2dBytes", 0))
+        out["h2d_stage_ms"] += ms.get("stageTime", 0.0) * 1e3
+    return out
+
+
+def run_fallback(key, session, query, check) -> dict:
+    """One path of the fallback phase through :func:`run_checked` (not
+    held to the test mode): its kernels' calls held to their plain
+    versions on the columns the host operators built and the transitions
+    staged, its placement held to :data:`FALLBACK_PATHS`, its explain
+    lines, collect ms, host numbers and launches printed."""
+    label, _, _, host_nodes, need = FALLBACK_PATHS[key]
+    label = f"fallback ({key}) {label}"
+    checked = run_checked(query, check, label, on_gpu=False)
+    path = checked["path"]
+    host, gpu = placement(session)
+    print(f"{label}: explain\n{session.last_explain}", flush=True)
+    missing = [n for n in host_nodes if n not in host]
+    if missing:
+        raise AssertionError(f"{label}: {missing} not placed on the host "
+                             f"(host {host}, GPU {gpu})")
+    nums = host_numbers(session)
+    for i in (1, 2):
+        launches = path[f"collect{i}"]["launches"]
+        for name in need:
+            if launches[name] == 0:
+                raise AssertionError(f"{label} collect {i} never launched "
+                                     f"{name}")
+    c2 = path["collect2"]
+    print(f"{label}: {c2['rows']} rows, collect {c2['wall_s'] * 1e3:.1f} "
+          f"ms, host operators {nums['host_ops_ms']:.1f} ms "
+          f"{ {k: round(v, 2) for k, v in nums['host_ops'].items()} }, "
+          f"DeviceToHost {nums['d2h_bytes']} bytes in {nums['d2h_ms']:.1f} "
+          f"ms, HostToDevice {nums['h2d_bytes']} bytes "
+          f"({nums['h2d_stage_ms']:.1f} ms staging), launches "
+          f"{c2['launches']}\nplan\n"
+          f"{session.last_physical_plan.tree_string()}", flush=True)
+    return {"path": path, "host": host, "gpu": gpu, "numbers": nums,
+            "checked_calls": {"stringHash": len(checked["hashes"]),
+                              "contains": len(checked["matches"]),
+                              "joinProbe": len(checked["probes"])}}
+
+
+def fallback_phase(sql_data, sql_refs, q1_names, q1_ref, part_df,
+                   part_names, part_ref, batch_rows) -> dict:
+    """The fallback phase's four paths over the tables the earlier phases
+    made: (a) SQL Q1 with its aggregate on the host and its sort on the
+    device, (b) SQL Q10 with its aggregate keyed on the DOUBLE c_acctbal
+    on the host between device joins and a device sort and limit, (c) the
+    part query with its string-keyed aggregate switched off the device
+    and the contains filter on it, (d) SQL Q6 wholly on the host, no
+    launch and no device allocation; then the test mode over (a), which
+    must raise naming the aggregate."""
+    import torch
+    from spark_rapids_tpu_torch.config import RapidsConf
+    from spark_rapids_tpu_torch.dataframe import DataFrame
+    from spark_rapids_tpu_torch.kernels import cuda_tier
+    from spark_rapids_tpu_torch.session import GpuSparkSession
+    out = {}
+
+    def session_of(key, tables):
+        sess = GpuSparkSession(RapidsConf(dict(FALLBACK_PATHS[key][2])))
+        sql_tables(sess, {t: sql_data[t] for t in tables}, batch_rows)
+        return sess
+
+    sess = session_of("a", ["lineitem"])
+    out["a"] = run_fallback("a", sess, sql_query(sess, "q1"),
+                            lambda rows: check_string_rows(
+                                rows, q1_names, q1_ref, "fallback (a)"))
+    tree = sess.last_physical_plan.tree_string()
+    for exe in ("CpuAggregate", "GpuSort", "GpuFilter", "DeviceToHost",
+                "HostToDevice"):
+        if exe not in tree:
+            raise AssertionError(f"fallback (a): no {exe} in the plan")
+    if "variableFloatAgg" not in sess.last_explain:
+        raise AssertionError("fallback (a): the explain names no reason")
+    try:
+        check_on_gpu(sess.sql(q1_text()), "fallback (a)")
+    except AssertionError as e:
+        if "CpuAggregate" not in str(e):
+            raise
+        print(f"fallback (a): the test mode raises: {e}", flush=True)
+    else:
+        raise AssertionError("fallback (a): the test mode did not raise")
+    del sess
+    torch.cuda.empty_cache()
+
+    sess = session_of("b", ["customer", "orders", "lineitem", "nation"])
+    out["b"] = run_fallback("b", sess, sql_query(sess, "q10"),
+                            lambda rows: check_sql_rows(
+                                rows, sql_refs["q10"], "fallback (b)"))
+    tree = sess.last_physical_plan.tree_string()
+    for exe in ("CpuAggregate", "HashJoin", "GpuSort", "GpuLocalLimit"):
+        if exe not in tree:
+            raise AssertionError(f"fallback (b): no {exe} in the plan")
+    if "CpuHashJoin" in tree or "hasNans" not in sess.last_explain:
+        raise AssertionError("fallback (b): joins on the host or no reason")
+    del sess
+    torch.cuda.empty_cache()
+
+    sess = GpuSparkSession(RapidsConf(dict(FALLBACK_PATHS["c"][2])))
+    df = DataFrame(part_df.plan, sess)
+    out["c"] = run_fallback("c", sess, lambda _: part_query(df),
+                            lambda rows: check_string_rows(
+                                rows, part_names, part_ref, "fallback (c)"))
+    tree = sess.last_physical_plan.tree_string()
+    if "CpuAggregate" not in tree or "GpuFilter" not in tree:
+        raise AssertionError("fallback (c): the aggregate is not on the "
+                             "host or the filter not on the device")
+    del sess, df
+
+    sess = session_of("d", ["lineitem"])
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+
+    def check_d(rows):
+        check_sql_rows(rows, sql_refs["q6"], "fallback (d)")
+        now = torch.cuda.memory_allocated()
+        if now != before:
+            raise AssertionError(f"fallback (d): device memory {before} -> "
+                                 f"{now} bytes across the collect")
+
+    out["d"] = run_fallback("d", sess, sql_query(sess, "q6"), check_d)
+    tree = sess.last_physical_plan.tree_string()
+    if "Gpu" in tree or "HostToDevice" in tree:
+        raise AssertionError(f"fallback (d): a device exec\n{tree}")
+    for i in (1, 2):
+        launches = out["d"]["path"][f"collect{i}"]["launches"]
+        if any(launches[n] for n in cuda_tier.SOURCES):
+            raise AssertionError(f"fallback (d) launched {launches}")
+    del sess
+    return out
+
+
+def q1_text() -> str:
+    from spark_rapids_tpu_torch.benchmarks.tpch_like import QUERIES
+    return QUERIES["q1"]
 
 
 def main() -> int:
@@ -2338,6 +2585,13 @@ def main() -> int:
           f"in {', '.join(q.upper() for q in SQL_NESTED_LOOP)}", flush=True)
     del sql_session
     torch.cuda.empty_cache()
+    # the fallback phase: operators on the host by the planner's tags
+    t0 = time.monotonic()
+    fallback = fallback_phase(sql_data, sql_refs, q1_names, q1_ref, p_df,
+                              part_names, part_ref, batch_rows)
+    print(f"fallback phase: {len(fallback)} paths in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
     del q3_data, sql_data
     small = {"customer": datagen.gen_customer(Q5_FUSED_SF),
              "orders": datagen.gen_orders(Q5_FUSED_SF),
@@ -2516,6 +2770,10 @@ def main() -> int:
                   for label, p in sql_paths.items()})
     paths.update({label: p["collect2"]["launches"]
                   for label, p in scan_paths.items()})
+    paths.update({f"fallback ({k})": f["path"]["collect2"]["launches"]
+                  for k, f in fallback.items()})
+    print(f"test mode: {len(ON_GPU_CHECKED)} earlier paths plan wholly on "
+          f"the GPU with spark.rapids.sql.test.enabled", flush=True)
 
     def by_path(name):
         return {p: launches[name] for p, launches in paths.items()}
@@ -2550,7 +2808,9 @@ def main() -> int:
     summary = {"main_path": {"multi_batch": multi, "one_batch": single,
                              "q1": q1, "part": part_path, "q3": q3_paths,
                              "q3_broadcast_mesh_fused": bc_path,
-                             "sql": sql_paths, "scan": scan_paths},
+                             "sql": sql_paths, "scan": scan_paths,
+                             "fallback": fallback},
+               "test_mode_paths": ON_GPU_CHECKED,
                "q3_overflow_reruns": q3_fallbacks,
                "sql_metrics": sql_metrics, "card": card}
     print(f"summary: {json.dumps(summary)}", flush=True)

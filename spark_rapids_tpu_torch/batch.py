@@ -117,6 +117,22 @@ class HostColumn:
         return HostColumn(self.dtype, self.values[offs[0]:offs[-1]],
                           validity, offs - offs[0])
 
+    def take(self, index: np.ndarray) -> "HostColumn":
+        """Rows ``index`` in that order; a bytes-and-offsets column keeps
+        its form (one gather of the bytes)."""
+        index = np.asarray(index, dtype=np.int64)
+        validity = self.validity[index]
+        if self.offsets is None:
+            return HostColumn(self.dtype, self.values[index], validity)
+        starts = self.offsets[:-1].astype(np.int64)[index]
+        lengths = self.offsets[1:].astype(np.int64)[index] - starts
+        offsets = np.zeros(len(index) + 1, dtype=np.int32)
+        np.cumsum(lengths, out=offsets[1:])
+        shift = np.repeat(starts - offsets[:-1], lengths)
+        data = self.values[np.arange(int(offsets[-1]), dtype=np.int64) +
+                           shift]
+        return HostColumn(self.dtype, data, validity, offsets)
+
     def to_list(self) -> List[Any]:
         out: List[Any] = []
         values = self.string_values() if self.dtype.is_string else \
@@ -184,6 +200,9 @@ class HostBatch:
             fields.append(T.Field(name, dtype))
             cols.append(HostColumn.from_list(dtype, items))
         return HostBatch(T.Schema(fields), cols)
+
+    def column(self, name: str) -> HostColumn:
+        return self.columns[self.schema.index_of(name)]
 
     def to_pydict(self) -> Dict[str, List[Any]]:
         return {f.name: c.to_list()
@@ -445,9 +464,12 @@ def _start_to_host(t: torch.Tensor) -> torch.Tensor:
     return t.clone()
 
 
-def device_to_host_many(batches: Sequence[ColumnBatch]) -> List[HostBatch]:
+def device_to_host_many(batches: Sequence[ColumnBatch],
+                        keep_offsets: bool = False) -> List[HostBatch]:
     """Bring batches back to numpy: one sizes sync, then every live buffer
-    copy enqueued before ONE synchronize."""
+    copy enqueued before ONE synchronize.  A string column comes back one
+    ``str`` a row, or, with ``keep_offsets``, as its bytes and offsets
+    (no Python step a row)."""
     sizes = host_sizes(batches)
     pending = []
     for b, (n, totals) in zip(batches, sizes):
@@ -470,7 +492,10 @@ def device_to_host_many(batches: Sequence[ColumnBatch]) -> List[HostBatch]:
         cols = []
         for f, cb in zip(b.schema.fields, bufs):
             validity = cb[1].numpy()
-            if f.dtype.is_string:
+            if f.dtype.is_string and keep_offsets:
+                cols.append(HostColumn(f.dtype, cb[0].numpy(), validity,
+                                       cb[2].numpy().copy()))
+            elif f.dtype.is_string:
                 raw = cb[0].numpy().tobytes()
                 offsets = cb[2].numpy()
                 values = np.empty(len(validity), dtype=object)

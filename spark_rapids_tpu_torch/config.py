@@ -55,6 +55,10 @@ def conf_float(key: str, default: float, doc: str) -> ConfEntry:
     return _register(ConfEntry(key, default, doc, float))
 
 
+def conf_str(key: str, default: str, doc: str) -> ConfEntry:
+    return _register(ConfEntry(key, default, doc, str))
+
+
 def conf_bytes(key: str, default: int, doc: str) -> ConfEntry:
     """A byte size: an int, or a string with a k/m/g/t suffix (``64m``,
     ``1gb``)."""
@@ -118,6 +122,23 @@ class RapidsConf:
         return env_key in os.environ
 
 
+SQL_ENABLED = conf_bool(
+    "spark.rapids.sql.enabled", True,
+    "Enable (true) or disable (false) GPU acceleration of SQL operators; "
+    "disabled, every operator runs on the host.")
+EXPLAIN = conf_str(
+    "spark.rapids.sql.explain", "NONE",
+    "Explain why parts of a query were or were not placed on the GPU. "
+    "Options: NONE, ALL, NOT_ON_GPU.")
+TEST_ENABLED = conf_bool(
+    "spark.rapids.sql.test.enabled", False,
+    "Testing only: fail a query if any operator other than a scan, a "
+    "host<->device transition or a collapsed host exchange would run on "
+    "the host.")
+STRING_HASH_JOIN = conf_bool(
+    "spark.rapids.sql.stringHashGroupJoin.enabled", True,
+    "Group by / join on string keys via row hashes computed on the "
+    "device; off, such an operator runs on the host's exact path.")
 READER_BATCH_SIZE_ROWS = conf_int(
     "spark.rapids.sql.reader.batchSizeRows", 1 << 20,
     "Soft cap on the number of rows the file readers put in one batch.")

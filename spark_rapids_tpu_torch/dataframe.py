@@ -1,9 +1,9 @@
 """Lazy DataFrame frontend over the logical plan (port of the part of
 ``spark_rapids_tpu/dataframe.py`` the port runs): select, filter,
-with_column, join and cross_join, group_by().agg() and agg() without keys
-(count(DISTINCT) through the two-level rewrite), distinct, order_by, limit,
-cache, collect, temp views for the SQL front end, and the Column operators
-of the ported expressions."""
+with_column, join and cross_join, union, group_by().agg() and agg() without
+keys (count(DISTINCT) through the two-level rewrite), distinct, order_by,
+limit, cache, collect, explain, temp views for the SQL front end, and the
+Column operators of the ported expressions."""
 
 from __future__ import annotations
 
@@ -303,6 +303,36 @@ class DataFrame:
 
     crossJoin = cross_join
 
+    def union(self, other: "DataFrame") -> "DataFrame":
+        """UNION ALL by position; names from this side, numeric columns
+        widened to their common type first (Spark's
+        WidenSetOperationTypes)."""
+        left, right = self._union_coerce(other)
+        return DataFrame(L.Union([left, right]), self.session)
+
+    unionAll = union
+
+    def _union_coerce(self, other: "DataFrame"):
+        lf = list(self.plan.schema.fields)
+        rf = list(other.plan.schema.fields)
+        if len(lf) != len(rf) or \
+                all(a.dtype == b.dtype for a, b in zip(lf, rf)):
+            return self.plan, other.plan
+        try:
+            common = [T.promote(a.dtype, b.dtype) for a, b in zip(lf, rf)]
+        except TypeError:
+            return self.plan, other.plan  # L.Union raises its check
+
+        def recast(plan, fields):
+            from spark_rapids_tpu_torch.exprs.cast import Cast
+            exprs = []
+            for f, dt in zip(fields, common):
+                ref = ColumnRef(f.name, f.dtype, f.nullable)
+                exprs.append(ref if f.dtype == dt else Cast(ref, dt))
+            return L.Project(exprs, [f.name for f in lf], plan)
+
+        return recast(self.plan, lf), recast(other.plan, rf)
+
     def _join_using(self, other: "DataFrame", names: List[str], how: str
                     ) -> "DataFrame":
         """USING-join semantics: one output column per key name (the left
@@ -389,6 +419,13 @@ class DataFrame:
         hb = self.session.execute(self.plan)
         cols = [c.to_list() for c in hb.columns]
         return [tuple(c[i] for c in cols) for i in range(hb.num_rows)]
+
+    def explain(self) -> str:
+        """Print and return the placement of every operator (``*`` on the
+        GPU, ``!`` on the host and why) and the physical plan."""
+        text = self.session.explain_plan(self.plan)
+        print(text)
+        return text
 
     def create_or_replace_temp_view(self, name: str) -> None:
         self.session.register_view(name, self)

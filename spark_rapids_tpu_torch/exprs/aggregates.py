@@ -10,13 +10,24 @@ an output that starts at the reduction's identity, so empty segments hold
 exactly what the JAX package's segment ops give them.  Torch's scatters take
 indices in any order, so the JAX package's ``unsorted_segment_ids`` switch
 (a lowering contract of TPU scatters) has no counterpart here.
+
+The host twin is ``cpu_reduce_groups``: it reduces every group of a host
+aggregate at once, each group's rows contiguous and in row order, and
+gives for every group what the JAX package's ``cpu_reduce`` gives for the
+group alone: integer sums and counts by one ``reduceat``, float sums and
+averages by one ``np.sum`` a group (numpy's pairwise order, so the bits
+are the JAX twin's), min and max by ``reduceat`` except where a float
+group holds a NaN or a zero, where Python's ``min``/``max`` order decides
+as in the JAX twin, and string min and max by Python's.  ``cpu_reduce`` is
+its one-group case.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Tuple
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
@@ -40,6 +51,21 @@ def _ones(num_segments: int, device) -> torch.Tensor:
 
 def _sum_result_type(dt: T.DataType) -> T.DataType:
     return T.LONG if dt.is_integral else T.DOUBLE
+
+
+def _group_sums(x: np.ndarray, starts: np.ndarray) -> np.ndarray:
+    if not len(x):  # no rows: every group empty
+        return np.zeros(len(starts), dtype=x.dtype)
+    return np.add.reduceat(x, starts) if len(starts) else x[:0]
+
+
+def _valid_runs(validity: np.ndarray, starts: np.ndarray):
+    """Each group's valid rows: (indices of the valid rows, the groups'
+    starts among them, each group's valid count)."""
+    counts = _group_sums(validity.astype(np.int64), starts)
+    keep = np.flatnonzero(validity)
+    vstarts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64)
+    return keep, vstarts, counts
 
 
 @dataclasses.dataclass
@@ -74,6 +100,20 @@ class AggregateFunction(Expression):
 
     def finalize(self, buffers: List[DevVal]) -> DevVal:
         raise NotImplementedError
+
+    def cpu_reduce_groups(self, values: np.ndarray, validity: np.ndarray,
+                          starts: np.ndarray
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+        """(values, validity) of every group: ``values``/``validity`` hold
+        the groups' rows back to back, group g from ``starts[g]``."""
+        raise NotImplementedError
+
+    def cpu_reduce(self, values: np.ndarray, validity: np.ndarray):
+        """The value of one group of rows, None for NULL: the one-group
+        case of :meth:`cpu_reduce_groups` (the JAX twin's interface)."""
+        out, ok = self.cpu_reduce_groups(values, validity,
+                                         np.zeros(1, dtype=np.int64))
+        return out[0] if ok[0] else None
 
     def gpu_supported(self, conf):
         from spark_rapids_tpu_torch.config import VARIABLE_FLOAT_AGG
@@ -117,6 +157,20 @@ class Sum(AggregateFunction):
         s, has = buffers
         return DevVal(self.dtype, s.data, has.data.to(torch.bool))
 
+    def cpu_reduce_groups(self, values, validity, starts):
+        has = _group_sums(validity.astype(np.int64), starts) > 0
+        if self.dtype == T.LONG:
+            x = np.where(validity, values, 0).astype(np.int64)
+            with np.errstate(over="ignore"):
+                out = _group_sums(x, starts)
+            return np.where(has, out, 0), has
+        keep, vstarts, counts = _valid_runs(validity, starts)
+        vals = values[keep].astype(np.float64)
+        out = np.zeros(len(starts), dtype=np.float64)
+        for g in np.flatnonzero(has):
+            out[g] = np.sum(vals[vstarts[g]:vstarts[g] + counts[g]])
+        return out, has
+
 
 class Count(AggregateFunction):
     def _resolve_type(self):
@@ -142,6 +196,10 @@ class Count(AggregateFunction):
     def finalize(self, buffers):
         d = buffers[0].data
         return DevVal(T.LONG, d, torch.ones_like(d, dtype=torch.bool))
+
+    def cpu_reduce_groups(self, values, validity, starts):
+        out = _group_sums(validity.astype(np.int64), starts)
+        return out, np.ones(len(out), dtype=np.bool_)
 
 
 class _MinMax(AggregateFunction):
@@ -200,6 +258,31 @@ class _MinMax(AggregateFunction):
         m, has = buffers
         return DevVal(self.dtype, m.data, has.data.to(torch.bool))
 
+    def cpu_reduce_groups(self, values, validity, starts):
+        keep, vstarts, counts = _valid_runs(validity, starts)
+        has = counts > 0
+        if self.dtype.is_string:
+            pick = min if self._is_min else max
+            vals = values[keep]
+            return np.array([pick(str(v) for v in vals[a:a + c]) if c
+                             else "" for a, c in zip(vstarts, counts)],
+                            dtype=object), has
+        vals = values[keep].astype(self.dtype.np_dtype)
+        ufunc = np.minimum if self._is_min else np.maximum
+        out = np.zeros(len(starts), dtype=self.dtype.np_dtype)
+        if has.any():
+            out[has] = ufunc.reduceat(vals, vstarts[has])
+        if self.dtype.is_fractional and len(vals):
+            # NaN and signed zeros: Python's comparison order decides
+            tricky = np.isnan(vals) | (vals == 0)
+            hit = _group_sums(np.concatenate([tricky.astype(np.int64),
+                                              [0]]), vstarts)[:len(starts)]
+            pick = min if self._is_min else max
+            for g in np.flatnonzero(has & (hit > 0)):
+                run = vals[vstarts[g]:vstarts[g] + counts[g]]
+                out[g] = pick(run)
+        return out, has
+
 
 class Min(_MinMax):
     _is_min = True
@@ -239,6 +322,16 @@ class Average(AggregateFunction):
         nonzero = c.data > 0
         data = s.data / c.data.masked_fill(~nonzero, 1).to(torch.float64)
         return DevVal(T.DOUBLE, data, nonzero)
+
+    def cpu_reduce_groups(self, values, validity, starts):
+        keep, vstarts, counts = _valid_runs(validity, starts)
+        vals = values[keep].astype(np.float64)
+        has = counts > 0
+        out = np.zeros(len(starts), dtype=np.float64)
+        for g in np.flatnonzero(has):
+            out[g] = np.sum(vals[vstarts[g]:vstarts[g] + counts[g]]) / \
+                counts[g]
+        return out, has
 
 
 class CountDistinct(AggregateFunction):

@@ -5,16 +5,19 @@ matches torch's fixed-width integer arithmetic; a NULL operand gives NULL;
 division and remainder by zero give NULL.  Java's integer division
 truncates toward zero where torch's floor division floors, so ``div`` and
 ``%`` take the JAX package's formula ``sign(a) * sign(b) * (|a| // |b|)``
-(with ``|Long.MIN_VALUE|`` wrapping as it does there).
+(with ``|Long.MIN_VALUE|`` wrapping as it does there).  Each class's
+``cpu_eval`` is the JAX package's host twin in numpy, step for step.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exprs.base import (
-    BinaryExpression, DevVal, UnaryExpression, cast_dev, promote_dev,
+    BinaryExpression, CpuVal, DevVal, UnaryExpression, cast_cpu, cast_dev,
+    promote_cpu, promote_dev,
 )
 
 
@@ -27,6 +30,13 @@ class _BinaryArithmetic(BinaryExpression):
                                 self.right.gpu_eval(ctx))
         data = self._compute(a.data, b.data)
         return DevVal(out, data.to(out.torch_dtype), a.validity & b.validity)
+
+    def cpu_eval(self, ctx) -> CpuVal:
+        a, b, out = promote_cpu(self.left.cpu_eval(ctx),
+                                self.right.cpu_eval(ctx))
+        with np.errstate(all="ignore"):
+            data = self._compute(a.values, b.values)
+        return CpuVal(out, data.astype(out.np_dtype), a.validity & b.validity)
 
 
 class Add(_BinaryArithmetic):
@@ -54,6 +64,11 @@ def _java_rem(a: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
     return a - _trunc_div(a, den) * den
 
 
+def _java_rem_np(a: np.ndarray, den: np.ndarray) -> np.ndarray:
+    q = np.sign(a) * np.sign(den) * (np.abs(a) // np.abs(den))
+    return a - q * den
+
+
 class Divide(BinaryExpression):
     """Spark '/': always DOUBLE; x / 0 is NULL, not inf."""
 
@@ -67,6 +82,14 @@ class Divide(BinaryExpression):
         zero = b.data == 0.0
         data = a.data / b.data.masked_fill(zero, 1.0)
         return DevVal(T.DOUBLE, data, a.validity & b.validity & ~zero)
+
+    def cpu_eval(self, ctx) -> CpuVal:
+        a = cast_cpu(self.left.cpu_eval(ctx), T.DOUBLE)
+        b = cast_cpu(self.right.cpu_eval(ctx), T.DOUBLE)
+        zero = b.values == 0.0
+        with np.errstate(all="ignore"):
+            data = a.values / np.where(zero, 1.0, b.values)
+        return CpuVal(T.DOUBLE, data, a.validity & b.validity & ~zero)
 
 
 class IntegralDivide(BinaryExpression):
@@ -83,6 +106,17 @@ class IntegralDivide(BinaryExpression):
         q = _trunc_div(a.data, b.data.masked_fill(zero, 1))
         return DevVal(T.LONG, q, a.validity & b.validity & ~zero)
 
+    def cpu_eval(self, ctx) -> CpuVal:
+        a = cast_cpu(self.left.cpu_eval(ctx), T.LONG)
+        b = cast_cpu(self.right.cpu_eval(ctx), T.LONG)
+        zero = b.values == 0
+        den = np.where(zero, 1, b.values)
+        with np.errstate(all="ignore"):
+            q = (np.sign(a.values) * np.sign(den)
+                 * (np.abs(a.values) // np.abs(den)))
+        return CpuVal(T.LONG, q.astype(np.int64),
+                      a.validity & b.validity & ~zero)
+
 
 class Remainder(BinaryExpression):
     """Spark '%': Java semantics, the dividend's sign (``fmod`` for
@@ -96,6 +130,17 @@ class Remainder(BinaryExpression):
         r = torch.fmod(a.data, den) if out.is_fractional \
             else _java_rem(a.data, den)
         return DevVal(out, r.to(out.torch_dtype),
+                      a.validity & b.validity & ~zero)
+
+    def cpu_eval(self, ctx) -> CpuVal:
+        a, b, out = promote_cpu(self.left.cpu_eval(ctx),
+                                self.right.cpu_eval(ctx))
+        zero = b.values == 0
+        den = np.where(zero, 1, b.values)
+        with np.errstate(all="ignore"):
+            r = np.fmod(a.values, den) if out.is_fractional \
+                else _java_rem_np(a.values, den)
+        return CpuVal(out, r.astype(out.np_dtype),
                       a.validity & b.validity & ~zero)
 
 
@@ -116,11 +161,28 @@ class Pmod(BinaryExpression):
         return DevVal(out, r.to(out.torch_dtype),
                       a.validity & b.validity & ~zero)
 
+    def cpu_eval(self, ctx) -> CpuVal:
+        a, b, out = promote_cpu(self.left.cpu_eval(ctx),
+                                self.right.cpu_eval(ctx))
+        zero = b.values == 0
+        den = np.where(zero, 1, b.values)
+        with np.errstate(all="ignore"):
+            r = np.fmod(a.values, den) if out.is_fractional \
+                else _java_rem_np(a.values, den)
+            r = np.where(r < 0, _java_rem_np(r + den, den), r)
+        return CpuVal(out, r.astype(out.np_dtype),
+                      a.validity & b.validity & ~zero)
+
 
 class UnaryMinus(UnaryExpression):
     def gpu_eval(self, ctx) -> DevVal:
         v = self.child.gpu_eval(ctx)
         return DevVal(v.dtype, -v.data, v.validity)
+
+    def cpu_eval(self, ctx) -> CpuVal:
+        v = self.child.cpu_eval(ctx)
+        return CpuVal(v.dtype, (-v.values).astype(v.dtype.np_dtype),
+                      v.validity)
 
 
 class Abs(UnaryExpression):
@@ -128,9 +190,16 @@ class Abs(UnaryExpression):
         v = self.child.gpu_eval(ctx)
         return DevVal(v.dtype, torch.abs(v.data), v.validity)
 
+    def cpu_eval(self, ctx) -> CpuVal:
+        v = self.child.cpu_eval(ctx)
+        return CpuVal(v.dtype, np.abs(v.values), v.validity)
+
 
 class UnaryPositive(UnaryExpression):
     """+x: the value unchanged, kept as a node for plan parity."""
 
     def gpu_eval(self, ctx) -> DevVal:
         return self.child.gpu_eval(ctx)
+
+    def cpu_eval(self, ctx) -> CpuVal:
+        return self.child.cpu_eval(ctx)

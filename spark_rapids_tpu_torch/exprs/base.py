@@ -1,8 +1,11 @@
-"""Expression base classes and the device evaluation context.
+"""Expression base classes and the evaluation contexts.
 
-Port of the device side of ``spark_rapids_tpu/exprs/base.py``: ``gpu_eval``
-evaluates an expression over a :class:`ColumnBatch` into a :class:`DevVal`
-of dense tensors.  There is no host (numpy) evaluation path in the port.
+Port of ``spark_rapids_tpu/exprs/base.py``: ``gpu_eval`` evaluates an
+expression over a :class:`ColumnBatch` into a :class:`DevVal` of dense
+tensors; ``cpu_eval``, the host twin the planner falls back to, evaluates it
+over a :class:`HostBatch` into a :class:`CpuVal` of numpy arrays, strings
+one Python value a row (a string column held as bytes and offsets is
+decoded when an expression reads it).
 """
 
 from __future__ import annotations
@@ -10,10 +13,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.batch import ColumnBatch, DeviceColumn
+from spark_rapids_tpu_torch.batch import (
+    ColumnBatch, DeviceColumn, HostBatch, HostColumn,
+)
 
 
 @dataclasses.dataclass
@@ -35,6 +41,32 @@ class DevVal:
     @staticmethod
     def from_column(col: DeviceColumn) -> "DevVal":
         return DevVal(col.dtype, col.data, col.validity, col.offsets)
+
+
+@dataclasses.dataclass
+class CpuVal:
+    """An evaluated expression on the host: numpy values + validity
+    (strings: an object array of ``str``)."""
+
+    dtype: T.DataType
+    values: np.ndarray
+    validity: np.ndarray
+
+    def to_column(self) -> HostColumn:
+        return HostColumn(self.dtype, self.values, self.validity)
+
+    @staticmethod
+    def from_column(col: HostColumn) -> "CpuVal":
+        values = col.string_values() if col.dtype.is_string else col.values
+        return CpuVal(col.dtype, values, col.validity)
+
+
+class CpuEvalCtx:
+    """Evaluation context for one host batch."""
+
+    def __init__(self, batch: HostBatch):
+        self.batch = batch
+        self.num_rows = batch.num_rows
 
 
 class GpuEvalCtx:
@@ -115,6 +147,9 @@ class Expression:
     def gpu_eval(self, ctx: GpuEvalCtx) -> DevVal:
         raise NotImplementedError(f"{self.name}.gpu_eval")
 
+    def cpu_eval(self, ctx: CpuEvalCtx) -> CpuVal:
+        raise NotImplementedError(f"{self.name}.cpu_eval")
+
     def gpu_supported(self, conf) -> Optional[str]:
         """None if the port can evaluate this node, else the reason.  A
         string result is refused unless the node says otherwise: column
@@ -150,6 +185,10 @@ class ColumnRef(Expression):
     def gpu_eval(self, ctx: GpuEvalCtx) -> DevVal:
         return DevVal.from_column(ctx.batch.column(self.column))
 
+    def cpu_eval(self, ctx: CpuEvalCtx) -> CpuVal:
+        return CpuVal.from_column(
+            ctx.batch.columns[ctx.batch.schema.index_of(self.column)])
+
 
 class BoundRef(Expression):
     """Reference bound to an input ordinal."""
@@ -172,6 +211,9 @@ class BoundRef(Expression):
 
     def gpu_eval(self, ctx: GpuEvalCtx) -> DevVal:
         return DevVal.from_column(ctx.batch.columns[self.ordinal])
+
+    def cpu_eval(self, ctx: CpuEvalCtx) -> CpuVal:
+        return CpuVal.from_column(ctx.batch.columns[self.ordinal])
 
 
 def infer_literal_type(value: Any) -> T.DataType:
@@ -216,6 +258,24 @@ class Literal(Expression):
                       torch.full((cap,), self.value, dtype=tdt, device=dev),
                       torch.ones(cap, dtype=torch.bool, device=dev))
 
+    def cpu_eval(self, ctx: CpuEvalCtx) -> CpuVal:
+        n = ctx.num_rows
+        if self.value is None:
+            validity = np.zeros(n, dtype=np.bool_)
+            if self.dtype.is_string:
+                return CpuVal(self.dtype, np.array([""] * n, dtype=object),
+                              validity)
+            return CpuVal(self.dtype, np.zeros(n, dtype=self.dtype.np_dtype),
+                          validity)
+        validity = np.ones(n, dtype=np.bool_)
+        if self.dtype.is_string:
+            return CpuVal(self.dtype,
+                          np.array([str(self.value)] * n, dtype=object),
+                          validity)
+        return CpuVal(self.dtype,
+                      np.full(n, self.value, dtype=self.dtype.np_dtype),
+                      validity)
+
     def _string_eval(self, cap: int, dev) -> DevVal:
         """Every row holds the literal: its bytes tiled ``cap`` times
         into a ``cap * len`` byte buffer (16 bytes for NULL)."""
@@ -254,6 +314,9 @@ class Alias(Expression):
 
     def gpu_eval(self, ctx):
         return self.children[0].gpu_eval(ctx)
+
+    def cpu_eval(self, ctx):
+        return self.children[0].cpu_eval(ctx)
 
 
 @dataclasses.dataclass
@@ -317,6 +380,17 @@ def cast_dev(v: DevVal, to: T.DataType) -> DevVal:
     if v.dtype.is_string or to.is_string:
         raise TypeError(f"cannot cast {v.dtype} to {to} on the device")
     return DevVal(to, v.data.to(to.torch_dtype), v.validity)
+
+
+def promote_cpu(a: CpuVal, b: CpuVal) -> Tuple[CpuVal, CpuVal, T.DataType]:
+    out = T.promote(a.dtype, b.dtype)
+    return cast_cpu(a, out), cast_cpu(b, out), out
+
+
+def cast_cpu(v: CpuVal, to: T.DataType) -> CpuVal:
+    if v.dtype == to:
+        return v
+    return CpuVal(to, v.values.astype(to.np_dtype), v.validity)
 
 
 class UnaryExpression(Expression):

@@ -1,16 +1,19 @@
 """Conditional expressions: IF and CASE WHEN (port of
 ``spark_rapids_tpu/exprs/conditional.py``).  A NULL predicate selects the
-next branch (Spark semantics).  String branches are refused, as in the JAX
-package's device path."""
+next branch (Spark semantics).  String branches run on the host twin
+``cpu_eval`` only, as in the JAX package."""
 
 from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.exprs.base import DevVal, Expression, cast_dev
+from spark_rapids_tpu_torch.exprs.base import (
+    CpuVal, DevVal, Expression, cast_cpu, cast_dev,
+)
 
 
 def _common_type(exprs: Sequence[Expression]) -> T.DataType:
@@ -41,6 +44,22 @@ class If(Expression):
         b = cast_dev(self.children[2].gpu_eval(ctx), self.dtype)
         return DevVal(self.dtype, torch.where(cond, a.data, b.data),
                       torch.where(cond, a.validity, b.validity))
+
+    def cpu_eval(self, ctx) -> CpuVal:
+        p = self.children[0].cpu_eval(ctx)
+        av = self.children[1].cpu_eval(ctx)
+        bv = self.children[2].cpu_eval(ctx)
+        cond = p.values.astype(np.bool_) & p.validity
+        if self.dtype.is_string:
+            values = np.where(cond, av.values, bv.values)
+            validity = np.where(cond, av.validity, bv.validity)
+            return CpuVal(self.dtype, values.astype(object),
+                          validity.astype(np.bool_))
+        a, b = cast_cpu(av, self.dtype), cast_cpu(bv, self.dtype)
+        data = np.where(cond, a.values, b.values)
+        validity = np.where(cond, a.validity, b.validity)
+        return CpuVal(self.dtype, data.astype(self.dtype.np_dtype),
+                      validity.astype(np.bool_))
 
 
 class CaseWhen(Expression):
@@ -83,3 +102,29 @@ class CaseWhen(Expression):
             data = torch.where(cond, v.data, data)
             validity = torch.where(cond, v.validity, validity)
         return DevVal(self.dtype, data, validity)
+
+    def cpu_eval(self, ctx) -> CpuVal:
+        n = ctx.num_rows
+        if self.dtype.is_string:
+            values = np.array([""] * n, dtype=object)
+        else:
+            values = np.zeros(n, dtype=self.dtype.np_dtype)
+        validity = np.zeros(n, dtype=np.bool_)
+        if self.else_value is not None:
+            ev = self.else_value.cpu_eval(ctx)
+            if not self.dtype.is_string:
+                ev = cast_cpu(ev, self.dtype)
+            values, validity = ev.values.copy(), ev.validity.copy()
+        decided = np.zeros(n, dtype=np.bool_)
+        for pred, value in self.branches:
+            p = pred.cpu_eval(ctx)
+            v = value.cpu_eval(ctx)
+            if not self.dtype.is_string:
+                v = cast_cpu(v, self.dtype)
+            cond = p.values.astype(np.bool_) & p.validity & ~decided
+            values = np.where(cond, v.values, values)
+            validity = np.where(cond, v.validity, validity)
+            decided |= cond
+        values = values.astype(object) if self.dtype.is_string else \
+            values.astype(self.dtype.np_dtype)
+        return CpuVal(self.dtype, values, validity.astype(np.bool_))

@@ -10,17 +10,22 @@ only.  Every division floors (``torch.div(..., rounding_mode="floor")``,
 numpy's ``floor_divide``): days before 1970 are negative, and a truncating
 division would put them in the wrong year.
 
+The host twins (``cpu_eval``) run the same integer formulas over the
+host's numpy arrays (wrapped as CPU tensors), which is what the JAX
+package's numpy twins compute.
+
 Not ported yet: the time parts (hour, minute, second), unix time,
 ``to_date``, ``date_format``, ``last_day`` and timestamp arithmetic.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exprs.base import (
-    BinaryExpression, DevVal, UnaryExpression,
+    BinaryExpression, CpuVal, DevVal, UnaryExpression,
 )
 
 MICROS_PER_DAY = 86_400_000_000
@@ -64,6 +69,10 @@ def _days_of(v: DevVal) -> torch.Tensor:
     return v.data
 
 
+def _host_tensor(v: CpuVal) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(v.values))
+
+
 class _DatePart(UnaryExpression):
     """An INT part of a DATE or TIMESTAMP, NULL where the input is."""
 
@@ -82,6 +91,12 @@ class _DatePart(UnaryExpression):
     def gpu_eval(self, ctx) -> DevVal:
         v = self.child.gpu_eval(ctx)
         return DevVal(T.INT, self._part(_days_of(v)).to(torch.int32),
+                      v.validity)
+
+    def cpu_eval(self, ctx) -> CpuVal:
+        v = self.child.cpu_eval(ctx)
+        days = _days_of(DevVal(v.dtype, _host_tensor(v), None))
+        return CpuVal(T.INT, self._part(days).to(torch.int32).numpy(),
                       v.validity)
 
 
@@ -150,6 +165,11 @@ class _DateArith(BinaryExpression):
         a, b = self.left.gpu_eval(ctx), self.right.gpu_eval(ctx)
         return DevVal(self.out_type, self._combine(a.data, b.data),
                       a.validity & b.validity)
+
+    def cpu_eval(self, ctx) -> CpuVal:
+        a, b = self.left.cpu_eval(ctx), self.right.cpu_eval(ctx)
+        data = self._combine(_host_tensor(a), _host_tensor(b))
+        return CpuVal(self.out_type, data.numpy(), a.validity & b.validity)
 
 
 class DateAdd(_DateArith):

@@ -1,14 +1,16 @@
 """NULL-handling expressions (port of ``spark_rapids_tpu/exprs/nullexprs.py``:
 ``IsNull``, ``IsNotNull``, ``IsNan``, ``Coalesce`` (the key projection of a
-full outer USING join), ``NaNvl`` and ``AtLeastNNonNulls``)."""
+full outer USING join), ``NaNvl`` and ``AtLeastNNonNulls``), each with
+the JAX package's host twin ``cpu_eval``."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exprs.base import (
-    DevVal, Expression, UnaryExpression, cast_dev,
+    CpuVal, DevVal, Expression, UnaryExpression, cast_cpu, cast_dev,
 )
 
 
@@ -23,12 +25,22 @@ class IsNull(_NullTest):
         v = self.child.gpu_eval(ctx)
         return DevVal(T.BOOLEAN, ~v.validity, torch.ones_like(v.validity))
 
+    def cpu_eval(self, ctx) -> CpuVal:
+        v = self.child.cpu_eval(ctx)
+        return CpuVal(T.BOOLEAN, ~v.validity,
+                      np.ones(len(v.validity), np.bool_))
+
 
 class IsNotNull(_NullTest):
     def gpu_eval(self, ctx) -> DevVal:
         v = self.child.gpu_eval(ctx)
         return DevVal(T.BOOLEAN, v.validity.clone(),
                       torch.ones_like(v.validity))
+
+    def cpu_eval(self, ctx) -> CpuVal:
+        v = self.child.cpu_eval(ctx)
+        return CpuVal(T.BOOLEAN, v.validity.copy(),
+                      np.ones(len(v.validity), np.bool_))
 
 
 class IsNan(_NullTest):
@@ -41,6 +53,11 @@ class IsNan(_NullTest):
         v = self.child.gpu_eval(ctx)
         return DevVal(T.BOOLEAN, torch.isnan(v.data) & v.validity,
                       torch.ones_like(v.validity))
+
+    def cpu_eval(self, ctx) -> CpuVal:
+        v = self.child.cpu_eval(ctx)
+        data = np.isnan(v.values.astype(np.float64)) & v.validity
+        return CpuVal(T.BOOLEAN, data, np.ones(len(v.validity), np.bool_))
 
 
 class Coalesce(Expression):
@@ -73,6 +90,25 @@ class Coalesce(Expression):
             validity = validity | v.validity
         return DevVal(self.dtype, data, validity)
 
+    def cpu_eval(self, ctx) -> CpuVal:
+        acc = self.children[0].cpu_eval(ctx)
+        if self.dtype.is_string:
+            values = acc.values.copy()
+            validity = acc.validity.copy()
+            for c in self.children[1:]:
+                v = c.cpu_eval(ctx)
+                take = ~validity & v.validity
+                values[take] = v.values[take]
+                validity |= v.validity
+            return CpuVal(self.dtype, values, validity)
+        acc = cast_cpu(acc, self.dtype)
+        data, validity = acc.values.copy(), acc.validity.copy()
+        for c in self.children[1:]:
+            v = cast_cpu(c.cpu_eval(ctx), self.dtype)
+            data = np.where(validity, data, v.values)
+            validity = validity | v.validity
+        return CpuVal(self.dtype, data.astype(self.dtype.np_dtype), validity)
+
 
 class NaNvl(Expression):
     """nanvl(a, b): b where a is NaN, else a (as DOUBLE)."""
@@ -91,6 +127,13 @@ class NaNvl(Expression):
         nan = torch.isnan(a.data)
         return DevVal(T.DOUBLE, torch.where(nan, b.data, a.data),
                       torch.where(nan, b.validity, a.validity))
+
+    def cpu_eval(self, ctx) -> CpuVal:
+        a = cast_cpu(self.children[0].cpu_eval(ctx), T.DOUBLE)
+        b = cast_cpu(self.children[1].cpu_eval(ctx), T.DOUBLE)
+        nan = np.isnan(a.values)
+        return CpuVal(T.DOUBLE, np.where(nan, b.values, a.values),
+                      np.where(nan, b.validity, a.validity).astype(np.bool_))
 
 
 class AtLeastNNonNulls(Expression):
@@ -118,3 +161,14 @@ class AtLeastNNonNulls(Expression):
         return DevVal(T.BOOLEAN, total >= self.n,
                       torch.ones(ctx.capacity, dtype=torch.bool,
                                  device=ctx.device))
+
+    def cpu_eval(self, ctx) -> CpuVal:
+        total = np.zeros(ctx.num_rows, dtype=np.int32)
+        for c in self.children:
+            v = c.cpu_eval(ctx)
+            valid = v.validity
+            if c.dtype in (T.FLOAT, T.DOUBLE):
+                valid = valid & ~np.isnan(np.where(valid, v.values, 0.0))
+            total = total + valid.astype(np.int32)
+        return CpuVal(T.BOOLEAN, total >= self.n,
+                      np.ones(ctx.num_rows, dtype=np.bool_))

@@ -12,17 +12,19 @@ does; string ordering comparisons are not ported yet
 (:meth:`_Comparison.gpu_supported`).  ``IN`` over a string column with
 literal options hashes the column once (one stringHash launch) and compares
 each row's words with every literal's, hashed on the host; any other ``IN``
-is the JAX package's OR of ``Equals``.
+is the JAX package's OR of ``Equals``.  ``cpu_eval`` is the JAX package's
+host twin: strings compare as Python strings, ordering included.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exprs.base import (
-    BinaryExpression, DevVal, Expression, Literal, UnaryExpression,
-    promote_dev,
+    BinaryExpression, CpuVal, DevVal, Expression, Literal, UnaryExpression,
+    promote_cpu, promote_dev,
 )
 
 
@@ -66,6 +68,20 @@ class _Comparison(BinaryExpression):
                           lv.validity & rv.validity)
         a, b, _ = promote_dev(lv, rv)
         return DevVal(T.BOOLEAN, self._compute(a.data, b.data),
+                      a.validity & b.validity)
+
+    def cpu_eval(self, ctx) -> CpuVal:
+        lv, rv = self.left.cpu_eval(ctx), self.right.cpu_eval(ctx)
+        if lv.dtype.is_string:
+            x = np.array([str(v) for v in lv.values], dtype=object)
+            y = np.array([str(v) for v in rv.values], dtype=object)
+            return CpuVal(T.BOOLEAN,
+                          np.asarray(self._compute(x, y), dtype=np.bool_),
+                          lv.validity & rv.validity)
+        a, b, _ = promote_cpu(lv, rv)
+        return CpuVal(T.BOOLEAN,
+                      np.asarray(self._compute(a.values, b.values),
+                                 dtype=np.bool_),
                       a.validity & b.validity)
 
 
@@ -134,6 +150,20 @@ class EqualNullSafe(BinaryExpression):
         data = both_null | (eq & lv.validity & rv.validity)
         return DevVal(T.BOOLEAN, data, torch.ones_like(data))
 
+    def cpu_eval(self, ctx) -> CpuVal:
+        lv, rv = self.left.cpu_eval(ctx), self.right.cpu_eval(ctx)
+        if lv.dtype.is_string:
+            eq = np.array([str(a) == str(b)
+                           for a, b in zip(lv.values, rv.values)],
+                          dtype=np.bool_)
+        else:
+            a, b, _ = promote_cpu(lv, rv)
+            eq = a.values == b.values
+        both_null = ~lv.validity & ~rv.validity
+        data = np.where(both_null, True, eq & lv.validity & rv.validity)
+        return CpuVal(T.BOOLEAN, data.astype(np.bool_),
+                      np.ones(len(data), dtype=np.bool_))
+
 
 class And(BinaryExpression):
     def _resolve_type(self):
@@ -149,6 +179,15 @@ class And(BinaryExpression):
         validity = (a.validity & b.validity) | false_a | false_b
         return DevVal(T.BOOLEAN, x & y, validity)
 
+    def cpu_eval(self, ctx) -> CpuVal:
+        a, b = self.left.cpu_eval(ctx), self.right.cpu_eval(ctx)
+        av, bv = a.values.astype(np.bool_), b.values.astype(np.bool_)
+        false_a = a.validity & ~av
+        false_b = b.validity & ~bv
+        validity = (a.validity & b.validity) | false_a | false_b
+        return CpuVal(T.BOOLEAN, (av & a.validity) & (bv & b.validity),
+                      validity)
+
 
 class Or(BinaryExpression):
     def _resolve_type(self):
@@ -162,6 +201,13 @@ class Or(BinaryExpression):
         validity = (a.validity & b.validity) | true_a | true_b
         return DevVal(T.BOOLEAN, true_a | true_b, validity)
 
+    def cpu_eval(self, ctx) -> CpuVal:
+        a, b = self.left.cpu_eval(ctx), self.right.cpu_eval(ctx)
+        true_a = a.validity & a.values.astype(np.bool_)
+        true_b = b.validity & b.values.astype(np.bool_)
+        validity = (a.validity & b.validity) | true_a | true_b
+        return CpuVal(T.BOOLEAN, true_a | true_b, validity)
+
 
 class Not(UnaryExpression):
     def _resolve_type(self):
@@ -171,6 +217,10 @@ class Not(UnaryExpression):
     def gpu_eval(self, ctx) -> DevVal:
         v = self.child.gpu_eval(ctx)
         return DevVal(T.BOOLEAN, ~v.data.to(torch.bool), v.validity)
+
+    def cpu_eval(self, ctx) -> CpuVal:
+        v = self.child.cpu_eval(ctx)
+        return CpuVal(T.BOOLEAN, ~v.values.astype(np.bool_), v.validity)
 
 
 class In(Expression):
@@ -211,6 +261,9 @@ class In(Expression):
             if reason:
                 return f"{self.name}: {reason}"
         return None
+
+    def cpu_eval(self, ctx) -> CpuVal:
+        return self._as_or().cpu_eval(ctx)
 
     def gpu_eval(self, ctx) -> DevVal:
         words = self._string_literals()

@@ -15,20 +15,24 @@ bases ``HASH_BASES``):
 
 ``substring`` slices every row in one byte gather (:func:`_gather_substring`).
 
-Patterns (needles) must be literals; the port has no CPU twins, so anything
-else is refused by the planner.  Dictionary-encoded columns are not ported:
-the port's batches always hold materialized strings.
+Patterns (needles) must be literals on the device; anything else runs on
+the host twins (``cpu_eval``, the JAX package's: Python ``str`` tests, LIKE
+as a regular expression, ``substring`` over characters where the device
+counts bytes).  Dictionary-encoded columns are not ported: the port's
+batches always hold materialized strings.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exprs.base import (
-    DevVal, Expression, Literal, UnaryExpression,
+    CpuVal, DevVal, Expression, Literal, UnaryExpression,
 )
 from spark_rapids_tpu_torch.kernels import cuda_tier
 
@@ -123,32 +127,54 @@ class _NeedlePredicate(Expression):
     def _match_dev(self, v: DevVal, needle: bytes) -> torch.Tensor:
         raise NotImplementedError
 
+    def _match_cpu(self, s: str, needle: str) -> bool:
+        raise NotImplementedError
+
     def gpu_eval(self, ctx) -> DevVal:
         v = self.children[0].gpu_eval(ctx)
         data = self._match_dev(v, self.needle.encode("utf-8"))
         return DevVal(T.BOOLEAN, data, v.validity)
+
+    def cpu_eval(self, ctx) -> CpuVal:
+        v = self.children[0].cpu_eval(ctx)
+        nv = self.children[1].cpu_eval(ctx)
+        data = np.fromiter(
+            (self._match_cpu(str(s), str(n))
+             for s, n in zip(v.values, nv.values)),
+            dtype=np.bool_, count=len(v.values))
+        return CpuVal(T.BOOLEAN, data, v.validity & nv.validity)
 
 
 class StringStartsWith(_NeedlePredicate):
     def _match_dev(self, v, needle):
         return _match_prefix(v, needle)
 
+    def _match_cpu(self, s, needle):
+        return s.startswith(needle)
+
 
 class StringEndsWith(_NeedlePredicate):
     def _match_dev(self, v, needle):
         return _match_suffix(v, needle)
+
+    def _match_cpu(self, s, needle):
+        return s.endswith(needle)
 
 
 class StringContains(_NeedlePredicate):
     def _match_dev(self, v, needle):
         return _rows_with_match(v, needle)
 
+    def _match_cpu(self, s, needle):
+        return needle in s
+
 
 class Like(Expression):
     """SQL LIKE restricted to patterns that translate to exact, prefix,
-    suffix, contains or prefix-and-suffix tests: 'abc', 'abc%', '%abc',
-    '%abc%', 'a%b' (and '%').  Other patterns ('_' wildcards, escapes,
-    several inner '%') are refused by the planner."""
+    suffix, contains or prefix-and-suffix tests on the device: 'abc',
+    'abc%', '%abc', '%abc%', 'a%b' (and '%').  Other patterns ('_'
+    wildcards, escapes, several inner '%') run on the host twin, a regular
+    expression ('%' any run, '_' any one character)."""
 
     def __init__(self, child: Expression, pattern: str):
         self.children = (child,)
@@ -212,6 +238,16 @@ class Like(Expression):
                     & (string_lengths(v) >= len(pre) + len(suf)))
         return DevVal(T.BOOLEAN, data, v.validity)
 
+    def cpu_eval(self, ctx) -> CpuVal:
+        v = self.children[0].cpu_eval(ctx)
+        regex = "^" + "".join(
+            ".*" if c == "%" else "." if c == "_" else re.escape(c)
+            for c in self.pattern) + "$"
+        rx = re.compile(regex, re.DOTALL)
+        data = np.fromiter((rx.match(str(s)) is not None for s in v.values),
+                           dtype=np.bool_, count=len(v.values))
+        return CpuVal(T.BOOLEAN, data, v.validity)
+
 
 # ---------------------------------------------------------------------------
 # substring
@@ -260,7 +296,8 @@ class Substring(UnaryExpression):
     """``substring(str, pos[, len])`` over UTF-8 bytes, as the JAX
     package's device path counts them (Spark counts characters: the two
     agree on ASCII).  NULL rows and rows past ``num_rows`` come out
-    empty; the output keeps the input's byte capacity."""
+    empty; the output keeps the input's byte capacity.  The host twin
+    counts characters, as the JAX package's does."""
 
     def __init__(self, child: Expression, pos: int,
                  length: Optional[int] = None):
@@ -289,3 +326,20 @@ class Substring(UnaryExpression):
         n = torch.where(v.validity & live, n, 0)
         return _gather_substring(v, start, n, int(v.data.shape[0]),
                                  v.validity)
+
+    def cpu_eval(self, ctx) -> CpuVal:
+        v = self.child.cpu_eval(ctx)
+        out = np.empty(len(v.values), dtype=object)
+        for i, s in enumerate(v.values):
+            s = str(s)
+            n = len(s)
+            if self.pos > 0:
+                start_raw = self.pos - 1
+            elif self.pos == 0:
+                start_raw = 0
+            else:
+                start_raw = n + self.pos
+            end_raw = n if self.sublen is None else \
+                start_raw + max(self.sublen, 0)
+            out[i] = s[min(max(start_raw, 0), n):min(max(end_raw, 0), n)]
+        return CpuVal(T.STRING, out, v.validity)

@@ -1,6 +1,6 @@
-"""Device operators (port of ``spark_rapids_tpu/ops/tpu_exec.py``: project,
-filter, sort, hash aggregate, cached scan, local limit, the shuffled and
-broadcast hash joins, and the nested-loop join).
+"""Device operators (port of ``spark_rapids_tpu/ops/tpu_exec.py``: range,
+project, filter, sort, hash aggregate, cached scan, union, local limit, the
+shuffled and broadcast hash joins, and the nested-loop join).
 
 Each exec runs its per-batch work eagerly as torch ops on ``ctx.device``.
 String columns ride every operator as offsets + bytes; string group keys
@@ -107,6 +107,59 @@ def concat_static(batches: List[ColumnBatch], schema: T.Schema
                                        for b in batches), minimum=16)
                  for i, f in enumerate(schema.fields) if f.dtype.is_string]
     return concat_kway(batches, cap, out_byte_caps=byte_caps or None)
+
+
+class GpuRangeExec(GpuExec):
+    """``session.range`` on the device: ids made by one ``arange`` a
+    batch of at most 2^20 rows, no host copy."""
+
+    _MAX_BATCH = 1 << 20
+
+    def __init__(self, start, end, step, num_partitions, schema: T.Schema):
+        super().__init__([], schema)
+        self.start, self.end, self.step = start, end, step
+        self._n = max(1, num_partitions)
+
+    def describe(self):
+        return f"GpuRange({self.start}, {self.end}, {self.step})"
+
+    def partitions(self, ctx):
+        from spark_rapids_tpu_torch.batch import DeviceColumn
+        total = max(0, -(-(self.end - self.start) // self.step))
+        per = -(-total // self._n)
+
+        def gen(p):
+            lo = self.start + p * per * self.step
+            count = max(0, min(per, total - p * per))
+            done = 0
+            while done < count:
+                n = min(self._MAX_BATCH, count - done)
+                cap = round_up_capacity(n)
+                idx = torch.arange(cap, dtype=torch.int64, device=ctx.device)
+                data = (lo + done * self.step) + idx * self.step
+                col = DeviceColumn(T.LONG, data, idx < n)
+                yield ColumnBatch(self.output_schema, [col],
+                                  device_scalar(n, ctx.device), cap)
+                done += n
+
+        return [gen(p) for p in range(self._n)]
+
+
+class GpuUnionExec(GpuExec):
+    """UNION ALL: every child's partitions in turn, renamed to the
+    output schema."""
+
+    def __init__(self, children: List[PhysicalOp], schema: T.Schema):
+        super().__init__(children, schema)
+
+    def partitions(self, ctx):
+        return [self._rename(p) for c in self.children
+                for p in c.partitions(ctx)]
+
+    def _rename(self, part):
+        for b in part:
+            yield ColumnBatch(self.output_schema, b.columns, b.num_rows,
+                              b.capacity)
 
 
 class GpuProjectExec(GpuExec):

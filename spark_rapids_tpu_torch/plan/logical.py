@@ -71,6 +71,27 @@ class FileScan(LogicalPlan):
         return f"FileScan({self.fmt}, {len(self.paths)} files{extra})"
 
 
+class Range(LogicalPlan):
+    """``session.range``: one LONG column ``id`` from ``start`` to ``end``
+    (exclusive) by ``step``."""
+
+    def __init__(self, start: int, end: int, step: int = 1,
+                 num_partitions: int = 1, name: str = "id"):
+        if step == 0:
+            raise ValueError("range step must not be 0")
+        self.start, self.end, self.step = start, end, step
+        self.num_partitions = num_partitions
+        self.col_name = name
+        self.children = ()
+
+    @property
+    def schema(self):
+        return T.Schema([T.Field(self.col_name, T.LONG)])
+
+    def describe(self):
+        return f"Range({self.start}, {self.end}, {self.step})"
+
+
 class Project(LogicalPlan):
     def __init__(self, exprs: List[Expression], names: List[str],
                  child: LogicalPlan):
@@ -168,6 +189,24 @@ class Join(LogicalPlan):
 
     def describe(self):
         return f"Join({self.how})"
+
+
+class Union(LogicalPlan):
+    """UNION ALL of children whose column types agree (names from the
+    first)."""
+
+    def __init__(self, children: List[LogicalPlan]):
+        self.children = tuple(children)
+        s0 = self.children[0].schema
+        for c in self.children[1:]:
+            if [f.dtype for f in c.schema.fields] != \
+                    [f.dtype for f in s0.fields]:
+                raise ValueError(f"union schema mismatch: {c.schema} "
+                                 f"against {s0}")
+
+    @property
+    def schema(self):
+        return self.children[0].schema
 
 
 class Limit(LogicalPlan):

@@ -1,29 +1,41 @@
-"""Planner: lowers a logical plan to device execs (port of
+"""Planner: tags every logical operator for the GPU, lowers the ones that
+can run there to device execs and the rest to their host twins, and inserts
+the exchanges and the host<->device transitions (port of
 ``spark_rapids_tpu/plan/overrides.py``, reduced to the ported nodes).
 
-The port has no CPU twins of device operators yet, so there is nothing to
-fall back to: a node, expression or setting the port cannot run raises
-:class:`UnsupportedPlanError` naming the node and the reason.  String
-columns pass through every operator; each expression says for itself
-whether it takes or returns strings (``Expression.gpu_supported``).  The JAX
-package would place such a node on the CPU instead.
+Placement comes from tags and confs only, as in the JAX package
+(``ExprMeta``, ``PlanMeta``): an expression the device cannot evaluate
+(``Expression.gpu_supported`` names why), an aggregate the device must not
+run (a float ``Sum``/``Average`` without
+``spark.rapids.sql.variableFloatAgg.enabled``, a string ``Min``/``Max``),
+float group keys under ``spark.rapids.sql.hasNans``, string keys with
+``spark.rapids.sql.stringHashGroupJoin.enabled`` off, a node or expression
+switched off by ``spark.rapids.sql.exec.<Name>`` /
+``spark.rapids.sql.expression.<Name>``, or ``spark.rapids.sql.enabled``
+false each put the node on the host.  Scans decode on the host by design.
+Nothing moves an operator because a GPU is missing or a kernel failed.
+:class:`UnsupportedPlanError` is left for what neither side can run: a
+partitioned shuffle (``spark.rapids.sql.tpu.exchange.collapseLocal`` off)
+and an aggregate outside an aggregation.
 
-Equi-joins choose their strategy as the JAX package does: a side whose
-estimated size is under ``spark.sql.autoBroadcastJoinThreshold`` is
-broadcast (the right one first; the left one for inner and right joins,
+Equi-joins on the device choose their strategy as the JAX package does: a
+side whose estimated size is under ``spark.sql.autoBroadcastJoinThreshold``
+is broadcast (the right one first; the left one for inner and right joins,
 when it is the smaller), otherwise both sides go through hash exchanges
 into a shuffled hash join.  Estimates measure an in-memory scan's values
 exactly and multiply every other node's row estimate by its output
 schema's per-column widths; joins and aggregates make no guess.  A file
 scan is estimated by its files' bytes on disk.  A residual join condition
 rides the hash join, which then runs host-driven; a cross join or a join
-without equi-keys is a nested-loop join.
+without equi-keys is a nested-loop join.  On the host an aggregate, a join
+and a limit take a collapsed host exchange and the host twin
+(``ops/cpu_exec.py``).
 
 File scans decode on the host (``io/scan.py`` v1, ``io/scan_v2.py`` v2, the
-default) and the planner stages their batches onto the device above them.
-Filter conjuncts over a file scan are pushed into it (advisory: the
-Filter stays) so row groups and partition directories that cannot match
-are skipped.
+default).  Filter conjuncts over a file scan are pushed into it (advisory:
+the Filter stays) so row groups and partition directories that cannot
+match are skipped.  The explain lines say "will run on GPU" or "cannot run
+on GPU because ..." a node.
 """
 
 from __future__ import annotations
@@ -37,130 +49,287 @@ import numpy as np
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.config import (
     AUTO_BROADCAST_THRESHOLD, EXCHANGE_COLLAPSE_LOCAL, HAS_NANS,
-    SCAN_PUSHDOWN_ENABLED, SCAN_V2_ENABLED, SHUFFLE_PARTITIONS, RapidsConf,
+    SCAN_PUSHDOWN_ENABLED, SCAN_V2_ENABLED, SHUFFLE_PARTITIONS, SQL_ENABLED,
+    STRING_HASH_JOIN, RapidsConf,
 )
 from spark_rapids_tpu_torch.exprs.aggregates import AggregateFunction
 from spark_rapids_tpu_torch.exprs.base import (
     ColumnRef, Expression, SortOrder, resolve,
 )
+from spark_rapids_tpu_torch.ops import cpu_exec as C
 from spark_rapids_tpu_torch.ops import gpu_exec as X
-from spark_rapids_tpu_torch.ops.cpu_exec import CpuInMemoryScanExec
-from spark_rapids_tpu_torch.parallel.exchange import GpuShuffleExchangeExec
+from spark_rapids_tpu_torch.parallel.exchange import (
+    CpuShuffleExchangeExec, GpuShuffleExchangeExec,
+)
 from spark_rapids_tpu_torch.plan import logical as L
-from spark_rapids_tpu_torch.plan.physical import HostToDeviceExec, PhysicalOp
+from spark_rapids_tpu_torch.plan.physical import (
+    DeviceToHostExec, HostToDeviceExec, PhysicalOp,
+)
 
 
 class UnsupportedPlanError(NotImplementedError):
-    """A plan the port cannot run on the device."""
+    """A plan neither the device nor the host can run."""
+
+
+def _gate_off(conf: RapidsConf, key: str) -> bool:
+    return conf.get(key, True) in (False, "false")
+
+
+class ExprMeta:
+    """Tags one expression tree: the reasons it cannot run on the GPU."""
+
+    def __init__(self, expr: Expression, conf: RapidsConf):
+        self.conf = conf
+        self.reasons: List[str] = []
+        self._tag(expr)
+
+    def _tag(self, e: Expression):
+        if type(e).gpu_eval is Expression.gpu_eval and \
+                not isinstance(e, AggregateFunction):
+            self.reasons.append(
+                f"expression {e.name} has no GPU implementation")
+        else:
+            reason = e.gpu_supported(self.conf)
+            if reason:
+                self.reasons.append(
+                    f"expression {reason}" if reason.startswith(e.name)
+                    else f"expression {e.name}: {reason}")
+        key = f"spark.rapids.sql.expression.{e.name}"
+        if _gate_off(self.conf, key):
+            self.reasons.append(f"expression {e.name} disabled by {key}")
+        for c in e.children:
+            self._tag(c)
+
+
+class PlanMeta:
+    """Tags one logical operator; ``children`` are its inputs' metas."""
+
+    def __init__(self, node: L.LogicalPlan, conf: RapidsConf):
+        self.node = node
+        self.conf = conf
+        self.reasons: List[str] = []
+        self.children = [PlanMeta(c, conf) for c in node.children]
+
+    def will_not_work(self, reason: str):
+        if reason not in self.reasons:
+            self.reasons.append(reason)
+
+    def check_exprs(self, *exprs: Expression):
+        for e in exprs:
+            for sub in e.collect(lambda x: isinstance(x, AggregateFunction)):
+                raise UnsupportedPlanError(
+                    f"{self.node.describe()}: aggregate {sub.name} outside "
+                    "an aggregation")
+            for r in ExprMeta(e, self.conf).reasons:
+                self.will_not_work(r)
+
+    @property
+    def can_run_on_gpu(self) -> bool:
+        return not self.reasons
+
+    def explain_lines(self, depth: int = 0) -> List[str]:
+        ind = "  " * depth
+        if self.can_run_on_gpu:
+            lines = [f"{ind}*{self.node.name} will run on GPU"]
+        else:
+            why = "; ".join(self.reasons)
+            lines = [f"{ind}!{self.node.name} cannot run on GPU because "
+                     f"{why}"]
+        for c in self.children:
+            lines.extend(c.explain_lines(depth + 1))
+        return lines
 
 
 def _to_device(op: PhysicalOp) -> PhysicalOp:
     return op if op.is_gpu else HostToDeviceExec(op)
 
 
+def _to_host(op: PhysicalOp) -> PhysicalOp:
+    return DeviceToHostExec(op) if op.is_gpu else op
+
+
+def _insert_transitions(op: PhysicalOp) -> PhysicalOp:
+    """Makes every edge type-correct: a device exec reads device batches,
+    a host exec host batches (the planner's branches already place the
+    transitions; this pass is the invariant)."""
+    new_children = []
+    for c in op.children:
+        c = _insert_transitions(c)
+        if op.is_gpu and not c.is_gpu and \
+                not isinstance(op, HostToDeviceExec):
+            c = HostToDeviceExec(c)
+        elif not op.is_gpu and c.is_gpu and \
+                not isinstance(op, DeviceToHostExec):
+            c = DeviceToHostExec(c)
+        new_children.append(c)
+    op.children = new_children
+    return op
+
+
 class GpuOverrides:
-    """Logical plan -> physical plan, every operator on the device."""
+    """Logical plan -> physical plan with per-operator GPU/host
+    placement, exchanges and transitions."""
 
     def __init__(self, conf: RapidsConf):
         self.conf = conf
+        self.last_explain = ""
 
     def apply(self, plan: L.LogicalPlan) -> PhysicalOp:
         if SCAN_PUSHDOWN_ENABLED.get(self.conf):
             plan = _pushdown_scan_filters(plan)
-        return _to_device(self._convert(plan))
+        meta = PlanMeta(plan, self.conf)
+        self.tag(meta)
+        self.last_explain = "\n".join(meta.explain_lines())
+        return _insert_transitions(self._convert(meta))
+
+    # ------------------------------------------------------------------ tag
+
+    def tag(self, meta: PlanMeta):
+        for c in meta.children:
+            self.tag(c)
+        node, conf = meta.node, self.conf
+        if not SQL_ENABLED.get(conf):
+            meta.will_not_work("spark.rapids.sql.enabled is false")
+            return
+        key = f"spark.rapids.sql.exec.{node.name}"
+        if _gate_off(conf, key):
+            meta.will_not_work(f"disabled by {key}")
+        if isinstance(node, (L.InMemoryScan, L.FileScan)):
+            meta.will_not_work("scans decode host-side (by design)")
+        elif isinstance(node, L.Project):
+            meta.check_exprs(*node.exprs)
+        elif isinstance(node, L.Filter):
+            meta.check_exprs(node.condition)
+        elif isinstance(node, L.Aggregate):
+            meta.check_exprs(*node.keys)
+            self._tag_string_keys(meta, node.keys, "group by")
+            for a in node.aggs:
+                meta.check_exprs(a.fn.child)
+                reason = a.fn.gpu_supported(conf)
+                if reason:
+                    meta.will_not_work(f"aggregate {a.fn.name}: {reason}")
+                if any(k.dtype.is_fractional for k in node.keys) and \
+                        HAS_NANS.get(conf):
+                    meta.will_not_work(
+                        "grouping by floating point when NaNs are "
+                        "possible; set spark.rapids.sql.hasNans=false to "
+                        "enable")
+        elif isinstance(node, L.Sort):
+            for o in node.orders:
+                meta.check_exprs(o.child)
+        elif isinstance(node, L.Join):
+            meta.check_exprs(*node.left_keys, *node.right_keys)
+            self._tag_string_keys(
+                meta, list(node.left_keys) + list(node.right_keys), "join")
+            if node.condition is not None:
+                meta.check_exprs(_paired_resolve(node))
+
+    def _tag_string_keys(self, meta: PlanMeta, keys, what: str):
+        """String keys group and join through device row hashes;
+        ``stringHashGroupJoin.enabled=false`` puts the node on the host's
+        exact path."""
+        if any(k.dtype.is_string for k in keys) and \
+                not STRING_HASH_JOIN.get(self.conf):
+            meta.will_not_work(
+                f"string {what} keys use device row hashes; disabled by "
+                "spark.rapids.sql.stringHashGroupJoin.enabled")
+
+    # -------------------------------------------------------------- convert
 
     def _refuse(self, node: L.LogicalPlan, reason: str):
         raise UnsupportedPlanError(f"{node.describe()}: {reason}")
 
-    def _check_exprs(self, node: L.LogicalPlan, *exprs: Expression):
-        for e in exprs:
-            for sub in e.collect(lambda x: True):
-                if isinstance(sub, AggregateFunction):
-                    self._refuse(node, f"aggregate {sub.name} outside an "
-                                       "aggregation")
-                reason = sub.gpu_supported(self.conf)
-                if reason:
-                    self._refuse(node, reason)
-
-    def _exchange(self, node, kind: str, child: PhysicalOp) -> PhysicalOp:
+    def _check_collapse(self, node: L.LogicalPlan):
         if not EXCHANGE_COLLAPSE_LOCAL.get(self.conf):
             self._refuse(node, "a partitioned shuffle is not ported yet; "
                                "leave spark.rapids.sql.tpu.exchange."
                                "collapseLocal on")
+
+    def _exchange(self, node, kind: str, child: PhysicalOp) -> PhysicalOp:
+        self._check_collapse(node)
         n = 1 if kind == "single" else SHUFFLE_PARTITIONS.get(self.conf)
         return GpuShuffleExchangeExec(kind, n, child)
 
-    def _convert(self, node: L.LogicalPlan) -> PhysicalOp:
+    def _host_exchange(self, node, kind: str,
+                       child: PhysicalOp) -> PhysicalOp:
+        self._check_collapse(node)
+        n = 1 if kind == "single" else SHUFFLE_PARTITIONS.get(self.conf)
+        return CpuShuffleExchangeExec(kind, n, _to_host(child))
+
+    def _convert(self, meta: PlanMeta) -> PhysicalOp:
+        node = meta.node
+        on_gpu = meta.can_run_on_gpu
+        if isinstance(node, L.CachedRelation):
+            if not SQL_ENABLED.get(self.conf):
+                return self._convert(meta.children[0])  # no device cache
+            child = None if node.holder.is_materialized else \
+                _to_device(self._convert(meta.children[0]))
+            return X.GpuCachedScanExec(node.holder, child, node.schema)
+        conv = [self._convert(c) for c in meta.children]
         if isinstance(node, L.InMemoryScan):
-            return CpuInMemoryScanExec(node.batches, node.schema,
-                                       node.num_partitions)
+            return C.CpuInMemoryScanExec(node.batches, node.schema,
+                                         node.num_partitions)
         if isinstance(node, L.FileScan):
             if SCAN_V2_ENABLED.get(self.conf):
                 from spark_rapids_tpu_torch.io.scan_v2 import FileScanV2Exec
                 return FileScanV2Exec(node, self.conf)
             from spark_rapids_tpu_torch.io.scan import CpuFileScanExec
             return CpuFileScanExec(node, self.conf)
-        if isinstance(node, L.CachedRelation):
-            child = None if node.holder.is_materialized else \
-                _to_device(self._convert(node.children[0]))
-            return X.GpuCachedScanExec(node.holder, child, node.schema)
+        if isinstance(node, L.Range):
+            cls = X.GpuRangeExec if on_gpu else C.CpuRangeExec
+            return cls(node.start, node.end, node.step, node.num_partitions,
+                       node.schema)
         if isinstance(node, L.Project):
-            self._check_exprs(node, *node.exprs)
-            return X.GpuProjectExec(
-                node.exprs, _to_device(self._convert(node.children[0])),
-                node.schema)
+            if on_gpu:
+                return X.GpuProjectExec(node.exprs, _to_device(conv[0]),
+                                        node.schema)
+            return C.CpuProjectExec(node.exprs, _to_host(conv[0]),
+                                    node.schema)
         if isinstance(node, L.Filter):
-            self._check_exprs(node, node.condition)
-            return X.GpuFilterExec(
-                node.condition, _to_device(self._convert(node.children[0])))
+            if on_gpu:
+                return X.GpuFilterExec(node.condition, _to_device(conv[0]))
+            return C.CpuFilterExec(node.condition, _to_host(conv[0]))
         if isinstance(node, L.Aggregate):
-            return self._convert_aggregate(node)
+            return self._convert_aggregate(node, conv[0], on_gpu)
         if isinstance(node, L.Sort):
-            return self._convert_sort(node)
+            return self._convert_sort(node, conv[0], on_gpu)
         if isinstance(node, L.Join):
-            return self._convert_join(node)
+            return self._convert_join(node, conv, on_gpu)
+        if isinstance(node, L.Union):
+            if on_gpu and all(c.is_gpu for c in conv):
+                return X.GpuUnionExec(conv, node.schema)
+            return C.CpuUnionExec([_to_host(c) for c in conv], node.schema)
         if isinstance(node, L.Limit):
-            return self._convert_limit(node)
+            return self._convert_limit(node, conv[0], on_gpu)
         self._refuse(node, "no port of this operator yet")
 
-    def _convert_aggregate(self, node: L.Aggregate) -> PhysicalOp:
-        """Update per batch, an exchange (hash by the keys; one partition
-        for an aggregation without keys), then the merge."""
-        self._check_exprs(node, *node.keys)
-        if any(k.dtype.is_fractional for k in node.keys) and \
-                HAS_NANS.get(self.conf):
-            self._refuse(node, "grouping by a float when NaNs are possible "
-                               "runs on the CPU, whose fallback is not "
-                               "ported yet; set spark.rapids.sql.hasNans="
-                               "false")
-        for a in node.aggs:
-            self._check_exprs(node, a.fn.child)
-            reason = a.fn.gpu_supported(self.conf)
-            if reason:
-                self._refuse(node, f"aggregate {a.fn.name}: {reason}")
-        child = _to_device(self._convert(node.children[0]))
+    def _convert_aggregate(self, node: L.Aggregate, child: PhysicalOp,
+                           on_gpu: bool) -> PhysicalOp:
+        """On the device: update per batch, an exchange (hash by the keys;
+        one partition without keys), then the merge.  On the host: the
+        rows through a host exchange, then the whole aggregation."""
+        kind = "hash" if node.keys else "single"
+        if not on_gpu:
+            return C.CpuAggregateExec(
+                node.keys, node.aggs,
+                self._host_exchange(node, kind, child), node.schema)
         partial = X.GpuHashAggregateExec(
-            "update", node.keys, node.key_names, node.aggs, child,
+            "update", node.keys, node.key_names, node.aggs,
+            _to_device(child),
             X._buffer_schema(node.key_names, node.keys, node.aggs))
         keys = [ColumnRef(n, k.dtype, k.nullable)
                 for n, k in zip(node.key_names, node.keys)]
         return X.GpuHashAggregateExec(
             "merge", keys, node.key_names, node.aggs,
-            self._exchange(node, "hash" if node.keys else "single", partial),
-            node.schema)
+            self._exchange(node, kind, partial), node.schema)
 
-    def _convert_sort(self, node: L.Sort) -> PhysicalOp:
-        for o in node.orders:
-            self._check_exprs(node, o.child)
-        child = _to_device(self._convert(node.children[0]))
-        if any(not isinstance(o.child, ColumnRef) for o in node.orders):
-            return self._sort_computed(node, child)
-        return self._sort(node, node.orders, child)
-
-    def _sort_computed(self, node: L.Sort, child: PhysicalOp) -> PhysicalOp:
+    def _convert_sort(self, node: L.Sort, child: PhysicalOp,
+                      on_gpu: bool) -> PhysicalOp:
         """Sort keys that are not plain columns are projected into hidden
         ``__sortkey_i`` columns, sorted on, and projected away, as the JAX
         package plans them."""
+        if all(isinstance(o.child, ColumnRef) for o in node.orders):
+            return self._sort(node, node.orders, child, on_gpu)
         schema = node.schema
         base = [ColumnRef(f.name, f.dtype, f.nullable) for f in schema]
         extra, fields, orders = [], list(schema.fields), []
@@ -174,13 +343,29 @@ class GpuOverrides:
             orders.append(SortOrder(
                 ColumnRef(nm, o.child.dtype, o.child.nullable),
                 o.ascending, o.nulls_first))
-        proj = X.GpuProjectExec(base + extra, child, T.Schema(fields))
-        return X.GpuProjectExec(base, self._sort(node, orders, proj), schema)
+        if on_gpu:
+            proj = X.GpuProjectExec(base + extra, _to_device(child),
+                                    T.Schema(fields))
+            return X.GpuProjectExec(
+                base, self._sort(node, orders, proj, True), schema)
+        proj = C.CpuProjectExec(base + extra, _to_host(child),
+                                T.Schema(fields))
+        return C.CpuProjectExec(
+            base, self._sort(node, orders, proj, False), schema)
 
-    def _sort(self, node: L.Sort, orders, child: PhysicalOp) -> PhysicalOp:
+    def _sort(self, node: L.Sort, orders, child: PhysicalOp,
+              on_gpu: bool) -> PhysicalOp:
+        if on_gpu:
+            child = _to_device(child)
+            if node.is_global:
+                child = self._exchange(node, "range", child)
+            return X.GpuSortExec(orders, child)
         if node.is_global:
-            child = self._exchange(node, "range", child)
-        return X.GpuSortExec(orders, child)
+            child = self._host_exchange(node, "range", child)
+        schema = child.output_schema
+        return C.CpuSortExec(orders,
+                             [schema.index_of(o.child.column)
+                              for o in orders], _to_host(child))
 
     # Heuristic average payload of a string cell when the values are not
     # visible (the JAX package's _VARLEN_CELL_BYTES).
@@ -199,6 +384,8 @@ class GpuOverrides:
         cardinality in a way that is not guessed (aggregates, joins)."""
         if isinstance(node, L.InMemoryScan):
             return sum(hb.num_rows for hb in node.batches)
+        if isinstance(node, L.Range):
+            return max(0, -(-(node.end - node.start) // node.step))
         if isinstance(node, L.Limit):
             rows = self._estimate_rows(node.children[0])
             return node.n if rows is None else min(node.n, rows)
@@ -232,15 +419,22 @@ class GpuOverrides:
             return None
         return rows * sum(self._field_width(f) for f in node.schema.fields)
 
-    def _convert_join(self, node: L.Join) -> PhysicalOp:
-        self._check_exprs(node, *node.left_keys, *node.right_keys)
-        cond = None
-        if node.condition is not None:
-            cond = _paired_resolve(node)
-            self._check_exprs(node, cond)
-        left = _to_device(self._convert(node.children[0]))
-        right = _to_device(self._convert(node.children[1]))
-        if node.how == "cross" or not node.left_keys:
+    def _convert_join(self, node: L.Join, conv: List[PhysicalOp],
+                      on_gpu: bool) -> PhysicalOp:
+        cond = None if node.condition is None else _paired_resolve(node)
+        left, right = conv
+        nested = node.how == "cross" or not node.left_keys
+        if not on_gpu:
+            if nested:
+                return C.CpuNestedLoopJoinExec(
+                    _to_host(left), _to_host(right), node.how, cond,
+                    node.schema)
+            return C.CpuHashJoinExec(
+                self._host_exchange(node, "hash", left),
+                self._host_exchange(node, "hash", right), node.left_keys,
+                node.right_keys, node.how, cond, node.schema)
+        left, right = _to_device(left), _to_device(right)
+        if nested:
             return X.GpuNestedLoopJoinExec(left, right, node.how, cond,
                                            node.schema)
         threshold = AUTO_BROADCAST_THRESHOLD.get(self.conf)
@@ -267,11 +461,15 @@ class GpuOverrides:
             self._exchange(node, "hash", right), node.left_keys,
             node.right_keys, node.how, cond, node.schema)
 
-    def _convert_limit(self, node: L.Limit) -> PhysicalOp:
-        local = X.GpuLocalLimitExec(
-            node.n, _to_device(self._convert(node.children[0])))
-        return X.GpuLocalLimitExec(node.n,
-                                   self._exchange(node, "single", local))
+    def _convert_limit(self, node: L.Limit, child: PhysicalOp,
+                       on_gpu: bool) -> PhysicalOp:
+        if on_gpu:
+            local = X.GpuLocalLimitExec(node.n, _to_device(child))
+            return X.GpuLocalLimitExec(
+                node.n, self._exchange(node, "single", local))
+        local = C.CpuLocalLimitExec(node.n, _to_host(child))
+        return C.CpuLocalLimitExec(
+            node.n, self._host_exchange(node, "single", local))
 
 
 def _paired_resolve(node: L.Join) -> Expression:

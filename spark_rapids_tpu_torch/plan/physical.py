@@ -4,9 +4,11 @@ Every physical op exposes ``partitions(ctx) -> List[Iterator[batch]]``, a
 list of lazily evaluated per-partition batch iterators.  GPU execs yield
 device :class:`ColumnBatch` es on ``ctx.device``; CPU execs yield host
 :class:`HostBatch` es.  :class:`HostToDeviceExec` stages host batches onto
-the device; :func:`collect_host` drives a device plan and brings the rows
-back.  Execution is eager, one partition iterator at a time; the JAX
-package's whole-stage fusion (``plan/pipeline.py``) is not ported.
+the device and :class:`DeviceToHostExec` copies device batches back for a
+host operator; :func:`collect_host` drives a plan, its root on either
+side, and brings the rows back.  Execution is eager, one partition
+iterator at a time; the JAX package's whole-stage fusion
+(``plan/pipeline.py``) is not ported.
 :class:`HostToDeviceExec` stages read-ahead on a worker thread (see its
 docstring), so host decode and the host-to-device copies overlap the
 consumer's device work.
@@ -25,7 +27,8 @@ import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.batch import (
-    ColumnBatch, HostBatch, HostColumn, device_to_host_many, host_to_device,
+    ColumnBatch, HostBatch, HostColumn, device_to_host_many,
+    host_batch_bytes, host_to_device,
 )
 from spark_rapids_tpu_torch.config import STAGE_READAHEAD_BATCHES, RapidsConf
 
@@ -203,6 +206,11 @@ def _batch_tensors(batch: ColumnBatch):
             yield c.offsets
 
 
+def _reads_device(op: PhysicalOp) -> bool:
+    """True when ``op`` or an operator below it runs on the device."""
+    return op.is_gpu or any(_reads_device(c) for c in op.children)
+
+
 class HostToDeviceExec(GpuExec):
     """Stage host batches onto ``ctx.device`` (HostColumnarToGpu analogue).
 
@@ -220,7 +228,11 @@ class HostToDeviceExec(GpuExec):
     stops the worker, which closes the child's iterator.  The side stream
     is one per device (:func:`_staging_stream`).  With 0 every
     batch is staged on the consumer's thread and stream.  ``stageTime``
-    (seconds) is the host time spent staging."""
+    (seconds) is the host time spent staging, ``h2dBytes`` the bytes of
+    the device buffers staged (padding included: what the copies move).
+    A child that reads device batches itself (a host operator between two
+    device ones) is staged at depth 0: the device work below it must stay
+    on the stream that made its inputs."""
 
     def __init__(self, child: PhysicalOp):
         super().__init__([child], child.output_schema)
@@ -231,12 +243,21 @@ class HostToDeviceExec(GpuExec):
     def partitions(self, ctx):
         device = torch.device(ctx.device)
         depth = STAGE_READAHEAD_BATCHES.get(ctx.conf)
+        if _reads_device(self.children[0]):
+            # a host operator over device batches (a DeviceToHostExec
+            # below): its device work stays on the consumer's thread and
+            # stream, which made its inputs
+            depth = 0
         t_metric = ctx.metric(self.op_id, "stageTime")
+
+        b_metric = ctx.metric(self.op_id, "h2dBytes")
 
         def stage(hb):
             t0 = time.monotonic()
             db = host_to_device(hb, device)
             t_metric.add(time.monotonic() - t0)
+            b_metric.add(sum(t.numel() * t.element_size()
+                             for t in _batch_tensors(db)))
             return db
 
         def gen(part):
@@ -298,6 +319,49 @@ class HostToDeviceExec(GpuExec):
         return [mk(p) for p in self.children[0].partitions(ctx)]
 
 
+class DeviceToHostExec(CpuExec):
+    """Copy device batches back to the host for a host operator
+    (GpuColumnarToRow analogue).  Each batch is shrunk to its live-row
+    bucket first, so the copy moves live rows, not padded capacity; a
+    string column crosses as its bytes and offsets.  Empty batches are
+    dropped.  ``d2hBytes`` counts the host bytes that arrived,
+    ``d2hTime`` (seconds) the host time of the copies."""
+
+    def __init__(self, child: PhysicalOp):
+        super().__init__([child], child.output_schema)
+
+    def describe(self):
+        return "DeviceToHost"
+
+    def partitions(self, ctx):
+        from spark_rapids_tpu_torch.ops.gpu_exec import shrink_to_fit
+        t_metric = ctx.metric(self.op_id, "d2hTime")
+        b_metric = ctx.metric(self.op_id, "d2hBytes")
+
+        def gen(part):
+            for db in part:
+                t0 = time.monotonic()
+                hb = device_to_host_many([shrink_to_fit(db)],
+                                         keep_offsets=True)[0]
+                t_metric.add(time.monotonic() - t0)
+                b_metric.add(host_batch_bytes(hb))
+                if hb.num_rows:
+                    yield hb
+
+        return [gen(p) for p in self.children[0].partitions(ctx)]
+
+
+@contextlib.contextmanager
+def host_timer(ctx: ExecContext, op: PhysicalOp):
+    """Adds the host seconds of the block to ``op``'s ``hostTime``: a host
+    operator's own work, its input's production left out."""
+    t0 = time.monotonic()
+    try:
+        yield
+    finally:
+        ctx.metric(op.op_id, "hostTime").add(time.monotonic() - t0)
+
+
 def _empty_host_batch(schema: T.Schema) -> HostBatch:
     return HostBatch(schema, [
         HostColumn(f.dtype, np.zeros(0, dtype=f.dtype.np_dtype),
@@ -305,13 +369,19 @@ def _empty_host_batch(schema: T.Schema) -> HostBatch:
 
 
 def collect_host(op: PhysicalOp, ctx: ExecContext) -> HostBatch:
-    """Drive a device plan to completion and concatenate every partition's
-    rows on the host (one sizes sync + one copy sync for all batches)."""
-    if not op.is_gpu:
-        raise TypeError(f"collect_host needs a device plan, got "
-                        f"{op.describe()}")
+    """Drive a plan to completion and concatenate every partition's rows
+    on the host: a device plan's batches with one sizes sync and one copy
+    sync for all of them, a host plan's as they come (strings one ``str``
+    a row either way)."""
     batches = [b for part in op.partitions(ctx) for b in part]
-    hbs = [hb for hb in device_to_host_many(batches) if hb.num_rows]
+    if op.is_gpu:
+        hbs = device_to_host_many(batches)
+    else:
+        hbs = [HostBatch(hb.schema, [
+            HostColumn(c.dtype, c.string_values(), c.validity)
+            if c.offsets is not None else c for c in hb.columns])
+            for hb in batches]
+    hbs = [hb for hb in hbs if hb.num_rows]
     if not hbs:
         return _empty_host_batch(op.output_schema)
     return HostBatch.concat(hbs)

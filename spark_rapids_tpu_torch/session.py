@@ -13,11 +13,23 @@ query over the session's temp views (``register_view``, or a DataFrame's
 After each query ``last_metrics`` holds the query's counts and the scan
 lane's per-operator metrics summed by name (``scanDecodeWallNs``,
 ``rowGroupsRead``, ...); ``last_op_metrics`` holds every per-operator
-metric by operator.
+metric by operator (the transitions' ``h2dBytes``, ``d2hBytes``,
+``d2hTime``, the host operators' ``hostTime``).
+
+The planner places each operator on the GPU or the host from its tags and
+the confs (``plan/overrides.py``).  ``last_explain`` holds the last plan's
+placement lines, ``explain_plan(plan)`` (and ``DataFrame.explain``) gives
+them with the physical plan, and ``spark.rapids.sql.explain`` (ALL or
+NOT_ON_GPU) logs them for every query to this module's ``.explain``
+logger.  With
+``spark.rapids.sql.test.enabled`` a query fails before it runs if any
+operator other than a scan, a transition or a collapsed host exchange was
+placed on the host.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Any, Dict, Optional, Sequence, Union
 
 from spark_rapids_tpu_torch import types as T
@@ -25,12 +37,20 @@ from spark_rapids_tpu_torch.batch import HostBatch
 from spark_rapids_tpu_torch.config import RapidsConf
 from spark_rapids_tpu_torch.runtime.device import DeviceRuntime
 
+_EXPLAIN_LOGGER = logging.getLogger(__name__ + ".explain")
+
+#: the host execs the test mode allows (spark.rapids.sql.test.enabled)
+_TEST_MODE_ALLOWED = ("HostToDeviceExec", "CpuInMemoryScanExec",
+                      "CpuFileScanExec", "FileScanV2Exec",
+                      "DeviceToHostExec", "CpuShuffleExchangeExec")
+
 
 class GpuSparkSession:
     def __init__(self, conf: Optional[RapidsConf] = None, device=None):
         self.conf = conf or RapidsConf()
         self.runtime = DeviceRuntime(self.conf, device)
         self.last_physical_plan = None
+        self.last_explain = ""
         self.last_metrics = {}
         self.last_op_metrics = {}
         self._views = {}
@@ -67,9 +87,39 @@ class GpuSparkSession:
         return DataFrame(InMemoryScan([batch], batch.schema, num_partitions),
                          self)
 
+    def range(self, start: int, end: Optional[int] = None, step: int = 1,
+              num_partitions: int = 1):
+        """DataFrame of one LONG column ``id``: ``range(n)`` is 0..n-1."""
+        from spark_rapids_tpu_torch.dataframe import DataFrame
+        from spark_rapids_tpu_torch.plan.logical import Range
+        if end is None:
+            start, end = 0, start
+        return DataFrame(Range(start, end, step, num_partitions), self)
+
     def plan_physical(self, plan):
+        """The physical plan of a logical plan; its placement lines go to
+        ``last_explain`` (and to the explain logger when
+        ``spark.rapids.sql.explain`` asks for them)."""
+        from spark_rapids_tpu_torch.config import EXPLAIN
         from spark_rapids_tpu_torch.plan.overrides import GpuOverrides
-        return GpuOverrides(self.conf).apply(plan)
+        overrides = GpuOverrides(self.conf)
+        phys = overrides.apply(plan)
+        self.last_explain = overrides.last_explain
+        mode = str(EXPLAIN.get(self.conf)).upper()
+        if mode == "ALL":
+            _EXPLAIN_LOGGER.info("%s", overrides.last_explain)
+        elif mode == "NOT_ON_GPU":
+            lines = [ln for ln in overrides.last_explain.splitlines()
+                     if ln.lstrip().startswith("!")]
+            if lines:
+                _EXPLAIN_LOGGER.info("%s", "\n".join(lines))
+        return phys
+
+    def explain_plan(self, plan) -> str:
+        """The placement lines of a plan, a blank line, the physical
+        plan."""
+        phys = self.plan_physical(plan)
+        return self.last_explain + "\n\n" + phys.tree_string()
 
     def _shuffle_mesh(self):
         """The device mesh exchanges run over, or None: opt-in through
@@ -93,14 +143,29 @@ class GpuSparkSession:
         from spark_rapids_tpu_torch.plan.physical import (
             ExecContext, collect_host,
         )
+        from spark_rapids_tpu_torch.config import TEST_ENABLED
         phys = self.plan_physical(plan)
         self.last_physical_plan = phys
+        if TEST_ENABLED.get(self.conf):
+            _assert_on_gpu(phys)
         ctx = ExecContext(self.conf, self.device, self._shuffle_mesh())
         with self.runtime.semaphore:
             out = collect_host(phys, ctx)
         self.last_metrics = dict(ctx.metrics, **ctx.summed_metrics())
         self.last_op_metrics = ctx.op_metric_values()
         return out
+
+
+def _assert_on_gpu(op, allow=_TEST_MODE_ALLOWED) -> None:
+    """The test mode's check (``spark.rapids.sql.test.enabled``): raises
+    naming the first host exec the plan holds outside ``allow``."""
+    name = type(op).__name__
+    if not op.is_gpu and name not in allow:
+        raise AssertionError(f"operator {name} ({op.describe()}) fell back "
+                             "to the CPU with spark.rapids.sql.test."
+                             "enabled=true")
+    for c in op.children:
+        _assert_on_gpu(c, allow)
 
 
 class DataFrameReader:

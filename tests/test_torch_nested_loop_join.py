@@ -259,16 +259,24 @@ def test_nested_loop_join_exec_chunked_matches_one_chunk(jax_exec_rows,
 
 @pytest.mark.parametrize("keyed", [True, False], ids=["hash", "nested-loop"])
 def test_unported_condition_is_refused(keyed):
-    """A condition expression the port cannot run (a string ordering) is
-    refused by name when the join is planned, with or without keys."""
-    from spark_rapids_tpu_torch.plan.overrides import UnsupportedPlanError
-    left, right = _tables(9, 6, 4, T)
+    """A condition expression the device path cannot run (a string
+    ordering) puts the join on the host, with or without keys: its explain
+    line names the expression, the plan holds the host join, and the rows
+    equal the JAX package's at the same settings, which places the join
+    on its host too (same rows in the same order)."""
+    def join(sess, types):
+        left, right = _tables(9, 6, 4, types)
+        ldf, rdf = sess.create_dataframe(left), sess.create_dataframe(right)
+        cond = ldf["s"] < rdf["t"]
+        if keyed:
+            cond = (ldf["k"] == rdf["k2"]) & cond
+        return ldf.join(rdf, on=cond, how="left")
+
     sess = GpuSparkSession(RapidsConf({}), device="cpu")
-    ldf, rdf = sess.create_dataframe(left), sess.create_dataframe(right)
-    cond = ldf["s"] < rdf["t"]
-    if keyed:
-        cond = (ldf["k"] == rdf["k2"]) & cond
-    with pytest.raises(UnsupportedPlanError,
-                       match="Join.*LessThan: string comparisons are not "
-                             "ported yet"):
-        ldf.join(rdf, on=cond, how="left").collect()
+    got = join(sess, T).collect()
+    assert "!Join cannot run on GPU because expression LessThan: string " \
+        "comparisons are not ported yet" in sess.last_explain
+    exe = "CpuHashJoin" if keyed else "CpuNestedLoopJoin"
+    assert exe in sess.last_physical_plan.tree_string()
+    assert got == join(TpuSparkSession(JaxConf({})), JT).collect()
+    assert len(got) >= 6

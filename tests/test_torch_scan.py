@@ -50,7 +50,9 @@ from spark_rapids_tpu_torch.benchmarks import tpch_like as PQ
 from spark_rapids_tpu_torch.config import RapidsConf
 from spark_rapids_tpu_torch.io.arrow_convert import arrow_to_host_batch
 from spark_rapids_tpu_torch.plan.overrides import GpuOverrides
-from spark_rapids_tpu_torch.plan.physical import ExecContext
+from spark_rapids_tpu_torch.plan.physical import (
+    ExecContext, HostToDeviceExec,
+)
 from spark_rapids_tpu_torch.session import GpuSparkSession
 
 from torch_port_util import one_torch_thread  # noqa: F401  (autouse)
@@ -231,9 +233,11 @@ def _port_scan(session, df):
 
 def _first_staged(session, df):
     """The first batch the port's HostToDeviceExec stages above the scan
-    (through the read-ahead worker at the default depth)."""
+    (through the read-ahead worker at the default depth).  A plan of the
+    scan alone stays on the host, as the JAX package's does, so the
+    staging exec is put above it here."""
     phys = GpuOverrides(session.conf).apply(df.plan)
-    h2d = _find(phys, "HostToDeviceExec")
+    h2d = _find(phys, "HostToDeviceExec") or HostToDeviceExec(phys)
     part = h2d.partitions(ExecContext(session.conf, session.device))[0]
     first = next(part)
     part.close()

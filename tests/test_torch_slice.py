@@ -31,7 +31,6 @@ from spark_rapids_tpu_torch.config import RapidsConf
 from spark_rapids_tpu_torch.dataframe import DataFrame
 from spark_rapids_tpu_torch.kernels import cuda_tier
 from spark_rapids_tpu_torch.plan.logical import InMemoryScan
-from spark_rapids_tpu_torch.plan.overrides import UnsupportedPlanError
 from spark_rapids_tpu_torch.session import GpuSparkSession
 
 from torch_port_util import (  # noqa: F401  (one_torch_thread: autouse)
@@ -79,11 +78,24 @@ def test_headline_matches_jax(n_batches, rows, extra):
 
 
 def test_float_sum_needs_variable_float_agg():
+    """Without ``spark.rapids.sql.variableFloatAgg.enabled`` the float
+    sums and averages put the aggregate on the host (the explain line
+    names the conf) and the sort stays on the device; the rows equal the
+    JAX package's at the same settings exactly: both aggregate the same
+    rows in the same order on the host."""
     psess = GpuSparkSession(RapidsConf(), device="cpu")
-    _, pparts = _tables(1, 64)
+    jparts, pparts = _tables(2, 2048)
     df = DataFrame(InMemoryScan(pparts, pparts[0].schema, 1), psess)
-    with pytest.raises(UnsupportedPlanError, match="variableFloatAgg"):
-        headline_query(df, PF).collect()
+    got = headline_query(df, PF).collect()
+    assert "!Aggregate cannot run on GPU because aggregate Sum" in \
+        psess.last_explain
+    assert "variableFloatAgg" in psess.last_explain
+    tree = psess.last_physical_plan.tree_string()
+    assert "CpuAggregate" in tree and "GpuSort" in tree
+    jsess = TpuSparkSession(JaxConf())
+    jdf = JaxDataFrame(JaxScan(jparts, jparts[0].schema, 1), jsess)
+    assert got == headline_query(jdf, JF).collect()
+    assert len(got) > 100
 
 
 def test_slice_runs_without_jax():

@@ -8,6 +8,8 @@ the JAX package on the CPU.
   DISTINCT, CTEs and subqueries, ORDER BY a computed expression and by a
   renamed column, aggregation without keys; rows and plan shapes equal;
 * every construct the port lacks raises, naming it, "not ported yet";
+  a string cast and a float group key while NaNs are possible run on the
+  host instead, with the JAX package's rows;
 * each expression module's new expressions in one projection per module
   (one JAX compile each) over seeded inputs with NULLs and the edge values
   of Java's integer rules: mixed-sign division, ``x / 0``, ``x % 0``,
@@ -265,32 +267,76 @@ REFUSED = {
 }
 
 
+#: the REFUSED cases the planner now places on the host (the reason its
+#: explain line gives), as the JAX package does
+FALLS_BACK = {"cast-to-string": "involves a string conversion (CPU only)",
+              "cast-from-string": "involves a string conversion (CPU only)",
+              "float-group-key": "grouping by floating point when NaNs "
+                                 "are possible"}
+
+
+def _fallback_sessions(case):
+    """(port, JAX) sessions over the same view ``t`` for a FALLS_BACK
+    case: SETTINGS, or the defaults for the float key (hasNans on)."""
+    settings = {} if case == "float-group-key" else SETTINGS
+    data = {"d": [1.0, float("nan"), 1.0, -0.0, 0.0, None]} \
+        if case == "float-group-key" else \
+        {"a": [1, 2, None], "s": ["7", " 8 ", "x"]}
+    types = {"a": "INT", "d": "DOUBLE", "s": "STRING"}
+    psess = GpuSparkSession(RapidsConf(settings), device="cpu")
+    jsess = TpuSparkSession(JaxConf(settings))
+    psess.create_dataframe({k: (getattr(T, types[k]), v)
+                            for k, v in data.items()}
+                           ).create_or_replace_temp_view("t")
+    jsess.create_dataframe({k: (getattr(JT, types[k]), v)
+                            for k, v in data.items()}
+                           ).create_or_replace_temp_view("t")
+    return psess, jsess
+
+
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_unported_construct_raises(case):
-    """Parsed constructs without a counterpart raise at ``sql()``; those
-    whose operator or expression the planner refuses (string casts; a
-    float group key while NaNs are possible, which the JAX package keeps
-    on the CPU) raise at ``collect()``.  Nothing runs."""
+    """Parsed constructs without a counterpart raise at ``sql()``.  A
+    string cast and a float group key while NaNs are possible, which the
+    JAX package keeps on the CPU, run on the host: the explain line names
+    the reason and the rows equal the JAX package's (NaN equal to NaN;
+    each NaN key a group of its own, -0.0 one group with 0.0, as in the
+    JAX package's host aggregate)."""
+    if case in FALLS_BACK:
+        psess, jsess = _fallback_sessions(case)
+        got = psess.sql(REFUSED[case]).collect()
+        assert "cannot run on GPU because" in psess.last_explain
+        assert FALLS_BACK[case] in psess.last_explain
+        want = jsess.sql(REFUSED[case]).collect()
+        assert repr(got) == repr(want)
+        return
     sess = _refusal_session()
-    if case == "float-group-key":
-        sess = GpuSparkSession(RapidsConf(), device="cpu")
-        sess.create_dataframe({"d": (T.DOUBLE, [1.0])}
-                              ).create_or_replace_temp_view("t")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         sess.sql(REFUSED[case]).collect()
 
 
 def test_q10_refused_while_nans_are_possible():
     """TPC-H Q10 groups by the DOUBLE c_acctbal: with
-    ``spark.rapids.sql.hasNans`` on (the default) the JAX package plans
-    that aggregate on the CPU, and the port, with no CPU fallback, refuses
-    it by name."""
+    ``spark.rapids.sql.hasNans`` on (the default) the aggregate runs on
+    the host between the device joins and the device sort, as the JAX
+    package plans it.  Its rows are held to the JAX package's host engine
+    (no compile here; the mixed plan against the JAX package's at the
+    same settings is ``tests/test_torch_fallback.py``'s): keys, counts and
+    order exact, sums within 1e-9 relative (the device joins may hand the
+    host aggregate its rows in another order)."""
+    from spark_rapids_tpu.benchmarks import datagen as JD
+    from test_torch_tpch_sql import assert_rows_match
     sess = GpuSparkSession(RapidsConf(), device="cpu")
     PD.register_tpch(sess, sf=0.005, num_partitions=1)
-    with pytest.raises(NotImplementedError,
-                       match="Aggregate.*c_acctbal.*not ported yet"):
-        sess.sql(PQ.QUERIES["q10"]).collect()
-
+    got = sess.sql(PQ.QUERIES["q10"]).collect()
+    assert "!Aggregate cannot run on GPU because" in sess.last_explain
+    assert "grouping by floating point" in sess.last_explain
+    assert "CpuAggregate" in sess.last_physical_plan.tree_string()
+    jsess = TpuSparkSession(JaxConf({"spark.rapids.sql.enabled": False}))
+    JD.register_tpch(jsess, sf=0.005, num_partitions=1)
+    want = jsess.sql(JQ.QUERIES["q10"]).collect()
+    assert_rows_match(got, want, "q10")
+    assert got
 
 # -- each module's new expressions in one projection --------------------------
 

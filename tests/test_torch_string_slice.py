@@ -29,12 +29,9 @@ from spark_rapids_tpu_torch import functions as PF
 from spark_rapids_tpu_torch.benchmarks import datagen as PD
 from spark_rapids_tpu_torch.config import RapidsConf
 from spark_rapids_tpu_torch.dataframe import Column, DataFrame
-from spark_rapids_tpu_torch.exprs.base import ColumnRef
-from spark_rapids_tpu_torch.exprs.strings import StringContains
 from spark_rapids_tpu_torch.interop import host_batches
 from spark_rapids_tpu_torch.kernels import cuda_tier
 from spark_rapids_tpu_torch.plan.logical import InMemoryScan
-from spark_rapids_tpu_torch.plan.overrides import UnsupportedPlanError
 from spark_rapids_tpu_torch.session import GpuSparkSession
 
 from torch_port_util import one_torch_thread  # noqa: F401  (autouse)
@@ -107,24 +104,63 @@ def test_datagen_matches_jax(sf):
             np.testing.assert_array_equal(g, w, err_msg=name)
 
 
+def _needle_columns(df, B, S, C):
+    """``contains(p_type, p_type)`` (a needle column: every row holds
+    itself) in one package's modules."""
+    ref = B.ColumnRef("p_type", df.schema["p_type"].dtype)
+    return C(S.StringContains(ref, ref))
+
+
+@pytest.fixture(scope="module")
+def part_batches():
+    """(JAX, port) host batches of one part table, for every case."""
+    jdata = JD.gen_part(0.01)
+    n = len(next(iter(jdata.values()))[1])
+    jparts = [JaxHostBatch.from_pydict({
+        k: (t, np.asarray(v)[s:s + BATCH_ROWS])
+        for k, (t, v) in jdata.items()}) for s in range(0, n, BATCH_ROWS)]
+    return jparts, host_batches(PD.gen_part(0.01), BATCH_ROWS)
+
+
 @pytest.mark.parametrize("build,reason", [
-    (lambda df: df.filter(df["p_name"].like("%gr_en%")),
+    (lambda df, F, *_: df.filter(df["p_name"].like("%gr_en%")),
      "pattern '%gr_en%' is not ported"),
-    (lambda df: df.filter(df["p_brand"] < "Brand#3"),
+    (lambda df, F, *_: df.filter(df["p_brand"] < "Brand#3"),
      "string comparisons are not ported"),
-    (lambda df: df.filter(Column(StringContains(
-        ColumnRef("p_name", df.schema["p_name"].dtype),
-        ColumnRef("p_type", df.schema["p_type"].dtype)))),
+    (lambda df, F, *mods: df.filter(_needle_columns(df, *mods)),
      "pattern must be a literal"),
-    (lambda df: df.group_by("p_brand").agg(PF.min("p_name").alias("m")),
+    (lambda df, F, *_: df.group_by("p_brand").agg(F.min("p_name").alias("m")),
      "Min over strings is not ported"),
-    (lambda df: df.filter(df["p_size"].like("1%")),
+    (lambda df, F, *_: df.filter(df["p_size"].like("1%")),
      "Like: the input is not a string"),
 ], ids=["like-underscore", "string-order", "column-needle", "string-min",
         "like-on-int"])
-def test_unported_string_expression_is_refused(build, reason):
-    parts = host_batches(PD.gen_part(0.01), BATCH_ROWS)
+def test_unported_string_expression_is_refused(part_batches, build, reason):
+    """What the device path cannot run falls back: the node runs on the
+    host, its explain line names the reason, and the rows equal the JAX
+    package's at the same settings (exactly: both place the node on the
+    host, which filters and groups the same rows in the same order).  A
+    LIKE over an INT column the JAX package would place on its device,
+    which has no string bytes for it, so that case holds the port to the
+    JAX package's host engine (``spark.rapids.sql.enabled`` false)."""
+    from spark_rapids_tpu.dataframe import Column as JColumn
+    from spark_rapids_tpu.exprs import base as JB
+    from spark_rapids_tpu.exprs import strings as JS
+    from spark_rapids_tpu_torch.exprs import base as PB
+    from spark_rapids_tpu_torch.exprs import strings as PS
+    jparts, parts = part_batches
     sess = GpuSparkSession(RapidsConf(SETTINGS), device="cpu")
     df = DataFrame(InMemoryScan(parts, parts[0].schema, 1), sess)
-    with pytest.raises(UnsupportedPlanError, match=reason):
-        build(df).collect()
+    got = build(df, PF, PB, PS, Column).collect()
+    node = "Aggregate" if "Min" in reason else "Filter"
+    assert f"!{node} cannot run on GPU because" in sess.last_explain
+    assert reason in sess.last_explain
+    assert "Cpu" in sess.last_physical_plan.tree_string()
+    jconf = dict(SETTINGS)
+    if "input is not a string" in reason:
+        jconf["spark.rapids.sql.enabled"] = False
+    jdf = JaxDataFrame(JaxScan(jparts, jparts[0].schema, 1),
+                       TpuSparkSession(JaxConf(jconf)))
+    want = build(jdf, JF, JB, JS, JColumn).collect()
+    assert got == want
+    assert got

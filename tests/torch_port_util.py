@@ -83,21 +83,22 @@ def headline_query(df, F):
 def plan_shape(op):
     """A physical plan as nested (exec, children) tokens, either
     package's: the class name without its package prefix, plus what tells
-    two execs of one class apart.  The JAX package's coalesced shuffle
-    reader above a range exchange (adaptive partition coalescing, not
-    ported) is skipped."""
+    two execs of one class apart (host execs keep their ``Cpu`` prefix;
+    the transitions are ``HostToDevice``/``DeviceToHost``).  The JAX
+    package's coalesced shuffle reader above a range exchange (adaptive
+    partition coalescing, not ported) is skipped."""
     from spark_rapids_tpu_torch.parallel.exchange import PARTITIONINGS
     name = type(op).__name__
     if name == "TpuCoalescedShuffleReaderExec":
         return plan_shape(op.children[0])
     tok = name.replace("Tpu", "").replace("Gpu", "").replace("Exec", "")
-    if tok == "ShuffleExchange":
+    if tok.endswith("ShuffleExchange"):
         kind = getattr(op, "kind", None)
         tok += "/" + (PARTITIONINGS[kind] if kind else
                       type(op.partitioning).__name__)
     if "HashJoin" in tok:
         tok += f"/{op.how}/{getattr(op, 'broadcast_side', '')}"
-    if tok == "NestedLoopJoin":
+    if tok.endswith("NestedLoopJoin"):
         tok += f"/{op.how}"
     if tok == "HashAggregate":
         tok += "/" + op.mode
