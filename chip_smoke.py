@@ -101,10 +101,26 @@ Phases, in order; any failure exits non-zero:
      orders and customer at TPC-H SF1's counts: Q1 must launch stringHash
      8 times and gatherScatter once a collect, as the cached Q1 does, and
      Q3's rows must equal the cached SQL Q3's;
+   * the TPC-DS phase: the port's own TPC-DS-like tables
+     (``benchmarks/tpcds_like.py``) at generator sf 29 (store_sales
+     2,900,000 rows, about TPC-DS SF1's 2,880,404; catalog_sales
+     1,160,000), cached on the card in 3 partitions; the 40 texts of the
+     tenth slice (UNION, INTERSECT, EXCEPT, window functions, ROLLUP,
+     stddev) and then the 65 texts that planned before it (at
+     ``TPCDS_EARLIER_SF``) through ``session.sql`` with the SQL phases'
+     settings (q67 and q70 without ``variableFloatAgg``, their float sums
+     on the host, as the reference's suite runs them), each held in order
+     to the port's host engine's rows over the same tables (computed
+     first, in worker processes on the host's cores), every stringHash
+     and gatherScatter call of each second collect held to its plain
+     version, each text's second-collect ms and launches on a line
+     (``python3 chip_smoke.py --tpcds-only`` runs this phase alone,
+     after the build, and prints no result line);
    each query must launch every kernel of its path, and every path but
    the fallback phase's must plan wholly on the card in the test mode
    (``spark.rapids.sql.test.enabled``: no host exec but a scan, a
-   transition or a collapsed host exchange);
+   transition or a collapsed host exchange; q67 and q70 their host
+   aggregate too);
 5. timings at the main paths' own shapes (gatherScatter: the headline
    merge's concat of its partials, every buffer, and a concat of the cached
    lineitem batches with its string columns; stringHash: Q1's two keys
@@ -1783,27 +1799,39 @@ def run_sql(session, name: str, check, label: str) -> dict:
     return run_checked(sql_query(session, name), check, label)
 
 
-def run_checked(query, check, label: str, on_gpu: bool = True) -> dict:
+def run_checked(query, check, label: str, on_gpu: bool = True,
+                concats: bool = False) -> dict:
     """``run_path`` of one query with stringHash, joinProbe and contains
     recorded, then each call of the second collect held equal to its plain
     version on its own inputs: a launch at a shape no earlier path makes
     is checked where it ran (and a fused join that overflows and reruns
     host-driven throws joinProbe's output away, so no row check sees it).
-    Returns the path, the recorded (origin, args) calls and the largest
-    differences (0 when equal)."""
+    With ``concats`` every gatherScatter call (``pack_columns``) of the
+    second collect is recorded and checked too.  Returns the path, the
+    recorded (origin, args) calls and the largest differences (0 when
+    equal)."""
+    import contextlib
     with Recorder("probe_join") as probes, \
             Recorder("string_hash_columns") as hashes, \
-            Recorder("rows_with_match") as matches:
-        path = run_path(None, query, check, label, (probes, hashes, matches),
+            Recorder("rows_with_match") as matches, \
+            (Recorder("pack_columns") if concats else
+             contextlib.nullcontext()) as packs:
+        recorders = (probes, hashes, matches) + ((packs,) if concats else ())
+        path = run_path(None, query, check, label, recorders,
                         on_gpu=on_gpu)
     launches = path["collect2"]["launches"]
     if len(hashes.calls) < launches["stringHash"] or \
             len(probes.calls) != launches["joinProbe"] or \
-            len(matches.calls) < launches["strings"]:
+            len(matches.calls) < launches["strings"] or \
+            (concats and len(packs.calls) < launches["gatherScatter"]):
         raise AssertionError(f"{label}: {len(hashes.calls)} stringHash, "
-                             f"{len(probes.calls)} joinProbe and "
-                             f"{len(matches.calls)} contains calls recorded "
-                             f"for launches {launches}")
+                             f"{len(probes.calls)} joinProbe, "
+                             f"{len(matches.calls)} contains and "
+                             f"{len(packs.calls) if concats else '-'} "
+                             f"gatherScatter calls recorded for launches "
+                             f"{launches}")
+    for i, (origin, args) in enumerate(packs.calls if concats else ()):
+        check_columns(*args, f"{label}, concat {i} ({origin})")
     hash_err = max((check_hashes(args[0], f"{label}, {origin}")
                     for origin, args in hashes.calls), default=0)
     probe_err = max((check_probe(args[:-1], args[-1], f"{label}, join {i}")
@@ -1811,13 +1839,15 @@ def run_checked(query, check, label: str, on_gpu: bool = True) -> dict:
     for origin, args in matches.calls:
         check_contains(*args, f"{label}, {origin}")
     origins = sorted({origin for origin, _ in hashes.calls})
+    packed = f", {len(packs.calls)} gatherScatter calls" if concats else ""
     print(f"{label}: the second collect's {len(hashes.calls)} stringHash "
           f"calls ({', '.join(origins) or 'none'}), {len(probes.calls)} "
-          f"joinProbe calls and {len(matches.calls)} contains calls == "
-          "plain versions on their own inputs", flush=True)
+          f"joinProbe calls{packed} and {len(matches.calls)} contains "
+          "calls == plain versions on their own inputs", flush=True)
     return {"path": path, "probes": probes.calls, "hashes": hashes.calls,
             "matches": matches.calls, "hash_err": hash_err,
-            "probe_err": probe_err}
+            "probe_err": probe_err,
+            "packs": len(packs.calls) if concats else 0}
 
 
 def check_contains(data, offsets, needle: bytes, label: str) -> None:
@@ -2212,6 +2242,213 @@ def fallback_phase(sql_data, sql_refs, q1_names, q1_ref, part_df,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the TPC-DS phase: all 105 TPC-DS-like texts through session.sql
+# ---------------------------------------------------------------------------
+
+#: generator sf 29: store_sales 2,900,000 rows, about TPC-DS SF1's
+#: 2,880,404 (the JAX package's benchmarks/tpcds_sf1.py ratio); catalog_sales
+#: 1,160,000, web_sales 580,000, inventory 870,000
+TPCDS_SF = 29
+TPCDS_PARTITIONS = 3
+#: the texts of the tenth slice: the set operations, window functions,
+#: ROLLUP and stddev the port's parser refused before it
+TPCDS_SLICE = ("q4", "q5", "q11", "q14", "q22", "q23a", "q23b", "q33",
+               "q56", "q60", "q71", "q74", "q75", "q76", "q77", "q80",
+               "q12", "q20", "q36", "q44", "q47", "q49", "q51", "q53",
+               "q57", "q63", "q70", "q86", "q89", "q98",
+               "q14a", "q14b", "q38", "q87",
+               "q18", "q27", "q67",
+               "q17", "q39a", "q39b")
+#: the reference's suite runs these two without variableFloatAgg
+#: (tests/test_tpcds_like.py): their float sums aggregate on the host, the
+#: one host exec they may hold besides the test mode's own
+TPCDS_NO_VAR_AGG = ("q67", "q70")
+#: the scale of the 65 texts that planned before this slice: sf 2.9
+#: (store_sales 290,000 rows), since at sf 29 they add ~75 s to a phase
+#: that would then grow the run's wall by ~200 s (PERF.md §4)
+TPCDS_EARLIER_SF = 2.9
+
+
+def tpcds_views(session, tables, cache: bool) -> None:
+    """Every table as ``TPCDS_PARTITIONS`` host batches, one per
+    partition, cached on the device or not, as the session's views."""
+    from spark_rapids_tpu_torch.dataframe import DataFrame
+    from spark_rapids_tpu_torch.interop import host_batches
+    from spark_rapids_tpu_torch.plan.logical import InMemoryScan
+    for name, data in tables.items():
+        n = len(next(iter(data.values()))[1])
+        parts = host_batches(data, max(1, -(-n // TPCDS_PARTITIONS)))
+        df = DataFrame(InMemoryScan(parts, parts[0].schema,
+                                    TPCDS_PARTITIONS), session)
+        (df.cache() if cache else df).create_or_replace_temp_view(name)
+
+
+def check_tpcds_rows(rows, want, label: str) -> None:
+    """The device's rows against the port's host engine's over the same
+    tables, in order: keys, counts and ranks exact; float sums, averages
+    and moments within 1e-9 relative (the device sums in another order
+    than the host engine's row-order ``np.sum``), NaN equal to NaN."""
+    if len(rows) != len(want):
+        raise AssertionError(f"{label}: {len(rows)} rows, the host engine "
+                             f"has {len(want)}")
+    for i, (r, w) in enumerate(zip(rows, want)):
+        for g, x in zip(r, w):
+            if isinstance(x, float) and isinstance(g, float):
+                ok = (g != g and x != x) or g == x or \
+                    abs(g - x) <= 1e-9 * abs(x)
+            else:
+                ok = g == x
+            if not ok:
+                raise AssertionError(f"{label} row {i}: {r} against the "
+                                     f"host engine's {w}")
+
+
+#: the host engine's sessions of a reference worker, by sf
+_HOST_SESSIONS = {}
+
+
+def _tpcds_host_rows(task):
+    """(name, rows, host ms) of one TPC-DS text on the port's host engine
+    (``spark.rapids.sql.enabled=false``, the CPU only) over the tables
+    the generator makes at ``sf``: a task of the reference workers."""
+    sf, name = task
+    import torch
+    from spark_rapids_tpu_torch.benchmarks.tpcds_like import (
+        QUERIES, build_tables,
+    )
+    from spark_rapids_tpu_torch.config import RapidsConf
+    from spark_rapids_tpu_torch.session import GpuSparkSession
+    torch.set_num_threads(1)
+    if sf not in _HOST_SESSIONS:
+        host = GpuSparkSession(RapidsConf(dict(
+            SQL_SETTINGS, **{"spark.rapids.sql.enabled": False})),
+            device="cpu")
+        tpcds_views(host, build_tables(sf), cache=False)
+        _HOST_SESSIONS[sf] = host
+    t0 = time.monotonic()
+    rows = _HOST_SESSIONS[sf].sql(QUERIES[name]).collect()
+    return name, rows, (time.monotonic() - t0) * 1e3
+
+
+def tpcds_references(sf, names) -> dict:
+    """{name: (rows, host ms)}: the host engine's rows of every text, in
+    worker processes (one per core but one; each makes the tables from
+    the generator's seeds, the same arrays as the card's), all joined
+    before this returns."""
+    import multiprocessing
+    workers = max(1, min(len(names), (os.cpu_count() or 2) - 1))
+    # q67 first: its host aggregate over the ROLLUP's nine copies is the
+    # longest task by far (~35 s at sf 29), so no worker starts it last
+    tasks = [(sf, n) for n in sorted(names, key=lambda n: n != "q67")]
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(workers) as pool:
+        out = {name: (rows, ms) for name, rows, ms in pool.imap_unordered(
+            _tpcds_host_rows, tasks)}
+        pool.close()
+        pool.join()
+    return out
+
+
+def run_tpcds(names, sessions, refs, label_sf) -> tuple:
+    """Each text of ``names`` through :func:`run_checked` (every
+    stringHash and gatherScatter call of its second collect held to its
+    plain version), its rows held to the port's host engine's over the
+    same tables (``refs``); each text's second-collect ms, host-engine ms
+    and launches on a line.  Every text runs before a failure is raised.
+    Returns ({label: result}, [faults])."""
+    from spark_rapids_tpu_torch.benchmarks.tpcds_like import QUERIES
+    from spark_rapids_tpu_torch.plan.overrides import GpuOverrides
+    from spark_rapids_tpu_torch.session import (
+        _TEST_MODE_ALLOWED, _assert_on_gpu,
+    )
+    runs, faults = {}, []
+    for name in names:
+        label = f"TPC-DS {name} (sf {label_sf})"
+        novar = name in TPCDS_NO_VAR_AGG
+        session = sessions["novar" if novar else "var"]
+        text = QUERIES[name]
+        try:
+            want, host_ms = refs[name]
+            rec = run_checked(
+                lambda _: session.sql(text),
+                lambda rows, w=want, lb=label: check_tpcds_rows(rows, w, lb),
+                label, on_gpu=not novar, concats=True)
+            if novar:
+                # the test mode with the host aggregate allowed
+                df = session.sql(text)
+                conf = session.conf.copy(
+                    **{"spark.rapids.sql.test.enabled": True})
+                _assert_on_gpu(GpuOverrides(conf).apply(df.plan),
+                               _TEST_MODE_ALLOWED + ("CpuAggregateExec",))
+                if "variableFloatAgg" not in session.last_explain:
+                    raise AssertionError(f"{label}: no host aggregate "
+                                         "for its float sums")
+        except Exception as e:  # noqa: BLE001  (named with the others)
+            faults.append(f"{label}: {type(e).__name__}: {e}")
+            print(f"{label}: FAILED {type(e).__name__}: {e}", flush=True)
+            continue
+        c2 = rec["path"]["collect2"]
+        print(f"{label}: {c2['rows']} rows, collect "
+              f"{c2['wall_s'] * 1e3:.1f} ms, host engine {host_ms:.1f} ms, "
+              f"launches {c2['launches']}", flush=True)
+        runs[label] = {"path": rec["path"], "host_ms": host_ms,
+                       "hash_err": rec["hash_err"], "packs": rec["packs"]}
+        del rec
+    return runs, faults
+
+
+def tpcds_phase() -> dict:
+    """The TPC-DS phase: the port's own tables at ``TPCDS_SF``, cached on
+    the card in ``TPCDS_PARTITIONS`` partitions, the 40 texts of this
+    slice and then the 65 earlier ones (at ``TPCDS_EARLIER_SF``) through
+    ``session.sql`` with the SQL phases' settings, in the test mode, rows
+    held to the port's host engine (``spark.rapids.sql.enabled=false``)
+    over the same tables.  Across the phase gatherScatter and stringHash
+    must launch."""
+    import torch
+    from spark_rapids_tpu_torch.benchmarks.tpcds_like import (
+        QUERIES, build_tables,
+    )
+    from spark_rapids_tpu_torch.config import RapidsConf
+    from spark_rapids_tpu_torch.session import GpuSparkSession
+    out, faults = {}, []
+    earlier = tuple(q for q in sorted(QUERIES) if q not in TPCDS_SLICE)
+    scales = [(TPCDS_SF, TPCDS_SLICE), (TPCDS_EARLIER_SF, earlier)]
+    for sf, names in scales:
+        t0 = time.monotonic()
+        refs = tpcds_references(sf, names)
+        print(f"TPC-DS host engine at sf {sf}: {len(refs)} texts in "
+              f"{time.monotonic() - t0:.1f} s (worker processes)",
+              flush=True)
+        t0 = time.monotonic()
+        tables = build_tables(sf)
+        sessions = {
+            "var": GpuSparkSession(RapidsConf(SQL_SETTINGS)),
+            "novar": GpuSparkSession(RapidsConf(dict(
+                SQL_SETTINGS,
+                **{"spark.rapids.sql.variableFloatAgg.enabled": False})))}
+        for sess in sessions.values():
+            tpcds_views(sess, tables, cache=True)
+        print(f"TPC-DS tables at sf {sf}: " + ", ".join(
+            f"{k} {len(next(iter(v.values()))[1])}"
+            for k, v in tables.items()) +
+            f" rows, generated in {time.monotonic() - t0:.1f} s", flush=True)
+        del tables
+        runs, fs = run_tpcds(names, sessions, refs, sf)
+        out.update(runs)
+        faults += fs
+        del sessions, refs
+        torch.cuda.empty_cache()
+    if faults:
+        raise AssertionError("; ".join(faults))
+    for kernel in ("gatherScatter", "stringHash"):
+        if not sum(r["path"]["collect2"]["launches"][kernel]
+                   for r in out.values()):
+            raise AssertionError(f"the TPC-DS phase never launched {kernel}")
+    return out
+
+
 def q1_text() -> str:
     from spark_rapids_tpu_torch.benchmarks.tpch_like import QUERIES
     return QUERIES["q1"]
@@ -2248,6 +2485,13 @@ def main() -> int:
     print(f"build: {time.monotonic() - t0:.1f} s {built}", flush=True)
     for name in cuda_tier.SOURCES:  # every library built and loadable
         cuda_tier.load(name)
+    if "--tpcds-only" in sys.argv[1:]:
+        # a development run of the TPC-DS phase alone; it prints no
+        # result line
+        tpcds = tpcds_phase()
+        print(f"TPC-DS phase: {len(tpcds)} texts; wall "
+              f"{time.monotonic() - t_start:.1f} s", flush=True)
+        return 0
 
     cases = check_pack_matrix(device)
     print(f"kernel phase: gatherScatter == plain version over {cases} "
@@ -2712,6 +2956,14 @@ def main() -> int:
         del rec
     del pq_session
     scan_tmp.cleanup()
+    torch.cuda.empty_cache()
+
+    # ---- main paths: the TPC-DS texts through session.sql ----------------
+    t0 = time.monotonic()
+    tpcds = tpcds_phase()
+    print(f"TPC-DS phase: {len(tpcds)} texts == the host engine's rows, "
+          f"every stringHash and gatherScatter call == its plain version, "
+          f"in {time.monotonic() - t0:.1f} s", flush=True)
 
     # ---- string kernels: matrix and timings at the main paths' shapes ----
     p_type = cached_column(p_df, "p_type")
@@ -2736,7 +2988,7 @@ def main() -> int:
     hash_type = hash_numbers([p_type], "p_type batch")
     contains_main = contains_numbers(*p_name, b"green", "p_name batch")
     h_err = max(hash_q1["max_abs_err"], hash_part["max_abs_err"],
-                sql_hash_err)
+                sql_hash_err, max(r["hash_err"] for r in tpcds.values()))
     c_err = int((cuda_tier.rows_with_match(*p_name, b"green") !=
                  cuda_tier.rows_with_match_reference(*p_name, b"green"))
                 .sum())
@@ -2772,6 +3024,8 @@ def main() -> int:
                   for label, p in scan_paths.items()})
     paths.update({f"fallback ({k})": f["path"]["collect2"]["launches"]
                   for k, f in fallback.items()})
+    paths.update({label: r["path"]["collect2"]["launches"]
+                  for label, r in tpcds.items()})
     print(f"test mode: {len(ON_GPU_CHECKED)} earlier paths plan wholly on "
           f"the GPU with spark.rapids.sql.test.enabled", flush=True)
 
@@ -2809,7 +3063,10 @@ def main() -> int:
                              "q1": q1, "part": part_path, "q3": q3_paths,
                              "q3_broadcast_mesh_fused": bc_path,
                              "sql": sql_paths, "scan": scan_paths,
-                             "fallback": fallback},
+                             "fallback": fallback,
+                             "tpcds": {label: {"path": r["path"],
+                                               "host_ms": r["host_ms"]}
+                                       for label, r in tpcds.items()}},
                "test_mode_paths": ON_GPU_CHECKED,
                "q3_overflow_reruns": q3_fallbacks,
                "sql_metrics": sql_metrics, "card": card}

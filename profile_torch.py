@@ -4,7 +4,7 @@
     python3 profile_torch.py [--query headline|q1|part|q3|q1sql|q3sql|
                               q2|q4|q5|q6|q7|q8|q9|q10|q11|q12|q13|q14|
                               q15|q16|q17|q18|q19|q20|q21|q22|
-                              scan|q1pq|q6pq|q3pq ...]
+                              scan|q1pq|q6pq|q3pq|ds_q1|...|ds_q99 ...]
                              [--mesh] [--batches 16] [--set KEY=VALUE ...]
                              [--out build/profile.txt]
 
@@ -17,10 +17,13 @@ with ``--mesh`` both joins fused on a one-device mesh through joinProbe),
 or a TPC-H text through ``session.sql`` (``q1sql``, ``q3sql`` and
 ``q2``, ``q4`` to ``q22``: ``benchmarks/tpch_like.py`` over views of the
 tables at TPC-H SF1's counts, part and partsupp included, ``--mesh`` for
-the join queries Q3, Q5, Q10 and Q12); all but the headline are cached as
-batches of ``reader.batchSizeRows`` rows.  ``--query`` may be given
-several times for SQL texts: the tables are made once and each text is
-measured in turn, one JSON line each.
+the join queries Q3, Q5, Q10 and Q12), or a TPC-DS text (``ds_q1`` to
+``ds_q99``, ``ds_ss_max``: ``benchmarks/tpcds_like.py`` over chip_smoke's
+TPC-DS tables, generator sf 29 in 3 partitions; q67 and q70 without
+``variableFloatAgg``); all but the headline and the TPC-DS tables are
+cached as batches of ``reader.batchSizeRows`` rows.  ``--query`` may be
+given several times for TPC-H texts or for TPC-DS texts: the tables are
+made once and each text is measured in turn, one JSON line each.
 The scan lane's paths read parquet files instead, written with pyarrow at
 its default row groups into a temporary directory, in every collect:
 ``scan`` (bench.py's scan query over 4,194,304 rows of its table, 4 row
@@ -147,9 +150,13 @@ def main() -> int:
                              "q16", "q17", "q18", "q19", "q20", "q21",
                              "q22")}}
     on_parquet = {"scan": None, "q1pq": "q1", "q6pq": "q6", "q3pq": "q3"}
+    from spark_rapids_tpu_torch.benchmarks.tpcds_like import (
+        QUERIES as TPCDS_QUERIES, build_tables,
+    )
+    tpcds = {f"ds_{q}": q for q in TPCDS_QUERIES}
     ap.add_argument("--query", action="append",
                     choices=("headline", "q1", "part", "q3", *sql,
-                             *on_parquet))
+                             *on_parquet, *tpcds))
     ap.add_argument("--mesh", action="store_true",
                     help="join queries only: install a one-device mesh "
                          "(spark.rapids.shuffle.ici.enabled)")
@@ -160,17 +167,24 @@ def main() -> int:
     ap.add_argument("--out", default="build/profile.txt")
     args = ap.parse_args()
     queries = args.query or ["headline"]
-    if len(queries) > 1 and not all(q in sql for q in queries):
-        ap.error("several --query are SQL texts only")
+    if len(queries) > 1 and not (all(q in sql for q in queries) or
+                                 all(q in tpcds for q in queries)):
+        ap.error("several --query are TPC-H or TPC-DS texts only")
+    novar = {tpcds[q] in C.TPCDS_NO_VAR_AGG for q in queries if q in tpcds}
+    if len(novar) > 1:
+        ap.error("q67 and q70 run without variableFloatAgg: profile them "
+                 "apart from the other TPC-DS texts")
     for q in queries:
         if args.mesh and q not in ("q3", "q3sql", "q5", "q10", "q12"):
             ap.error(f"--mesh needs a join query, not {q}")
     args.query = queries[0]
     cuda_tier.build_all()
     conf = RapidsConf(dict(
-        C.SQL_SETTINGS if args.query in sql or args.query in on_parquet
-        else C.SETTINGS,
+        C.SQL_SETTINGS if args.query in sql or args.query in on_parquet or
+        args.query in tpcds else C.SETTINGS,
         **C.Q3_MODES["mesh-fused" if args.mesh else "host-driven"]))
+    if novar == {True}:
+        conf.set("spark.rapids.sql.variableFloatAgg.enabled", False)
     for kv in args.set:
         key, _, value = kv.partition("=")
         conf.set(key, value)
@@ -196,6 +210,13 @@ def main() -> int:
         else:
             C.parquet_views(session, dirs)
             query = C.sql_query(session, on_parquet[args.query])(None)
+    elif args.query in tpcds:
+        data = build_tables(C.TPCDS_SF)
+        C.tpcds_views(session, data, cache=True)
+        n_batches = sum(len(session.table(name).plan.children[0].batches)
+                        for name in data)
+        del data
+        query = session.sql(TPCDS_QUERIES[tpcds[args.query]])
     elif args.query in sql:
         data = {"customer": datagen.gen_customer(C.Q3_SF),
                 "orders": datagen.gen_orders(C.Q3_SF),
@@ -234,7 +255,8 @@ def main() -> int:
     for name in queries:
         if name != args.query:
             args.query = name
-            query = C.sql_query(session, sql[name])(None)
+            query = session.sql(TPCDS_QUERIES[tpcds[name]]) \
+                if name in tpcds else C.sql_query(session, sql[name])(None)
             joins.clear()
         out = args.out if len(queries) == 1 else \
             "{0}_{2}{1}".format(*os.path.splitext(args.out), name)

@@ -1,13 +1,15 @@
 """Lazy DataFrame frontend over the logical plan (port of the part of
-``spark_rapids_tpu/dataframe.py`` the port runs): select, filter,
-with_column, join and cross_join, union, group_by().agg() and agg() without
-keys (count(DISTINCT) through the two-level rewrite), distinct, order_by,
+``spark_rapids_tpu/dataframe.py`` the port runs): select and with_column
+(window expressions hoisted into Window nodes), filter, join and
+cross_join, union, intersect and subtract, group_by().agg() and agg()
+without keys (count(DISTINCT) through the two-level rewrite), rollup, cube
+and grouping_sets (an Expand under one aggregate), distinct, order_by,
 limit, cache, collect, explain, temp views for the SQL front end, and the
 Column operators of the ported expressions."""
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exprs import aggregates as A
@@ -208,7 +210,48 @@ class DataFrame:
             e = self._resolve(_to_expr(c))
             exprs.append(e)
             names.append(output_name(e, i))
-        return DataFrame(L.Project(exprs, names, self.plan), self.session)
+        return DataFrame(self._project_node(exprs, names), self.session)
+
+    def _project_node(self, exprs: List[Expression], names: List[str]
+                      ) -> L.LogicalPlan:
+        """A Project, with every window expression anywhere in its trees
+        hoisted into Window nodes below it (Spark's
+        ExtractWindowExpressions): each distinct window (by
+        ``fingerprint()``, which sees frames and offsets) becomes a hidden
+        ``__w<i>`` column, one Window node per (partition, order) spec."""
+        from spark_rapids_tpu_torch.exprs.windows import WindowExpression
+
+        found: Dict[str, Tuple[str, Expression]] = {}
+
+        def hoist(e: Expression) -> Expression:
+            if isinstance(e, WindowExpression):
+                key = e.fingerprint()
+                if key not in found:
+                    found[key] = (f"__w{len(found)}", e)
+                return ColumnRef(found[key][0], e.dtype, True)
+            kids = e.children
+            if not kids:
+                return e
+            new_kids = [hoist(c) for c in kids]
+            if all(a is b for a, b in zip(new_kids, kids)):
+                return e
+            return e.with_children(new_kids)
+
+        new_exprs = [hoist(e) for e in exprs]
+        if not found:
+            return L.Project(exprs, names, self.plan)
+        groups: Dict[str, List[Tuple[str, Expression]]] = {}
+        for hn, w in found.values():
+            orders = [(repr(o.child), o.ascending, o.nulls_first)
+                      for o in w.order_by]
+            key = f"{[repr(p) for p in w.partition_by]}|{orders}"
+            groups.setdefault(key, []).append((hn, w))
+        child = self.plan
+        for items in groups.values():
+            child = L.Window([w for _, w in items], [hn for hn, _ in items],
+                             child)
+        return L.Project([resolve(e, child.schema) for e in new_exprs],
+                         names, child)
 
     def with_column(self, name: str, col) -> "DataFrame":
         exprs, names = [], []
@@ -223,7 +266,7 @@ class DataFrame:
         if not replaced:
             exprs.append(self._resolve(_to_expr(col)))
             names.append(name)
-        return DataFrame(L.Project(exprs, names, self.plan), self.session)
+        return DataFrame(self._project_node(exprs, names), self.session)
 
     def filter(self, condition) -> "DataFrame":
         e = self._resolve(_to_expr(condition))
@@ -240,6 +283,68 @@ class DataFrame:
     def agg(self, *aggs) -> "DataFrame":
         """Aggregation without grouping keys: one row."""
         return GroupedData(self, [], []).agg(*aggs)
+
+    def _grouping_sets(self, cols, sets) -> "GroupingSetsData":
+        gd = self.group_by(*cols)
+        n = len(gd.keys)
+        for s in sets:
+            bad = [i for i in s if not (0 <= i < n)]
+            if bad:
+                raise ValueError(
+                    f"grouping set {s} references key positions {bad}; "
+                    f"only {n} grouping keys exist")
+        return GroupingSetsData(self, gd.keys, gd.names,
+                                [tuple(s) for s in sets])
+
+    def rollup(self, *cols) -> "GroupingSetsData":
+        """GROUP BY ROLLUP: the subtotal ladder ((k1..kn), (k1..kn-1),
+        ..., ()) through an Expand."""
+        return self._grouping_sets(cols, rollup_sets(len(cols)))
+
+    def cube(self, *cols) -> "GroupingSetsData":
+        """GROUP BY CUBE: every subset of the grouping keys."""
+        return self._grouping_sets(cols, cube_sets(len(cols)))
+
+    def grouping_sets(self, cols, sets) -> "GroupingSetsData":
+        """GROUPING SETS: ``sets`` is a list of tuples of key positions
+        (indices into ``cols``)."""
+        return self._grouping_sets(cols, [tuple(s) for s in sets])
+
+    def _set_op(self, other: "DataFrame", keep: str) -> "DataFrame":
+        """INTERSECT and EXCEPT (distinct): both sides unioned under a side
+        marker, grouped by every column, kept by the marker's min and max.
+        Group keys already take NULL (and NaN) as equal, SQL's set
+        equality; Spark plans these as semi and anti joins, the JAX package
+        (and so the port) as this aggregate."""
+        from spark_rapids_tpu_torch import functions as F
+        if len(self.columns) != len(other.columns):
+            raise ValueError(
+                f"set operation needs equal column counts: "
+                f"{len(self.columns)} vs {len(other.columns)}")
+        side = "__setop_side"
+        right = other.select(*[other[c2].alias(c1) for c1, c2 in
+                               zip(self.columns, other.columns)])
+        # the min/max group-by ignores how often a row occurs: no
+        # per-side distinct
+        u = (self.with_column(side, F.lit(0))
+             .union(right.with_column(side, F.lit(1))))
+        g = (u.group_by(*self.columns)
+             .agg(F.min(side).alias("__mn"), F.max(side).alias("__mx")))
+        mn, mx = g["__mn"], g["__mx"]
+        cond = (mn == 0) & (mx == 1) if keep == "both" else \
+            (mn == 0) & (mx == 0)
+        return g.filter(cond).select(*self.columns)
+
+    def intersect(self, other: "DataFrame") -> "DataFrame":
+        """Distinct rows present in both frames (SQL INTERSECT)."""
+        return self._set_op(other, "both")
+
+    def subtract(self, other: "DataFrame") -> "DataFrame":
+        """Distinct rows of this frame absent from ``other`` (SQL
+        EXCEPT)."""
+        return self._set_op(other, "left")
+
+    exceptDistinct = subtract
 
     def distinct(self) -> "DataFrame":
         """Distinct rows: an aggregate keyed by every column, with no
@@ -604,3 +709,95 @@ class GroupedData:
             else:
                 sel.append(Column(ColumnRef(a.output_name)))
         return outer.select(*sel)
+
+
+GROUPING_ID_COL = "__grouping_id"
+GROUPING_SET_COL = "__gset_idx"
+
+
+def rollup_sets(n: int):
+    """((0..n-1), (0..n-2), ..., ()): the ROLLUP ladder.  The order sets
+    the grouping id's bits: bit (n-1-i) marks key i masked."""
+    return [tuple(range(k)) for k in range(n, -1, -1)]
+
+
+def cube_sets(n: int):
+    """Every subset of the n grouping keys (CUBE)."""
+    import itertools
+    return [s for k in range(n, -1, -1)
+            for s in itertools.combinations(range(n), k)]
+
+
+class GroupingSetsData(GroupedData):
+    """GroupedData over ROLLUP, CUBE or GROUPING SETS: an Expand makes one
+    copy of the input per grouping set (the input's columns passed on for
+    the aggregates, the key columns masked to NULL where the set leaves
+    them out, the set's index and its grouping id), then ONE aggregation
+    groups by (masked keys, set index) (GpuExpandExec's role).  Only
+    ``agg``: the pandas paths are not ported, and raise as the JAX
+    package's do."""
+
+    def __init__(self, df: DataFrame, keys: List[Expression],
+                 names: List[str], sets: List[tuple]):
+        super().__init__(df, keys, names)
+        self.sets = sets
+
+    def apply_in_pandas(self, fn, schema) -> DataFrame:
+        raise NotImplementedError(
+            "apply_in_pandas under rollup/cube/grouping sets is not "
+            "supported (Spark has no pandas path for grouping sets "
+            "either); aggregate with agg() instead")
+
+    applyInPandas = apply_in_pandas
+
+    def agg_in_pandas(self, specs) -> DataFrame:
+        raise NotImplementedError(
+            "agg_in_pandas under rollup/cube/grouping sets is not "
+            "supported; aggregate with agg() instead")
+
+    def cogroup(self, other):
+        raise NotImplementedError(
+            "cogroup under rollup/cube/grouping sets is not supported")
+
+    def agg(self, *aggs) -> DataFrame:
+        from spark_rapids_tpu_torch import functions as F
+        n = len(self.keys)
+        child_fields = self.df.schema.fields
+        masked = [f"__gset_k{i}" for i in range(n)]
+        projections = []
+        # the set's index, not its grouping id, is the hidden group key:
+        # a repeated grouping set must give its rows again (SPARK-33229)
+        for si, s in enumerate(self.sets):
+            gid = sum(1 << (n - 1 - i) for i in range(n) if i not in s)
+            proj = [ColumnRef(f.name, f.dtype, f.nullable)
+                    for f in child_fields]
+            for i, k in enumerate(self.keys):
+                proj.append(k if i in s else Literal(None, k.dtype))
+            proj.append(Literal(si, T.INT))
+            proj.append(Literal(gid, T.INT))
+            projections.append(proj)
+        names = [f.name for f in child_fields] + masked + \
+            [GROUPING_SET_COL, GROUPING_ID_COL]
+        expanded = DataFrame(L.Expand(projections, names, self.df.plan),
+                             self.df.session)
+        inner_keys = [ColumnRef(mn, k.dtype, True)
+                      for mn, k in zip(masked, self.keys)]
+        inner_keys.append(ColumnRef(GROUPING_SET_COL, T.INT, False))
+        gd = GroupedData(expanded, inner_keys,
+                         self.names + [GROUPING_SET_COL])
+        fixed = []
+        for a in aggs:
+            e = a.expr if isinstance(a, Column) else None
+            name = None
+            if isinstance(e, Alias):
+                name, e = e.alias_name, e.children[0]
+            if isinstance(e, A.GroupingID):
+                fixed.append(F.min(Column(
+                    ColumnRef(GROUPING_ID_COL, T.INT, False)))
+                    .alias(name or "grouping_id"))
+            else:
+                fixed.append(a)
+        out = gd.agg(*fixed)
+        return out.select(*[c for c in out.columns
+                            if c not in (GROUPING_ID_COL,
+                                         GROUPING_SET_COL)])

@@ -1,6 +1,8 @@
 """Declarative aggregate functions (port of
-``spark_rapids_tpu/exprs/aggregates.py``: sum, count, avg, min, max, and
-count(DISTINCT), which the DataFrame layer rewrites away).
+``spark_rapids_tpu/exprs/aggregates.py``: sum, count, avg, min, max, the
+central moments (stddev, variance and their population forms), and
+count(DISTINCT) and grouping_id(), which the DataFrame layer rewrites
+away).
 
 Each aggregate declares per-group buffers and three kernels:
 ``segment_update`` folds raw rows into buffers, ``segment_merge`` folds
@@ -18,8 +20,8 @@ group alone: integer sums and counts by one ``reduceat``, float sums and
 averages by one ``np.sum`` a group (numpy's pairwise order, so the bits
 are the JAX twin's), min and max by ``reduceat`` except where a float
 group holds a NaN or a zero, where Python's ``min``/``max`` order decides
-as in the JAX twin, and string min and max by Python's.  ``cpu_reduce`` is
-its one-group case.
+as in the JAX twin, string min and max by Python's, and the moments by one
+``np.var`` a group.  ``cpu_reduce`` is its one-group case.
 """
 
 from __future__ import annotations
@@ -350,6 +352,120 @@ class CountDistinct(AggregateFunction):
     def buffers(self):
         raise AssertionError(
             "CountDistinct must be rewritten before execution")
+
+
+class GroupingID(AggregateFunction):
+    """grouping_id(): the bitmask of the grouping keys a ROLLUP, CUBE or
+    GROUPING SETS row masked out.  A marker: the grouping-sets rewrite
+    (``GroupingSetsData.agg``) replaces it by ``min(__grouping_id)``, so
+    reaching execution means it was used outside grouping sets."""
+
+    def __init__(self):
+        super().__init__(Literal(0, T.INT))
+
+    def with_children(self, children):
+        return GroupingID()
+
+    def _resolve_type(self):
+        self.dtype = T.INT
+        self.nullable = False
+
+    def gpu_supported(self, conf):
+        return None
+
+    def buffers(self):
+        raise AssertionError(
+            "grouping_id() is only valid under rollup/cube/grouping sets")
+
+
+class _CentralMoment(AggregateFunction):
+    """The stddev and variance family over three DOUBLE buffers: the
+    valid count n, the sum (n times the mean) and m2, the sum of squared
+    deviations from the group mean.
+
+    The update is two-pass: the group mean is gathered back to every row
+    by ``seg_ids`` before the squared deviations are summed (never the
+    cancelling sum of squares minus the squared sum over n).  Partials
+    merge by the deviation form of Chan's combine, m2 = sum(m2_i) +
+    sum(n_i * (mean_i - mean)^2).  Spark's results: NULL over no row, NaN
+    for one row of a sample variant (0/0), m2 clamped at 0."""
+
+    _sample = True   # ddof 1
+    _sqrt = False    # stddev, not variance
+
+    def _resolve_type(self):
+        self.dtype = T.DOUBLE
+        self.nullable = True
+
+    def buffers(self):
+        return [AggBufferSpec(T.DOUBLE), AggBufferSpec(T.DOUBLE),
+                AggBufferSpec(T.DOUBLE)]
+
+    def segment_update(self, v, seg_ids, num_segments, live_mask):
+        use = v.validity & live_mask
+        x = v.data.to(torch.float64).masked_fill(~use, 0.0)
+        n = segment_sum(use.to(torch.float64), seg_ids, num_segments)
+        s1 = segment_sum(x, seg_ids, num_segments)
+        mean = s1 / n.clamp(min=1.0)
+        d = torch.where(use, x - mean[seg_ids], 0.0)
+        m2 = segment_sum(d * d, seg_ids, num_segments)
+        ones = _ones(num_segments, n.device)
+        return [DevVal(T.DOUBLE, n, ones), DevVal(T.DOUBLE, s1, ones),
+                DevVal(T.DOUBLE, m2, ones)]
+
+    def segment_merge(self, buffers, seg_ids, num_segments, live_mask):
+        n_i, nm_i, m2_i = (b.data for b in buffers)
+        live = live_mask.to(torch.float64)
+        s0 = segment_sum(n_i * live, seg_ids, num_segments)
+        s1 = segment_sum(nm_i * live, seg_ids, num_segments)
+        mean = s1 / s0.clamp(min=1.0)
+        dev = nm_i / n_i.clamp(min=1.0) - mean[seg_ids]
+        m2 = segment_sum((m2_i + n_i * dev * dev) * live, seg_ids,
+                         num_segments)
+        ones = _ones(num_segments, s0.device)
+        return [DevVal(T.DOUBLE, s0, ones), DevVal(T.DOUBLE, s1, ones),
+                DevVal(T.DOUBLE, m2, ones)]
+
+    def finalize(self, buffers):
+        n, _, m2 = (b.data for b in buffers)
+        m2 = m2.clamp(min=0.0)  # negative rounding residue
+        out = m2 / (n - 1.0 if self._sample else n)  # one row, sample: NaN
+        if self._sqrt:
+            out = torch.sqrt(out)
+        return DevVal(T.DOUBLE, out, n > 0)
+
+    def cpu_reduce_groups(self, values, validity, starts):
+        """Each group by ``np.var`` over its valid rows, as the JAX twin's
+        ``cpu_reduce`` reduces one group (a sample variant's one-row
+        group is NaN without it)."""
+        keep, vstarts, counts = _valid_runs(validity, starts)
+        vals = values[keep].astype(np.float64)
+        out = np.zeros(len(starts), dtype=np.float64)
+        if self._sample:
+            out[counts == 1] = np.nan
+        ddof = 1 if self._sample else 0
+        with np.errstate(all="ignore"):
+            for g in np.flatnonzero(counts > ddof):
+                var = float(np.var(vals[vstarts[g]:vstarts[g] + counts[g]],
+                                   ddof=ddof))
+                out[g] = float(np.sqrt(var)) if self._sqrt else var
+        return out, counts > 0
+
+
+class StddevSamp(_CentralMoment):
+    _sample, _sqrt = True, True
+
+
+class StddevPop(_CentralMoment):
+    _sample, _sqrt = False, True
+
+
+class VarianceSamp(_CentralMoment):
+    _sample, _sqrt = True, False
+
+
+class VariancePop(_CentralMoment):
+    _sample, _sqrt = False, False
 
 
 @dataclasses.dataclass

@@ -1,5 +1,6 @@
 """Column functions (port of the part of ``spark_rapids_tpu/functions.py``
-whose expressions are ported)."""
+whose expressions are ported), and the window specs (``Window``,
+``WindowSpec``, ``Column.over``) with the ranking and offset functions."""
 
 from __future__ import annotations
 
@@ -7,7 +8,8 @@ from typing import Any
 
 from spark_rapids_tpu_torch.dataframe import Column, _to_expr
 from spark_rapids_tpu_torch.exprs import aggregates as A
-from spark_rapids_tpu_torch.exprs.base import ColumnRef, Literal
+from spark_rapids_tpu_torch.exprs import windows as W
+from spark_rapids_tpu_torch.exprs.base import Alias, ColumnRef, Literal
 
 
 def col(name: str) -> Column:
@@ -42,6 +44,34 @@ def min(c) -> Column:  # noqa: A001
 
 def max(c) -> Column:  # noqa: A001
     return _agg(A.Max, c)
+
+
+def stddev(c) -> Column:
+    return _agg(A.StddevSamp, c)
+
+
+stddev_samp = stddev
+
+
+def stddev_pop(c) -> Column:
+    return _agg(A.StddevPop, c)
+
+
+def variance(c) -> Column:
+    return _agg(A.VarianceSamp, c)
+
+
+var_samp = variance
+
+
+def var_pop(c) -> Column:
+    return _agg(A.VariancePop, c)
+
+
+def grouping_id() -> Column:
+    """The bitmask of the keys a rollup, cube or grouping-sets row
+    masked out."""
+    return Column(A.GroupingID())
 
 
 def count_distinct(c) -> Column:
@@ -107,3 +137,114 @@ class CaseBuilder:
         """The CASE with no ELSE: NULL where no branch holds."""
         from spark_rapids_tpu_torch.exprs.conditional import CaseWhen
         return Column(CaseWhen(self._branches, None))
+
+
+# -- window ------------------------------------------------------------------
+
+
+class WindowSpec:
+    """PARTITION BY, ORDER BY and the frame of a window; immutable, each
+    method gives a new spec."""
+
+    def __init__(self, partition_by=None, order_by=None, frame=None):
+        self._partition_by = partition_by or []
+        self._order_by = order_by or []
+        self._frame = frame
+
+    def partition_by(self, *cols) -> "WindowSpec":
+        exprs = [_to_expr(col(c) if isinstance(c, str) else c) for c in cols]
+        return WindowSpec(exprs, self._order_by, self._frame)
+
+    partitionBy = partition_by
+
+    def order_by(self, *cols) -> "WindowSpec":
+        from spark_rapids_tpu_torch.dataframe import _to_order
+        return WindowSpec(self._partition_by, [_to_order(c) for c in cols],
+                          self._frame)
+
+    orderBy = order_by
+
+    def _make_frame(self, kind: str, start, end) -> "WindowSpec":
+        def bound(v, what):
+            if v is None or v is Window.unboundedPreceding or \
+                    v is Window.unboundedFollowing:
+                return None
+            if isinstance(v, bool) or not isinstance(v, int):
+                raise TypeError(f"{kind} frame {what} bound must be an "
+                                f"int, got {v!r}")
+            return v
+        return WindowSpec(self._partition_by, self._order_by,
+                          W.WindowFrame(kind, bound(start, "start"),
+                                        bound(end, "end")))
+
+    def rows_between(self, start, end) -> "WindowSpec":
+        return self._make_frame("rows", start, end)
+
+    rowsBetween = rows_between
+
+    def range_between(self, start, end) -> "WindowSpec":
+        """A value frame over the single numeric order key (RANGE BETWEEN
+        x PRECEDING AND y FOLLOWING)."""
+        return self._make_frame("range", start, end)
+
+    rangeBetween = range_between
+
+
+class Window:
+    unboundedPreceding = object()
+    unboundedFollowing = object()
+    currentRow = 0
+
+    @staticmethod
+    def partition_by(*cols) -> WindowSpec:
+        return WindowSpec().partition_by(*cols)
+
+    partitionBy = partition_by
+
+    @staticmethod
+    def order_by(*cols) -> WindowSpec:
+        return WindowSpec().order_by(*cols)
+
+    orderBy = order_by
+
+
+class _OverColumn(Column):
+    pass
+
+
+def _over(self: Column, spec: WindowSpec) -> Column:
+    """``fn.over(spec)``: the function as a window expression (an alias
+    stays outside it)."""
+    e, name = self.expr, None
+    if isinstance(e, Alias):
+        name, e = e.alias_name, e.children[0]
+    w = W.WindowExpression(e, spec._partition_by, spec._order_by,
+                           spec._frame)
+    return Column(Alias(w, name) if name else w)
+
+
+Column.over = _over  # type: ignore[attr-defined]
+
+
+def row_number() -> Column:
+    return Column(W.RowNumber())
+
+
+def rank() -> Column:
+    return Column(W.Rank())
+
+
+def dense_rank() -> Column:
+    return Column(W.DenseRank())
+
+
+def lag(c, offset: int = 1, default=None) -> Column:
+    e = _to_expr(col(c) if isinstance(c, str) else c)
+    d = None if default is None else _to_expr(default)
+    return Column(W.Lag(e, offset, d))
+
+
+def lead(c, offset: int = 1, default=None) -> Column:
+    e = _to_expr(col(c) if isinstance(c, str) else c)
+    d = None if default is None else _to_expr(default)
+    return Column(W.Lead(e, offset, d))

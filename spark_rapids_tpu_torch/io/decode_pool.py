@@ -73,9 +73,12 @@ def get_decode_pool(nthreads: int) -> concurrent.futures.ThreadPoolExecutor:
         if _pool is not None and _pool_size >= nthreads:
             return _pool
         old = _pool
+        # a prefix of its own: a process that loads both packages (the
+        # parity tests) holds both pools, and each counts its threads by
+        # name
         _pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=max(nthreads, _pool_size),
-            thread_name_prefix="rapids-decode")
+            thread_name_prefix="rapids-torch-decode")
         _pool_size = max(nthreads, _pool_size)
     if old is not None:
         _shutdown(old)

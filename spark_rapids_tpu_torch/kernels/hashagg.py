@@ -14,8 +14,9 @@ Here the same stacked rows go through one ``index_add_`` keyed by
 rows, floats as 53-bit fixed-point limb rows against a per-chunk scale, all
 integer-valued f32 whose per-chunk sums stay below 2^24 — exact in any
 summation order, so atomics on the card give the reference's sums bit for
-bit.  min/max ride the same slot ids through the aggregates' own scatter
-reductions.
+bit.  min/max and the central moments ride the same slot ids through the
+aggregates' own segment kernels (the JAX package sends the moments to its
+sort path; the slot ids give the same groups).
 """
 
 from __future__ import annotations
@@ -87,7 +88,7 @@ def hash_group_aggregate(batch: ColumnBatch, key_vals: List[DevVal],
     table or a float sum saw non-finite values: the caller MUST discard the
     result and use the sort path."""
     from spark_rapids_tpu_torch.exprs.aggregates import (
-        Count, Max, Min, Sum,
+        Count, Max, Min, Sum, _CentralMoment,
     )
 
     cap = batch.capacity
@@ -138,7 +139,7 @@ def hash_group_aggregate(batch: ColumnBatch, key_vals: List[DevVal],
     rows: List[torch.Tensor] = [live.to(torch.float32)]  # per-slot count
     agg_plan = []
     for fn, v in zip(agg_fns, agg_inputs):
-        if type(fn) in (Min, Max):
+        if type(fn) in (Min, Max) or isinstance(fn, _CentralMoment):
             agg_plan.append(("segment", fn, v))
             continue
         use = v.validity & live
@@ -257,10 +258,10 @@ def hash_group_aggregate(batch: ColumnBatch, key_vals: List[DevVal],
 
 def hash_agg_capable(mode: str, key_types: List[T.DataType],
                      agg_fns: Sequence) -> bool:
-    """Static capability check: sum/count/avg/min/max over fixed-width
-    inputs, grouped by integral/date/bool keys."""
+    """Static capability check: sum/count/avg/min/max and the central
+    moments over fixed-width inputs, grouped by integral/date/bool keys."""
     from spark_rapids_tpu_torch.exprs.aggregates import (
-        Average, Count, Max, Min, Sum,
+        Average, Count, Max, Min, Sum, _CentralMoment,
     )
     if mode != "update":
         return False
@@ -268,7 +269,8 @@ def hash_agg_capable(mode: str, key_types: List[T.DataType],
         if not (kt.is_integral or kt in (T.DATE, T.BOOLEAN)):
             return False
     for fn in agg_fns:
-        if type(fn) in (Sum, Average, Min, Max):
+        if type(fn) in (Sum, Average, Min, Max) or \
+                isinstance(fn, _CentralMoment):
             if fn.child.dtype.is_string:
                 return False
         elif type(fn) is not Count:

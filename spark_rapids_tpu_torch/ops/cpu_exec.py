@@ -17,7 +17,9 @@ here:
   number, strings by code point;
 * a hash join emits each left row's matches in build order, then the
   unmatched rows (left, then right); a nested-loop join emits a left row's
-  NULL-padded row in its place.
+  NULL-padded row in its place;
+* an expand emits every input batch once per projection list; the window
+  exec is ``ops/window.py``.
 
 A string column may arrive as bytes and offsets (a device batch copied
 back, a file scan); the execs gather it in that form, and an expression
@@ -237,9 +239,19 @@ def sort_indices(batch: HostBatch, orders: List[SortOrder],
     """The JAX twin's stable row order (its ``sort_key_fn``): NULLs per
     ``nulls_first``, NaN above every number, strings by their bytes,
     descending keys reversed."""
+    lex = sort_key_words([batch.columns[i] for i in key_ordinals], orders)
+    if not lex:
+        return np.arange(batch.num_rows)
+    return np.lexsort(lex[::-1])
+
+
+def sort_key_words(cols: List[HostColumn], orders: List[SortOrder]
+                   ) -> List[np.ndarray]:
+    """The int64 words whose lexicographic order (the first word
+    primary) is ``sort_key_fn``'s over ``cols``: a NULL-class word and a
+    rank word per key."""
     keys = []
-    for o, i in zip(orders, key_ordinals):
-        col = batch.columns[i]
+    for o, col in zip(orders, cols):
         if col.dtype.is_string:
             rank = _string_codes(col)
         elif col.dtype.is_fractional:
@@ -254,13 +266,9 @@ def sort_indices(batch: HostBatch, orders: List[SortOrder],
         null_cls = 0 if o.nulls_first else 1
         cls = np.where(col.validity, 1 - null_cls, null_cls)
         rank = np.where(col.validity, rank, 0)
-        keys.append((cls, rank))
-    lex = []
-    for cls, rank in reversed(keys):
-        lex.extend([rank, cls])
-    if not lex:
-        return np.arange(batch.num_rows)
-    return np.lexsort(lex)
+        keys.append(cls)
+        keys.append(rank)
+    return keys
 
 
 class CpuInMemoryScanExec(CpuExec):
@@ -333,6 +341,30 @@ class CpuProjectExec(CpuExec):
                                     [self._column(e, hb, cctx)
                                      for e in self.exprs])
                 yield out
+
+        return [gen(p) for p in self.children[0].partitions(ctx)]
+
+
+class CpuExpandExec(CpuExec):
+    """Grouping-sets expansion on the host: every input batch once per
+    projection list, a column reference passed on as it is."""
+
+    def __init__(self, projections: List[List[Expression]],
+                 child: PhysicalOp, schema: T.Schema):
+        super().__init__([child], schema)
+        self.projections = projections
+
+    def describe(self):
+        return f"CpuExpand({len(self.projections)} projections)"
+
+    def partitions(self, ctx):
+        def gen(part):
+            for hb in part:
+                with host_timer(ctx, self):
+                    outs = [HostBatch(self.output_schema,
+                                      [_key_column(e, hb) for e in proj])
+                            for proj in self.projections]
+                yield from outs
 
         return [gen(p) for p in self.children[0].partitions(ctx)]
 

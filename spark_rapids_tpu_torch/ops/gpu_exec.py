@@ -1,6 +1,7 @@
 """Device operators (port of ``spark_rapids_tpu/ops/tpu_exec.py``: range,
-project, filter, sort, hash aggregate, cached scan, union, local limit, the
-shuffled and broadcast hash joins, and the nested-loop join).
+project, expand, filter, sort, hash aggregate, cached scan, union, local
+limit, the shuffled and broadcast hash joins, and the nested-loop join; the
+window exec is ``ops/window.py``).
 
 Each exec runs its per-batch work eagerly as torch ops on ``ctx.device``.
 String columns ride every operator as offsets + bytes; string group keys
@@ -160,6 +161,33 @@ class GpuUnionExec(GpuExec):
         for b in part:
             yield ColumnBatch(self.output_schema, b.columns, b.num_rows,
                               b.capacity)
+
+
+class GpuExpandExec(GpuExec):
+    """Grouping-sets expansion: every input batch once per projection list
+    (the JAX package's ``TpuExpandExec``), each copy at the batch's
+    capacity and live-row count."""
+
+    def __init__(self, projections: List[List[Expression]],
+                 child: PhysicalOp, schema: T.Schema):
+        super().__init__([child], schema)
+        self.projections = [[bind_references(e, child.output_schema)
+                             for e in proj] for proj in projections]
+
+    def describe(self):
+        return f"GpuExpand({len(self.projections)} projections)"
+
+    def partitions(self, ctx):
+        def gen(part):
+            for batch in part:
+                ectx = GpuEvalCtx(batch)
+                for proj in self.projections:
+                    yield ColumnBatch(
+                        self.output_schema,
+                        [e.gpu_eval(ectx).to_column() for e in proj],
+                        batch.num_rows, batch.capacity)
+
+        return [gen(p) for p in self.children[0].partitions(ctx)]
 
 
 class GpuProjectExec(GpuExec):

@@ -1,5 +1,5 @@
 """Logical plan nodes built by the DataFrame frontend (port of the part of
-``spark_rapids_tpu/plan/logical.py`` the slice needs)."""
+``spark_rapids_tpu/plan/logical.py`` the port runs)."""
 
 from __future__ import annotations
 
@@ -207,6 +207,46 @@ class Union(LogicalPlan):
     @property
     def schema(self):
         return self.children[0].schema
+
+
+class Expand(LogicalPlan):
+    """Grouping-sets expansion: each projection list emits one copy of
+    every input row (GpuExpandExec's role)."""
+
+    def __init__(self, projections: List[List[Expression]],
+                 names: List[str], child: LogicalPlan):
+        self.projections = projections
+        self.names = names
+        self.children = (child,)
+
+    @property
+    def schema(self):
+        return T.Schema([T.Field(n, e.dtype, True)
+                         for n, e in zip(self.names, self.projections[0])])
+
+    def describe(self):
+        return f"Expand({len(self.projections)} projections)"
+
+
+class Window(LogicalPlan):
+    """The child's columns, then one column per window expression; every
+    expression of one node shares its (partition, order) spec."""
+
+    def __init__(self, window_exprs, output_names: List[str],
+                 child: LogicalPlan):
+        self.window_exprs = window_exprs
+        self.output_names = output_names
+        self.children = (child,)
+
+    @property
+    def schema(self):
+        base = list(self.children[0].schema.fields)
+        extra = [T.Field(n, w.dtype, True)
+                 for n, w in zip(self.output_names, self.window_exprs)]
+        return T.Schema(base + extra)
+
+    def describe(self):
+        return f"Window({', '.join(self.output_names)})"
 
 
 class Limit(LogicalPlan):

@@ -27,9 +27,11 @@ exactly and multiply every other node's row estimate by its output
 schema's per-column widths; joins and aggregates make no guess.  A file
 scan is estimated by its files' bytes on disk.  A residual join condition
 rides the hash join, which then runs host-driven; a cross join or a join
-without equi-keys is a nested-loop join.  On the host an aggregate, a join
-and a limit take a collapsed host exchange and the host twin
-(``ops/cpu_exec.py``).
+without equi-keys is a nested-loop join.  On the host an aggregate, a join,
+a window and a limit take a collapsed host exchange and the host twin
+(``ops/cpu_exec.py``, ``ops/window.py``).  A window goes through a hash
+exchange by its partition keys (a single-partition one without them) into
+the window exec; an expand is a device or host exec of its own.
 
 File scans decode on the host (``io/scan.py`` v1, ``io/scan_v2.py`` v2, the
 default).  Filter conjuncts over a file scan are pushed into it (advisory:
@@ -58,6 +60,7 @@ from spark_rapids_tpu_torch.exprs.base import (
 )
 from spark_rapids_tpu_torch.ops import cpu_exec as C
 from spark_rapids_tpu_torch.ops import gpu_exec as X
+from spark_rapids_tpu_torch.ops.window import CpuWindowExec, GpuWindowExec
 from spark_rapids_tpu_torch.parallel.exchange import (
     CpuShuffleExchangeExec, GpuShuffleExchangeExec,
 )
@@ -223,6 +226,14 @@ class GpuOverrides:
                 meta, list(node.left_keys) + list(node.right_keys), "join")
             if node.condition is not None:
                 meta.check_exprs(_paired_resolve(node))
+        elif isinstance(node, L.Expand):
+            for proj in node.projections:
+                meta.check_exprs(*proj)
+        elif isinstance(node, L.Window):
+            for w in node.window_exprs:
+                reason = w.gpu_supported(conf)
+                if reason:
+                    meta.will_not_work(reason)
 
     def _tag_string_keys(self, meta: PlanMeta, keys, what: str):
         """String keys group and join through device row hashes;
@@ -301,7 +312,28 @@ class GpuOverrides:
             return C.CpuUnionExec([_to_host(c) for c in conv], node.schema)
         if isinstance(node, L.Limit):
             return self._convert_limit(node, conv[0], on_gpu)
+        if isinstance(node, L.Expand):
+            if on_gpu:
+                return X.GpuExpandExec(node.projections, _to_device(conv[0]),
+                                       node.schema)
+            return C.CpuExpandExec(node.projections, _to_host(conv[0]),
+                                   node.schema)
+        if isinstance(node, L.Window):
+            return self._convert_window(node, conv[0], on_gpu)
         self._refuse(node, "no port of this operator yet")
+
+    def _convert_window(self, node: L.Window, child: PhysicalOp,
+                        on_gpu: bool) -> PhysicalOp:
+        """An exchange by the partition keys (one partition without
+        them), then the window exec over each whole partition."""
+        kind = "hash" if node.window_exprs[0].partition_by else "single"
+        if on_gpu:
+            return GpuWindowExec(
+                node.window_exprs, node.output_names,
+                self._exchange(node, kind, _to_device(child)), node.schema)
+        return CpuWindowExec(node.window_exprs, node.output_names,
+                             self._host_exchange(node, kind, child),
+                             node.schema)
 
     def _convert_aggregate(self, node: L.Aggregate, child: PhysicalOp,
                            on_gpu: bool) -> PhysicalOp:

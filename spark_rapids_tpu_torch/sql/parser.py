@@ -4,24 +4,34 @@
 Grammar, as in the JAX package:
 
   statement := [WITH name AS (query) [, ...]] query
-  query     := select [ORDER BY ...] [LIMIT n]
+  query     := set_term ((UNION | EXCEPT) [ALL | DISTINCT] set_term)*
+               [ORDER BY ...] [LIMIT n]
+  set_term  := select (INTERSECT [DISTINCT] select)*
   select    := SELECT [DISTINCT] proj (, proj)* FROM source (join)*
-               [WHERE expr] [GROUP BY expr*] [HAVING expr]
+               [WHERE expr] [GROUP BY group] [HAVING expr]
+  group     := expr (, expr)* | ROLLUP (expr, ...) | CUBE (expr, ...)
+             | GROUPING SETS ((expr, ...) | expr, ...)
   source    := ident [[AS] alias] | ( query ) [AS] alias
   join      := [INNER|LEFT [OUTER]|RIGHT [OUTER]|FULL [OUTER]|LEFT SEMI|
                LEFT ANTI] JOIN source (ON expr | USING (cols))
              | CROSS JOIN source
-  expr      := standard precedence: OR > AND > NOT > cmp > add > mul > unary
+  expr      := standard precedence: OR > AND > NOT > cmp > add > mul > unary;
+               fn(...) OVER ([PARTITION BY ...] [ORDER BY ...]
+               [(ROWS | RANGE) BETWEEN bound AND bound])
 
 The same text builds the same logical plan as the JAX package, with the
-same output names (``_default_name``, the hidden ``__agg_i`` and
-``__having_i`` columns).  A construct whose expression or operator the port
-does not have yet raises :class:`NotImplementedError` naming it and saying
-"not ported yet": window functions and ``OVER``, ``explode``, GROUPING SETS,
-ROLLUP and CUBE, UNION, INTERSECT and EXCEPT, ``||`` and every function
-whose expression is not ported.  ``COUNT(DISTINCT x)`` is the one DISTINCT
-aggregate, over one column, as in the JAX package.  Nothing is guessed at
-and nothing is handed to the JAX package.
+same output names (``_default_name``, the hidden ``__agg_i``,
+``__having_i`` and ``__w<i>`` columns).  INTERSECT binds tighter than
+UNION and EXCEPT; UNION without ALL is a distinct union; INTERSECT ALL and
+EXCEPT ALL raise, as in the JAX package.  A window expression is opaque to
+the aggregate test, so ``avg(x) OVER (...)`` over a subquery's aggregate
+output plans a Window, not an aggregation.  A construct whose expression
+or operator the port does not have yet raises
+:class:`NotImplementedError` naming it and saying "not ported yet":
+``explode``, ``||`` and every function whose expression is not ported.
+``COUNT(DISTINCT x)`` is the one DISTINCT aggregate, over one column, as in
+the JAX package.  Nothing is guessed at and nothing is handed to the JAX
+package.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ from spark_rapids_tpu_torch.exprs import aggregates as A
 from spark_rapids_tpu_torch.exprs.base import (
     Alias, ColumnRef, Expression, Literal, SortOrder,
 )
+from spark_rapids_tpu_torch.exprs.windows import WindowExpression
 from spark_rapids_tpu_torch.sql.lexer import Token, tokenize
 
 
@@ -101,10 +112,42 @@ class Parser:
                     break
         return self.parse_query()
 
-    def parse_query(self):
+    def _setop_qualifier(self, op: str) -> bool:
+        """[ALL | DISTINCT] after a set-operation keyword; True for ALL."""
+        has_all = bool(self.accept("keyword", "all"))
+        has_distinct = bool(self.accept("keyword", "distinct"))
+        if has_all and has_distinct:
+            raise SyntaxError(f"{op.upper()} ALL DISTINCT is contradictory")
+        return has_all
+
+    def parse_set_term(self):
+        """select (INTERSECT select)*: INTERSECT binds tighter than UNION
+        and EXCEPT."""
         df = self.parse_select()
-        if self.at_kw("union", "intersect", "except"):
-            _not_ported(self.peek().value.upper())
+        while self.at_kw("intersect"):
+            self.next()
+            if self._setop_qualifier("intersect"):
+                raise NotImplementedError(
+                    "INTERSECT ALL (multiset semantics) is not "
+                    "supported; use INTERSECT [DISTINCT]")
+            df = df.intersect(self.parse_select())
+        return df
+
+    def parse_query(self):
+        df = self.parse_set_term()
+        while self.at_kw("union", "except"):
+            op = self.next().value
+            has_all = self._setop_qualifier(op)
+            if op == "union":
+                df = df.union(self.parse_set_term())
+                if not has_all:
+                    df = df.distinct()
+            elif has_all:
+                raise NotImplementedError(
+                    "EXCEPT ALL (multiset semantics) is not supported; "
+                    "use EXCEPT [DISTINCT]")
+            else:
+                df = df.subtract(self.parse_set_term())
         if self.at_kw("order"):
             self.next()
             self.expect("keyword", "by")
@@ -156,26 +199,73 @@ class Parser:
         if self.accept("keyword", "where"):
             where = self.parse_expr()
         group_by: Optional[List[Expression]] = None
+        group_sets = None  # None: a plain GROUP BY; else key index sets
         if self.accept("keyword", "group"):
             self.expect("keyword", "by")
             if self._at_ident("rollup", "cube") and \
                     self.peek(1).value == "(":
-                _not_ported(f"GROUP BY {self.peek().value.upper()}")
-            if self._at_ident("grouping") and \
+                group_by, group_sets = self.parse_rollup_cube()
+            elif self._at_ident("grouping") and \
                     self.peek(1).kind == "ident" and \
                     self.peek(1).value.lower() == "sets":
-                _not_ported("GROUP BY GROUPING SETS")
-            group_by = [self.parse_expr()]
-            while self.accept("op", ","):
-                group_by.append(self.parse_expr())
+                group_by, group_sets = self.parse_grouping_sets()
+            else:
+                group_by = [self.parse_expr()]
+                while self.accept("op", ","):
+                    group_by.append(self.parse_expr())
         having = None
         if self.accept("keyword", "having"):
             having = self.parse_expr()
         return self.build_select(df, star, projections, where, group_by,
-                                 having, distinct)
+                                 having, distinct, group_sets)
+
+    def parse_rollup_cube(self):
+        """ROLLUP (k, ...) or CUBE (k, ...): (keys, their index sets)."""
+        from spark_rapids_tpu_torch.dataframe import cube_sets, rollup_sets
+        kind = self.next().value.lower()
+        self.expect("op", "(")
+        keys = [self.parse_expr()]
+        while self.accept("op", ","):
+            keys.append(self.parse_expr())
+        self.expect("op", ")")
+        n = len(keys)
+        return keys, rollup_sets(n) if kind == "rollup" else cube_sets(n)
+
+    def parse_grouping_sets(self):
+        """GROUPING SETS ((a, b), a, ()): (the distinct keys in order of
+        first use, each set as their indices).  A bare expression is a set
+        of one (Spark's shorthand)."""
+        self.next()
+        self.next()
+        self.expect("op", "(")
+        sets, keys = [], []
+        while True:
+            one = []
+            if self.accept("op", "("):
+                if not (self.peek().kind == "op" and
+                        self.peek().value == ")"):
+                    one.append(self.parse_expr())
+                    while self.accept("op", ","):
+                        one.append(self.parse_expr())
+                self.expect("op", ")")
+            else:
+                one.append(self.parse_expr())
+            idxs = []
+            for e in one:
+                at = next((i for i, k in enumerate(keys)
+                           if repr(k) == repr(e)), None)
+                if at is None:
+                    at = len(keys)
+                    keys.append(e)
+                idxs.append(at)
+            sets.append(tuple(idxs))
+            if not self.accept("op", ","):
+                break
+        self.expect("op", ")")
+        return keys, sets
 
     def build_select(self, df, star, projections, where, group_by, having,
-                     distinct):
+                     distinct, group_sets=None):
         from spark_rapids_tpu_torch.dataframe import Column
         from spark_rapids_tpu_torch.exprs.base import output_name, resolve
         # WHERE runs on the FROM clause's rows, above its joins
@@ -188,7 +278,11 @@ class Parser:
             keys = [resolve(k, df.schema) for k in (group_by or [])]
             key_names = [output_name(k, i) for i, k in enumerate(keys)]
             key_map = {k.fingerprint(): nm for k, nm in zip(keys, key_names)}
-            gd = df.group_by(*[Column(k) for k in keys])
+            if group_sets is not None:
+                gd = df._grouping_sets([Column(k) for k in keys],
+                                       group_sets)
+            else:
+                gd = df.group_by(*[Column(k) for k in keys])
             aggs, post = [], []  # post: (output_name, expr-or-None)
             agg_map = {}  # fingerprint(agg) -> output column name
             for idx, (e, name) in enumerate(projections):
@@ -502,21 +596,58 @@ class Parser:
             while self.accept("op", ","):
                 args.append(self.parse_expr())
         self.expect("op", ")")
-        if self.at_kw("over"):
-            _not_ported(f"the window function {name_l}() OVER (...)")
-        return _build_function(name_l, args, star, distinct)
+        e = _build_function(name_l, args, star, distinct)
+        if self.accept("keyword", "over"):
+            e = self.parse_over(e)
+        return e
+
+    def parse_over(self, fn: Expression) -> Expression:
+        """OVER ([PARTITION BY ...] [ORDER BY ...] [frame])."""
+        from spark_rapids_tpu_torch.exprs.windows import WindowFrame
+        self.expect("op", "(")
+        part, orders, frame = [], [], None
+        if self.accept("keyword", "partition"):
+            self.expect("keyword", "by")
+            part.append(self.parse_expr())
+            while self.accept("op", ","):
+                part.append(self.parse_expr())
+        if self.accept("keyword", "order"):
+            self.expect("keyword", "by")
+            orders.append(self.parse_sort_item())
+            while self.accept("op", ","):
+                orders.append(self.parse_sort_item())
+        if self.at_kw("rows", "range"):
+            kind = self.next().value
+            self.expect("keyword", "between")
+            lo = self._frame_bound()
+            self.expect("keyword", "and")
+            hi = self._frame_bound()
+            frame = WindowFrame(kind, lo, hi)
+        self.expect("op", ")")
+        return WindowExpression(fn, part, orders, frame)
+
+    def _frame_bound(self):
+        """UNBOUNDED PRECEDING|FOLLOWING (None), CURRENT ROW (0) or
+        n PRECEDING|FOLLOWING (-n or n)."""
+        if self.accept("keyword", "unbounded"):
+            self.next()
+            return None
+        if self.accept("keyword", "current"):
+            self.expect("keyword", "row")
+            return 0
+        n = int(self.expect("number").value)
+        return -n if self.next().value == "preceding" else n
 
 
 # Functions the JAX package's SQL front end knows whose expressions the
 # port does not have yet.
 _UNPORTED_FUNCTIONS = frozenset("""
-    first last stddev stddev_samp std stddev_pop variance var_samp var_pop
+    first last
     sqrt exp ln log log2 log10 floor ceil ceiling sin cos tan asin acos atan
     signum sign sinh cosh tanh asinh acosh atanh cot upper ucase lower
     initcap hex lcase length char_length trim ltrim rtrim hour minute second
-    substring_index split grouping_id corr covar_pop covar_samp percentile
-    concat pow power round hash row_number rank dense_rank
-    lag lead replace regexp_replace split_part
+    substring_index split corr covar_pop covar_samp percentile
+    concat pow power round hash replace regexp_replace split_part
     concat_ws lpad rpad unix_timestamp to_unix_timestamp to_date date_format
     from_unixtime shiftleft shiftright shiftrightunsigned size
     array_contains array_min array_max sort_array array_position explode
@@ -542,11 +673,25 @@ def _build_function(name: str, args: List[Expression], star: bool,
         raise NotImplementedError(
             f"{name.upper()}(DISTINCT ...) is not supported; only "
             "COUNT(DISTINCT x)")
+    from spark_rapids_tpu_torch.exprs import windows as W
     simple = {"sum": A.Sum, "avg": A.Average, "mean": A.Average,
               "min": A.Min, "max": A.Max, "isnull": N.IsNull,
-              "isnan": N.IsNan}
+              "isnan": N.IsNan, "stddev": A.StddevSamp,
+              "stddev_samp": A.StddevSamp, "std": A.StddevSamp,
+              "stddev_pop": A.StddevPop, "variance": A.VarianceSamp,
+              "var_samp": A.VarianceSamp, "var_pop": A.VariancePop}
     if name in simple:
         return simple[name](*args)
+    if name == "grouping_id":
+        return A.GroupingID()
+    ranking = {"row_number": W.RowNumber, "rank": W.Rank,
+               "dense_rank": W.DenseRank}
+    if name in ranking:
+        return ranking[name]()
+    if name in ("lag", "lead"):
+        off = args[1].value if len(args) > 1 else 1
+        d = args[2] if len(args) > 2 else None
+        return (W.Lag if name == "lag" else W.Lead)(args[0], off, d)
     if name == "abs":
         from spark_rapids_tpu_torch.exprs.arithmetic import Abs
         return Abs(args[0])
@@ -575,6 +720,11 @@ def _build_function(name: str, args: List[Expression], star: bool,
 
 
 def _contains_agg(e: Expression) -> bool:
+    """True where ``e`` holds a grouping aggregate.  A window expression
+    is opaque: ``avg(x) OVER (...)`` is a window over plain rows, and does
+    not turn the select into an aggregation."""
+    if isinstance(e, WindowExpression):
+        return False
     if isinstance(e, A.AggregateFunction):
         return True
     return any(_contains_agg(c) for c in e.children)

@@ -294,6 +294,12 @@ def _fallback_sessions(case):
     return psess, jsess
 
 
+#: the REFUSED cases the port has since ported (windows, grouping sets,
+#: set operations): they run, and the rows equal the JAX package's
+PORTED = ("window", "window-agg", "grouping-sets", "rollup", "cube",
+          "union", "intersect", "except")
+
+
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_unported_construct_raises(case):
     """Parsed constructs without a counterpart raise at ``sql()``.  A
@@ -301,7 +307,24 @@ def test_unported_construct_raises(case):
     JAX package keeps on the CPU, run on the host: the explain line names
     the reason and the rows equal the JAX package's (NaN equal to NaN;
     each NaN key a group of its own, -0.0 one group with 0.0, as in the
-    JAX package's host aggregate)."""
+    JAX package's host aggregate).  The constructs ported since (windows,
+    ROLLUP, CUBE, GROUPING SETS, UNION, INTERSECT, EXCEPT) run on the
+    device and give the JAX host engine's rows (compared as a multiset:
+    the texts have no ORDER BY)."""
+    if case in PORTED:
+        sess = _refusal_session()
+        got = sess.sql(REFUSED[case]).collect()
+        jsess = TpuSparkSession(JaxConf({"spark.rapids.sql.enabled":
+                                         False}))
+        jsess.create_dataframe({"a": (JT.INT, [1, 2]),
+                                "d": (JT.DOUBLE, [1.0, 2.0]),
+                                "s": (JT.STRING, ["x", "y"])}
+                               ).create_or_replace_temp_view("t")
+        want = jsess.sql(REFUSED[case]).collect()
+        assert sorted(map(repr, got)) == sorted(map(repr, want))
+        from spark_rapids_tpu_torch.session import _assert_on_gpu
+        _assert_on_gpu(sess.last_physical_plan)  # no host exec but scans
+        return
     if case in FALLS_BACK:
         psess, jsess = _fallback_sessions(case)
         got = psess.sql(REFUSED[case]).collect()

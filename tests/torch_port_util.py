@@ -84,8 +84,9 @@ def plan_shape(op):
     """A physical plan as nested (exec, children) tokens, either
     package's: the class name without its package prefix, plus what tells
     two execs of one class apart (host execs keep their ``Cpu`` prefix;
-    the transitions are ``HostToDevice``/``DeviceToHost``).  The JAX
-    package's coalesced shuffle reader above a range exchange (adaptive
+    the transitions are ``HostToDevice``/``DeviceToHost``; a window exec
+    names its functions, an expand its number of projections).  The JAX
+    package's coalesced shuffle reader above an exchange (adaptive
     partition coalescing, not ported) is skipped."""
     from spark_rapids_tpu_torch.parallel.exchange import PARTITIONINGS
     name = type(op).__name__
@@ -102,4 +103,9 @@ def plan_shape(op):
         tok += f"/{op.how}"
     if tok == "HashAggregate":
         tok += "/" + op.mode
+    if tok.endswith("Window"):
+        tok += "/" + ",".join(type(w.function).__name__
+                              for w in op.window_exprs)
+    if tok.endswith("Expand"):
+        tok += f"/{len(op.projections)}"
     return (tok, tuple(plan_shape(c) for c in op.children))
