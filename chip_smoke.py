@@ -116,11 +116,31 @@ Phases, in order; any failure exits non-zero:
      version, each text's second-collect ms and launches on a line
      (``python3 chip_smoke.py --tpcds-only`` runs this phase alone,
      after the build, and prints no result line);
+   * the mortgage and TPCxBB lanes: the mortgage tables
+     (``benchmarks/mortgage_like.py``) at generator sf 50 (perf_raw
+     6,000,000 rows, 250,000 loans of 24 months; acq_raw 250,000 rows)
+     cached on the card in 3 partitions, the four entry points
+     (run_mortgage with its 12-way explode, simple_aggregates,
+     aggregates_with_join with murmur3 ``hash`` and ``first``,
+     aggregates_with_percentiles with the exact percentile rewrite) at the
+     device settings, then run_mortgage over CSV files of the same
+     tables (written with pyarrow into a temporary directory, read anew
+     each collect), each against an independent numpy answer on the
+     generator's dense layout (the CSV run also against the cached run's
+     rows); then the eight TPCxBB texts (``benchmarks/tpcxbb_like.py``)
+     at generator sf 30 (store_sales and web_clickstreams 3,000,000 rows)
+     cached in 3 partitions, at the JAX suite's settings and again at the
+     device settings with the test mode on, against the port's host
+     engine's rows (computed first in worker processes); every
+     stringHash and gatherScatter call of each second collect held to its
+     plain version, each path's rows, collect ms, launches and peak
+     device memory on a line (``--lanes-only`` runs this phase alone);
    each query must launch every kernel of its path, and every path but
    the fallback phase's must plan wholly on the card in the test mode
    (``spark.rapids.sql.test.enabled``: no host exec but a scan, a
    transition or a collapsed host exchange; q67 and q70 their host
-   aggregate too);
+   aggregate too, run_mortgage the project of its string ``coalesce``,
+   as the JAX planner places them);
 5. timings at the main paths' own shapes (gatherScatter: the headline
    merge's concat of its partials, every buffer, and a concat of the cached
    lineitem batches with its string columns; stringHash: Q1's two keys
@@ -2449,6 +2469,415 @@ def tpcds_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# main paths: the mortgage ETL and TPCxBB lanes
+# ---------------------------------------------------------------------------
+
+#: the mortgage generator's scale: 250,000 loans, perf_raw 6,000,000 rows
+#: (24 months a loan, TPC-H SF1's lineitem order of size), acq_raw 250,000
+MORTGAGE_SF = 50
+#: TPCxBB at sf 30: store_sales and web_clickstreams 3,000,000 rows,
+#: web_sales 1,500,000, inventory 1,200,000, store_returns 300,000
+TPCXBB_SF = 30
+LANE_PARTITIONS = 3
+MORTGAGE_ENTRIES = ("run_mortgage", "simple_aggregates",
+                    "aggregates_with_join", "aggregates_with_percentiles")
+#: the JAX suite's session (tests/compare.py tpu_session): the defaults
+#: with 4 shuffle partitions; the float sums then aggregate on the host
+TPCXBB_SETTINGS = {"spark.sql.shuffle.partitions": 4}
+#: host execs a lane path's plan holds under the test mode at the device
+#: settings, as the JAX planner's does (tests/test_torch_mortgage.py):
+#: run_mortgage's coalesce over strings builds its column on the host
+LANE_HOST_EXECS = {"run_mortgage": ("CpuProjectExec",),
+                   "run_mortgage over csv": ("CpuProjectExec",)}
+#: the kernels each mortgage path must launch: every aggregate's merge
+#: concatenates one partial a partition (gatherScatter); run_mortgage's
+#: string group keys and its join on seller names hash strings
+MORTGAGE_KERNELS = {"run_mortgage": ("gatherScatter", "stringHash"),
+                    "simple_aggregates": ("gatherScatter",),
+                    "aggregates_with_join": ("gatherScatter",),
+                    "aggregates_with_percentiles": ("gatherScatter",)}
+
+
+def lane_views(session, tables, cache: bool = True) -> None:
+    """Every table as ``LANE_PARTITIONS`` host batches, one a partition,
+    cached on the device (or not), as the session's views."""
+    from spark_rapids_tpu_torch.dataframe import DataFrame
+    from spark_rapids_tpu_torch.interop import host_batches
+    from spark_rapids_tpu_torch.plan.logical import InMemoryScan
+    for name, data in tables.items():
+        n = len(next(iter(data.values()))[1])
+        parts = host_batches(data, max(1, -(-n // LANE_PARTITIONS)))
+        df = DataFrame(InMemoryScan(parts, parts[0].schema,
+                                    LANE_PARTITIONS), session)
+        (df.cache() if cache else df).create_or_replace_temp_view(name)
+
+
+def _loan_groups(hashes):
+    """(order, starts): the loans grouped by their hash, each group's
+    loans in loan order (a stable sort), and each group's first place."""
+    order = np.argsort(hashes, kind="stable")
+    starts = np.flatnonzero(np.r_[True, np.diff(hashes[order]) != 0])
+    return order, starts
+
+
+def _percentile(sorted_vals, p):
+    """Spark's exact percentile of sorted values, as the rewrite computes
+    it: pos = (n - 1) * p, the two closest ranks interpolated."""
+    pos = float(len(sorted_vals) - 1) * p
+    lo = int(np.floor(pos))
+    frac = pos - lo
+    out = sorted_vals[lo] * (1.0 - frac)
+    return out + sorted_vals[lo + 1] * frac if frac > 0 else out
+
+
+def mortgage_references(perf, acq) -> dict:
+    """{entry: (names, {name: values}, exact names)}: the four entry
+    points answered in numpy on the generator's dense layout (every loan
+    has 24 consecutive months, loan-major; acq_raw one row a loan in
+    loan order), so no 72,000,000-row explode is ever built.
+
+    run_mortgage: the twelve-month expansion's bucket of (loan, year,
+    month) holds that month and the next 11 of the same loan, so the row's
+    delinquency_12 is (max status over them > 3) + (min UPB over them ==
+    0).  aggregates_with_join's ``first(orig_interest_rate)`` assumes the
+    input order, loans in loan order (acq_raw's partitions are contiguous
+    slices in order): among loans whose hashes collide it is the smallest
+    loan id's.  The hashes come from the port's host twin
+    (``murmur3_cols_cpu``), which the CPU tests hold to the JAX
+    package's bit for bit."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.benchmarks.mortgage_like import SELLER_MAP
+    from spark_rapids_tpu_torch.exprs.base import CpuVal
+    from spark_rapids_tpu_torch.exprs.hashing import murmur3_cols_cpu
+    loans = len(acq["loan_id"][1])
+    loan_id = np.asarray(perf["loan_id"][1])
+    if len(loan_id) != loans * 24 or not np.array_equal(
+            loan_id.reshape(loans, 24)[:, 0], np.arange(1, loans + 1)) or \
+            not (np.diff(loan_id.reshape(loans, 24), axis=1) == 0).all():
+        raise AssertionError("perf_raw is not 24 consecutive months a loan")
+    period = perf["monthly_reporting_period"][1]
+    for i in (0, 23, 24 * loans - 1):
+        s = i % 24
+        if period[i] != f"{2000 + s // 12:04d}-{s % 12 + 1:02d}-01":
+            raise AssertionError(f"perf_raw row {i}: period {period[i]}")
+    rate = np.asarray(perf["interest_rate"][1]).reshape(loans, 24)
+    upb = np.asarray(perf["current_actual_upb"][1]).reshape(loans, 24)
+    status = np.asarray(perf["current_loan_delinquency_status"][1]) \
+        .astype(np.int64).reshape(loans, 24)
+    a = {k: np.asarray(v) for k, (_, v) in acq.items()}
+    out = {}
+
+    # run_mortgage
+    win_max = np.empty((loans, 24), dtype=np.int64)
+    win_min = np.empty((loans, 24))
+    for s in range(24):
+        win_max[:, s] = status[:, s:s + 12].max(axis=1)
+        win_min[:, s] = upb[:, s:s + 12].min(axis=1)
+    d12 = (win_max > 3).astype(np.int64) + (win_min == 0).astype(np.int64)
+    mapping = dict(SELLER_MAP)
+    seller = np.array([mapping.get(x, x) for x in a["seller_name"]],
+                      dtype=object)
+    combo = np.array([f"{st}\x00{se}" for st, se in
+                      zip(a["property_state"], seller)])
+    keys, gid = np.unique(combo, return_inverse=True)
+    gid = gid.reshape(-1)
+    n_loans = np.bincount(gid)
+    max_upb = np.full(len(keys), -np.inf)
+    np.maximum.at(max_upb, gid, upb.max(axis=1))
+    out["run_mortgage"] = (
+        ["property_state", "seller", "rows_n", "delinq_12_sum", "avg_rate",
+         "avg_score", "max_upb"],
+        {"property_state": np.array([k.split("\x00")[0] for k in keys],
+                                    dtype=object),
+         "seller": np.array([k.split("\x00")[1] for k in keys],
+                            dtype=object),
+         "rows_n": 24 * n_loans,
+         "delinq_12_sum": np.bincount(gid, weights=d12.sum(axis=1))
+         .astype(np.int64),
+         "avg_rate": np.bincount(gid, weights=rate.sum(axis=1)) /
+         (24 * n_loans),
+         "avg_score": np.bincount(gid, weights=a["borrower_credit_score"])
+         / n_loans,
+         "max_upb": max_upb},
+        {"property_state", "seller", "rows_n", "delinq_12_sum", "max_upb"})
+
+    # simple_aggregates: each (loan, month) has its two years' rows
+    mm = np.maximum(rate[:, :12], rate[:, 12:]).reshape(-1)
+    zips = np.repeat(a["zip"].astype(np.int64), 12)
+    months = np.tile(np.arange(1, 13), loans)
+    order = np.lexsort((months, zips))
+    zk, mk = zips[order], months[order]
+    starts = np.flatnonzero(np.r_[True, (np.diff(zk) != 0) |
+                                  (np.diff(mk) != 0)])
+    out["simple_aggregates"] = (
+        ["zip", "timestamp_month", "min_max_monthly_rate"],
+        {"zip": zk[starts], "timestamp_month": mk[starts],
+         "min_max_monthly_rate": np.minimum.reduceat(mm[order], starts)},
+        {"zip", "timestamp_month", "min_max_monthly_rate"})
+
+    # aggregates_with_join and aggregates_with_percentiles, by hash
+    ids = np.arange(1, loans + 1, dtype=np.int64)
+    hashes = murmur3_cols_cpu([CpuVal(T.LONG, ids,
+                                      np.ones(loans, dtype=np.bool_))])
+    order, starts = _loan_groups(hashes)
+    out["aggregates_with_join"] = (
+        ["loan_id_hash", "min_int_rate", "first_int_rate", "max_dti"],
+        {"loan_id_hash": hashes[order][starts],
+         "min_int_rate": np.minimum.reduceat(rate.min(axis=1)[order],
+                                             starts),
+         "first_int_rate": a["orig_interest_rate"][order][starts],
+         "max_dti": np.maximum.reduceat(a["dti"][order], starts)},
+        {"loan_id_hash", "min_int_rate", "first_int_rate", "max_dti"})
+    ends = np.r_[starts[1:], loans]
+    srt = np.sort(rate, axis=1)
+    ps = (0.5, 0.75, 0.9, 0.99)
+    pct = {p: np.array([_percentile(srt[order[b]], p) for b in starts])
+           for p in ps}
+    for g in np.flatnonzero(ends - starts > 1):  # colliding hashes
+        vals = np.sort(rate[order[starts[g]:ends[g]]].reshape(-1))
+        for p in ps:
+            pct[p][g] = _percentile(vals, p)
+    sums = np.add.reduceat(rate.sum(axis=1)[order], starts)
+    out["aggregates_with_percentiles"] = (
+        ["loan_id_hash", "interest_rate_min", "interest_rate_max",
+         "interest_rate_avg", "interest_rate_50p", "interest_rate_75p",
+         "interest_rate_90p", "interest_rate_99p"],
+        {"loan_id_hash": hashes[order][starts],
+         "interest_rate_min": np.minimum.reduceat(rate.min(axis=1)[order],
+                                                  starts),
+         "interest_rate_max": np.maximum.reduceat(rate.max(axis=1)[order],
+                                                  starts),
+         "interest_rate_avg": sums / (24.0 * (ends - starts)),
+         "interest_rate_50p": pct[0.5], "interest_rate_75p": pct[0.75],
+         "interest_rate_90p": pct[0.9], "interest_rate_99p": pct[0.99]},
+        {"loan_id_hash", "interest_rate_min", "interest_rate_max"})
+    out["collisions"] = int((ends - starts > 1).sum())
+    return out
+
+
+def write_csv_tables(tables, root: str) -> dict:
+    """Each table as ``LANE_PARTITIONS`` CSV files, contiguous slices in
+    order (pyarrow: the port has no writer yet), in a directory of its
+    own under ``root``: {name: directory}.  The scan reads one batch a
+    file, as the cached views hold one a partition."""
+    import pyarrow as pa
+    import pyarrow.csv as pacsv
+    dirs = {}
+    for name, data in tables.items():
+        d = os.path.join(root, name)
+        os.makedirs(d, exist_ok=True)
+        table = pa.table({k: pa.array(np.asarray(v)) for k, (_, v)
+                          in data.items()})
+        per = -(-table.num_rows // LANE_PARTITIONS)
+        for i in range(LANE_PARTITIONS):
+            pacsv.write_csv(table.slice(i * per, per),
+                            os.path.join(d, f"part-{i}.csv"))
+        dirs[name] = d
+    return dirs
+
+
+def _lane_test_mode(frame, label: str, expected=()) -> None:
+    """The test mode over a lane path at the device settings: its plan
+    holds no host exec but a scan, a transition, a collapsed host
+    exchange and the ones the JAX planner also places on the host."""
+    from spark_rapids_tpu_torch.plan.overrides import GpuOverrides
+    from spark_rapids_tpu_torch.session import (
+        _TEST_MODE_ALLOWED, _assert_on_gpu,
+    )
+    conf = frame.session.conf.copy(**dict(
+        SQL_SETTINGS, **{"spark.rapids.sql.test.enabled": True}))
+    _assert_on_gpu(GpuOverrides(conf).apply(frame.plan),
+                   _TEST_MODE_ALLOWED + tuple(expected))
+    ON_GPU_CHECKED.append(label)
+
+
+def run_lane(query, check, label: str, need) -> dict:
+    """One lane path through :func:`run_checked` (every stringHash and
+    gatherScatter call of its second collect held to its plain
+    version), with the device's peak memory over both collects; its rows,
+    second-collect ms, launches and peak memory on a line."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = run_checked(query, check, label, on_gpu=False, concats=True)
+    peak = torch.cuda.max_memory_allocated()
+    _require(rec["path"], label, need)
+    c2 = rec["path"]["collect2"]
+    print(f"{label}: {c2['rows']} rows, collect {c2['wall_s'] * 1e3:.1f} "
+          f"ms, launches {c2['launches']}, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB", flush=True)
+    return {"path": rec["path"], "peak_bytes": peak,
+            "hash_err": rec["hash_err"], "packs": rec["packs"]}
+
+
+def _xbb_host_rows(task):
+    """(name, rows, host ms) of one TPCxBB text on the port's host engine
+    (the CPU only) over the generator's tables: a reference worker's
+    task."""
+    sf, name = task
+    import torch
+    from spark_rapids_tpu_torch.benchmarks.tpcxbb_like import (
+        QUERIES, build_tables,
+    )
+    from spark_rapids_tpu_torch.config import RapidsConf
+    from spark_rapids_tpu_torch.session import GpuSparkSession
+    torch.set_num_threads(1)
+    key = ("xbb", sf)
+    if key not in _HOST_SESSIONS:
+        host = GpuSparkSession(RapidsConf(dict(
+            TPCXBB_SETTINGS, **{"spark.rapids.sql.enabled": False})),
+            device="cpu")
+        lane_views(host, build_tables(sf), cache=False)
+        _HOST_SESSIONS[key] = host
+    t0 = time.monotonic()
+    rows = _HOST_SESSIONS[key].sql(QUERIES[name]).collect()
+    return name, rows, (time.monotonic() - t0) * 1e3
+
+
+def tpcxbb_references(sf, names) -> dict:
+    """{name: (rows, host ms)} from the host engine in worker processes."""
+    import multiprocessing
+    workers = max(1, min(len(names), (os.cpu_count() or 2) - 1))
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(workers) as pool:
+        out = {name: (rows, ms) for name, rows, ms in pool.imap_unordered(
+            _xbb_host_rows, [(sf, n) for n in names])}
+        pool.close()
+        pool.join()
+    return out
+
+
+def lanes_phase() -> dict:
+    """The mortgage ETL and TPCxBB lanes: mortgage at ``MORTGAGE_SF``
+    (tables cached on the card in ``LANE_PARTITIONS`` partitions), its
+    four entry points and run_mortgage once more over CSV files, each
+    against its numpy answer; the eight TPCxBB texts at ``TPCXBB_SF`` at
+    the JAX suite's settings and again at the device settings in the test
+    mode, against the port's host engine over the same tables.  Every
+    stringHash and gatherScatter call of each second collect is held to
+    its plain version."""
+    import torch
+    from spark_rapids_tpu_torch.benchmarks import mortgage_like as M
+    from spark_rapids_tpu_torch.benchmarks.tpcxbb_like import (
+        QUERIES, build_tables,
+    )
+    from spark_rapids_tpu_torch.config import RapidsConf
+    from spark_rapids_tpu_torch.session import GpuSparkSession
+    out, faults = {}, []
+
+    def attempt(label, fn):
+        try:
+            out[label] = fn()
+        except Exception as e:  # noqa: BLE001  (named with the others)
+            faults.append(f"{label}: {type(e).__name__}: {e}")
+            print(f"{label}: FAILED {type(e).__name__}: {e}", flush=True)
+
+    # ---- mortgage -------------------------------------------------------
+    t0 = time.monotonic()
+    tables = {"perf_raw": M.gen_performance(MORTGAGE_SF),
+              "acq_raw": M.gen_acquisition(MORTGAGE_SF)}
+    t1 = time.monotonic()
+    refs = mortgage_references(tables["perf_raw"], tables["acq_raw"])
+    print(f"mortgage tables at sf {MORTGAGE_SF}: perf_raw "
+          f"{len(tables['perf_raw']['loan_id'][1])}, acq_raw "
+          f"{len(tables['acq_raw']['loan_id'][1])} rows, generated in "
+          f"{t1 - t0:.1f} s, numpy answers in {time.monotonic() - t1:.1f} s "
+          f"({refs['collisions']} hash groups of more than one loan)",
+          flush=True)
+    session = GpuSparkSession(RapidsConf(SQL_SETTINGS))
+    lane_views(session, tables)
+    csv_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_csv_")
+    t1 = time.monotonic()
+    dirs = write_csv_tables(tables, csv_tmp.name)
+    print(f"mortgage tables written as CSV in {time.monotonic() - t1:.1f} "
+          "s", flush=True)
+    del tables
+    kept = {}
+    for entry in MORTGAGE_ENTRIES:
+        label = f"mortgage {entry} (sf {MORTGAGE_SF})"
+
+        def check(rows, e=entry, lb=label):
+            check_sql_rows(rows, refs[e], lb)
+            kept[e] = rows
+
+        def path(e=entry, lb=label):
+            query = getattr(M, e)
+            rec = run_lane(lambda _: query(session), check, lb,
+                           MORTGAGE_KERNELS[e])
+            _lane_test_mode(query(session), lb, LANE_HOST_EXECS.get(e, ()))
+            return rec
+
+        attempt(label, path)
+    # the reference's Run.csv entry: the ETL over the CSV files, read anew
+    # each collect (the period column infers as DATE)
+    csv_session = GpuSparkSession(RapidsConf(SQL_SETTINGS))
+    for name, d in dirs.items():
+        csv_session.register_view(name, csv_session.read.csv(d))
+    label = f"mortgage run_mortgage over csv (sf {MORTGAGE_SF})"
+
+    def check_csv(rows):
+        check_sql_rows(rows, refs["run_mortgage"], label)
+        if "run_mortgage" in kept:
+            check_same_rows(rows, kept["run_mortgage"],
+                            f"{label} vs the cached run")
+
+    def csv_path():
+        rec = run_lane(lambda _: M.run_mortgage(csv_session), check_csv,
+                       label, MORTGAGE_KERNELS["run_mortgage"])
+        _lane_test_mode(M.run_mortgage(csv_session), label,
+                        LANE_HOST_EXECS["run_mortgage over csv"])
+        return rec
+
+    attempt(label, csv_path)
+    del session, csv_session, refs, kept
+    csv_tmp.cleanup()
+    torch.cuda.empty_cache()
+
+    # ---- TPCxBB ---------------------------------------------------------
+    names = sorted(QUERIES, key=lambda q: int(q[1:]))
+    t0 = time.monotonic()
+    xrefs = tpcxbb_references(TPCXBB_SF, names)
+    print(f"TPCxBB host engine at sf {TPCXBB_SF}: {len(xrefs)} texts in "
+          f"{time.monotonic() - t0:.1f} s (worker processes)", flush=True)
+    t0 = time.monotonic()
+    tables = build_tables(TPCXBB_SF)
+    sessions = {
+        "suite": GpuSparkSession(RapidsConf(TPCXBB_SETTINGS)),
+        "test mode": GpuSparkSession(RapidsConf(dict(
+            SQL_SETTINGS, **TPCXBB_SETTINGS,
+            **{"spark.rapids.sql.test.enabled": True})))}
+    for sess in sessions.values():
+        lane_views(sess, tables)
+    print(f"TPCxBB tables at sf {TPCXBB_SF}: " + ", ".join(
+        f"{k} {len(next(iter(v.values()))[1])}" for k, v in tables.items())
+        + f" rows, generated in {time.monotonic() - t0:.1f} s", flush=True)
+    del tables
+    for mode, sess in sessions.items():
+        for name in names:
+            label = f"TPCxBB {name} (sf {TPCXBB_SF}, {mode})"
+            want, host_ms = xrefs[name]
+
+            def path(n=name, s=sess, w=want, lb=label):
+                return run_lane(lambda _: s.sql(QUERIES[n]),
+                                lambda rows: check_tpcds_rows(rows, w, lb),
+                                lb, ())
+
+            attempt(label, path)
+            if label in out:
+                out[label]["host_ms"] = host_ms
+    del sessions
+    torch.cuda.empty_cache()
+    if faults:
+        raise AssertionError("; ".join(faults))
+    ON_GPU_CHECKED.extend(f"TPCxBB {n} (test mode)" for n in names)
+    for kernel in ("gatherScatter", "stringHash"):
+        if not sum(r["path"]["collect2"]["launches"][kernel]
+                   for label, r in out.items() if label.startswith("TPCxBB")):
+            raise AssertionError(f"the TPCxBB lane never launched {kernel}")
+    return out
+
+
 def q1_text() -> str:
     from spark_rapids_tpu_torch.benchmarks.tpch_like import QUERIES
     return QUERIES["q1"]
@@ -2490,6 +2919,13 @@ def main() -> int:
         # result line
         tpcds = tpcds_phase()
         print(f"TPC-DS phase: {len(tpcds)} texts; wall "
+              f"{time.monotonic() - t_start:.1f} s", flush=True)
+        return 0
+    if "--lanes-only" in sys.argv[1:]:
+        # a development run of the mortgage and TPCxBB phase alone; it
+        # prints no result line
+        lanes = lanes_phase()
+        print(f"lanes phase: {len(lanes)} paths; wall "
               f"{time.monotonic() - t_start:.1f} s", flush=True)
         return 0
 
@@ -2965,6 +3401,13 @@ def main() -> int:
           f"every stringHash and gatherScatter call == its plain version, "
           f"in {time.monotonic() - t0:.1f} s", flush=True)
 
+    # ---- main paths: the mortgage ETL and TPCxBB lanes -------------------
+    t0 = time.monotonic()
+    lanes = lanes_phase()
+    print(f"lanes phase: {len(lanes)} paths == numpy or the host engine's "
+          f"rows, every stringHash and gatherScatter call == its plain "
+          f"version, in {time.monotonic() - t0:.1f} s", flush=True)
+
     # ---- string kernels: matrix and timings at the main paths' shapes ----
     p_type = cached_column(p_df, "p_type")
     p_brand = cached_column(p_df, "p_brand")
@@ -2988,7 +3431,8 @@ def main() -> int:
     hash_type = hash_numbers([p_type], "p_type batch")
     contains_main = contains_numbers(*p_name, b"green", "p_name batch")
     h_err = max(hash_q1["max_abs_err"], hash_part["max_abs_err"],
-                sql_hash_err, max(r["hash_err"] for r in tpcds.values()))
+                sql_hash_err, max(r["hash_err"] for r in tpcds.values()),
+                max(r["hash_err"] for r in lanes.values()))
     c_err = int((cuda_tier.rows_with_match(*p_name, b"green") !=
                  cuda_tier.rows_with_match_reference(*p_name, b"green"))
                 .sum())
@@ -3026,6 +3470,8 @@ def main() -> int:
                   for k, f in fallback.items()})
     paths.update({label: r["path"]["collect2"]["launches"]
                   for label, r in tpcds.items()})
+    paths.update({label: r["path"]["collect2"]["launches"]
+                  for label, r in lanes.items()})
     print(f"test mode: {len(ON_GPU_CHECKED)} earlier paths plan wholly on "
           f"the GPU with spark.rapids.sql.test.enabled", flush=True)
 
@@ -3066,7 +3512,12 @@ def main() -> int:
                              "fallback": fallback,
                              "tpcds": {label: {"path": r["path"],
                                                "host_ms": r["host_ms"]}
-                                       for label, r in tpcds.items()}},
+                                       for label, r in tpcds.items()},
+                             "lanes": {label: {
+                                 "path": r["path"],
+                                 "peak_bytes": r["peak_bytes"],
+                                 "host_ms": r.get("host_ms")}
+                                 for label, r in lanes.items()}},
                "test_mode_paths": ON_GPU_CHECKED,
                "q3_overflow_reruns": q3_fallbacks,
                "sql_metrics": sql_metrics, "card": card}

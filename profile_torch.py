@@ -4,7 +4,9 @@
     python3 profile_torch.py [--query headline|q1|part|q3|q1sql|q3sql|
                               q2|q4|q5|q6|q7|q8|q9|q10|q11|q12|q13|q14|
                               q15|q16|q17|q18|q19|q20|q21|q22|
-                              scan|q1pq|q6pq|q3pq|ds_q1|...|ds_q99 ...]
+                              scan|q1pq|q6pq|q3pq|ds_q1|...|ds_q99|
+                              mortgage_etl|mortgage_simple|mortgage_join|
+                              mortgage_pct|xbb_q5|...|xbb_q22 ...]
                              [--mesh] [--batches 16] [--set KEY=VALUE ...]
                              [--out build/profile.txt]
 
@@ -20,10 +22,19 @@ tables at TPC-H SF1's counts, part and partsupp included, ``--mesh`` for
 the join queries Q3, Q5, Q10 and Q12), or a TPC-DS text (``ds_q1`` to
 ``ds_q99``, ``ds_ss_max``: ``benchmarks/tpcds_like.py`` over chip_smoke's
 TPC-DS tables, generator sf 29 in 3 partitions; q67 and q70 without
-``variableFloatAgg``); all but the headline and the TPC-DS tables are
-cached as batches of ``reader.batchSizeRows`` rows.  ``--query`` may be
-given several times for TPC-H texts or for TPC-DS texts: the tables are
-made once and each text is measured in turn, one JSON line each.
+``variableFloatAgg``), or a path of the mortgage lane
+(``benchmarks/mortgage_like.py`` over chip_smoke's tables, generator sf 50
+in 3 partitions, the device settings: ``mortgage_etl`` run_mortgage,
+``mortgage_simple`` simple_aggregates, ``mortgage_join``
+aggregates_with_join, ``mortgage_pct`` aggregates_with_percentiles, whose
+largest layers are the 12-way explode and the percentile rewrite's
+window), or a TPCxBB text (``xbb_q5`` to ``xbb_q22``,
+``benchmarks/tpcxbb_like.py`` at generator sf 30 in 3 partitions, the JAX
+suite's settings); all but the headline and the TPC-DS, mortgage and
+TPCxBB tables are cached as batches of ``reader.batchSizeRows`` rows.
+``--query`` may be given several times for texts of one kind (TPC-H,
+TPC-DS, mortgage or TPCxBB): the tables are made once and each is
+measured in turn, one JSON line each.
 The scan lane's paths read parquet files instead, written with pyarrow at
 its default row groups into a temporary directory, in every collect:
 ``scan`` (bench.py's scan query over 4,194,304 rows of its table, 4 row
@@ -154,9 +165,16 @@ def main() -> int:
         QUERIES as TPCDS_QUERIES, build_tables,
     )
     tpcds = {f"ds_{q}": q for q in TPCDS_QUERIES}
+    from spark_rapids_tpu_torch.benchmarks import mortgage_like as M
+    from spark_rapids_tpu_torch.benchmarks import tpcxbb_like as X
+    mortgage = {"mortgage_etl": M.run_mortgage,
+                "mortgage_simple": M.simple_aggregates,
+                "mortgage_join": M.aggregates_with_join,
+                "mortgage_pct": M.aggregates_with_percentiles}
+    xbb = {f"xbb_{q}": q for q in X.QUERIES}
     ap.add_argument("--query", action="append",
                     choices=("headline", "q1", "part", "q3", *sql,
-                             *on_parquet, *tpcds))
+                             *on_parquet, *tpcds, *mortgage, *xbb))
     ap.add_argument("--mesh", action="store_true",
                     help="join queries only: install a one-device mesh "
                          "(spark.rapids.shuffle.ici.enabled)")
@@ -167,9 +185,10 @@ def main() -> int:
     ap.add_argument("--out", default="build/profile.txt")
     args = ap.parse_args()
     queries = args.query or ["headline"]
-    if len(queries) > 1 and not (all(q in sql for q in queries) or
-                                 all(q in tpcds for q in queries)):
-        ap.error("several --query are TPC-H or TPC-DS texts only")
+    if len(queries) > 1 and not any(all(q in kind for q in queries)
+                                    for kind in (sql, tpcds, mortgage, xbb)):
+        ap.error("several --query are texts of one kind only (TPC-H, "
+                 "TPC-DS, mortgage or TPCxBB)")
     novar = {tpcds[q] in C.TPCDS_NO_VAR_AGG for q in queries if q in tpcds}
     if len(novar) > 1:
         ap.error("q67 and q70 run without variableFloatAgg: profile them "
@@ -180,8 +199,9 @@ def main() -> int:
     args.query = queries[0]
     cuda_tier.build_all()
     conf = RapidsConf(dict(
+        C.TPCXBB_SETTINGS if args.query in xbb else
         C.SQL_SETTINGS if args.query in sql or args.query in on_parquet or
-        args.query in tpcds else C.SETTINGS,
+        args.query in tpcds or args.query in mortgage else C.SETTINGS,
         **C.Q3_MODES["mesh-fused" if args.mesh else "host-driven"]))
     if novar == {True}:
         conf.set("spark.rapids.sql.variableFloatAgg.enabled", False)
@@ -210,6 +230,16 @@ def main() -> int:
         else:
             C.parquet_views(session, dirs)
             query = C.sql_query(session, on_parquet[args.query])(None)
+    elif args.query in mortgage or args.query in xbb:
+        data = ({"perf_raw": M.gen_performance(C.MORTGAGE_SF),
+                 "acq_raw": M.gen_acquisition(C.MORTGAGE_SF)}
+                if args.query in mortgage else X.build_tables(C.TPCXBB_SF))
+        C.lane_views(session, data)
+        n_batches = sum(len(session.table(name).plan.children[0].batches)
+                        for name in data)
+        del data
+        query = mortgage[args.query](session) if args.query in mortgage \
+            else session.sql(X.QUERIES[xbb[args.query]])
     elif args.query in tpcds:
         data = build_tables(C.TPCDS_SF)
         C.tpcds_views(session, data, cache=True)
@@ -255,8 +285,14 @@ def main() -> int:
     for name in queries:
         if name != args.query:
             args.query = name
-            query = session.sql(TPCDS_QUERIES[tpcds[name]]) \
-                if name in tpcds else C.sql_query(session, sql[name])(None)
+            if name in tpcds:
+                query = session.sql(TPCDS_QUERIES[tpcds[name]])
+            elif name in mortgage:
+                query = mortgage[name](session)
+            elif name in xbb:
+                query = session.sql(X.QUERIES[xbb[name]])
+            else:
+                query = C.sql_query(session, sql[name])(None)
             joins.clear()
         out = args.out if len(queries) == 1 else \
             "{0}_{2}{1}".format(*os.path.splitext(args.out), name)

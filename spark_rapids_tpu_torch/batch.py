@@ -8,7 +8,9 @@ Port of ``spark_rapids_tpu/batch.py``.  The layout is the JAX package's:
 * every column has a bool validity mask (True = valid); NULL semantics live in
   the expressions, not in sentinel values;
 * strings are int32 ``offsets[capacity+1]`` into a flat uint8 byte buffer
-  (itself padded to a power of two), offsets constant past ``num_rows``.
+  (itself padded to a power of two), offsets constant past ``num_rows``;
+  an array column has the same layout over its flat element buffer
+  (:func:`_array_host_to_buffers`), and on the host one list a row.
 
 A host string column comes in one of two forms: one Python/numpy string a
 row, or, as Arrow and the file scans hand it over, the UTF-8 byte buffer
@@ -89,6 +91,10 @@ class HostColumn:
         if dtype.is_string:
             values = np.array([x if x is not None else "" for x in items],
                               dtype=object)
+        elif dtype.is_array:
+            values = np.empty(len(items), dtype=object)
+            for i, x in enumerate(items):
+                values[i] = list(x) if x is not None else []
         else:
             values = np.array([x if x is not None else 0 for x in items],
                               dtype=dtype.np_dtype)
@@ -142,6 +148,8 @@ class HostColumn:
                 out.append(None)
             elif self.dtype.is_string:
                 out.append(str(v))
+            elif self.dtype.is_array:
+                out.append([element_value(self.dtype.element, e) for e in v])
             elif self.dtype == T.BOOLEAN:
                 out.append(bool(v))
             elif self.dtype.is_fractional:
@@ -149,6 +157,20 @@ class HostColumn:
             else:
                 out.append(int(v))
         return out
+
+
+def element_value(dtype: T.DataType, v):
+    """One array element as Python gives it (None for an element NULL,
+    which only the host holds)."""
+    if v is None:
+        return None
+    if dtype.is_string:
+        return str(v)
+    if dtype == T.BOOLEAN:
+        return bool(v)
+    if dtype.is_fractional:
+        return float(v)
+    return int(v)
 
 
 def string_column(dtype: T.DataType, data, offsets,
@@ -291,9 +313,11 @@ def empty_device_batch(schema: T.Schema, device) -> ColumnBatch:
     cols = []
     for f in schema.fields:
         validity = torch.zeros(capacity, dtype=torch.bool, device=device)
-        if f.dtype.is_string:
+        if f.dtype.is_string or f.dtype.is_array:
+            elem = torch.uint8 if f.dtype.is_string else \
+                f.dtype.element.torch_dtype
             cols.append(DeviceColumn(
-                f.dtype, torch.zeros(MIN_BYTE_CAPACITY, dtype=torch.uint8,
+                f.dtype, torch.zeros(MIN_BYTE_CAPACITY, dtype=elem,
                                      device=device), validity,
                 torch.zeros(capacity + 1, dtype=torch.int32,
                             device=device)))
@@ -358,6 +382,32 @@ def _string_host_to_buffers(values: np.ndarray, validity: np.ndarray
     return offsets, data
 
 
+def _array_host_to_buffers(dtype: T.ArrayType, values: np.ndarray,
+                           validity: np.ndarray
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+    """Encode one list a row to (offsets int32[n+1], flat elements padded
+    to a power of two), the varlen layout strings use; a NULL row is
+    empty.  Element NULLs and array<string> have no device layout."""
+    if dtype.element.is_string:
+        raise NotImplementedError("array<string> has no device layout; "
+                                  "such columns stay on the host")
+    lists = [v if ok else [] for v, ok in zip(values, validity)]
+    if any(e is None for x in lists for e in x):
+        raise NotImplementedError("array element NULLs have no device "
+                                  "layout; such columns stay on the host")
+    lengths = np.fromiter((len(x) for x in lists), dtype=np.int64,
+                          count=len(lists))
+    offsets = np.zeros(len(lists) + 1, dtype=np.int32)
+    np.cumsum(lengths, out=offsets[1:])
+    total = int(offsets[-1])
+    data = np.zeros(round_up_capacity(max(total, 1), MIN_BYTE_CAPACITY),
+                    dtype=dtype.element.np_dtype)
+    if total:
+        data[:total] = np.asarray([e for x in lists for e in x],
+                                  dtype=dtype.element.np_dtype)
+    return offsets, data
+
+
 @functools.lru_cache(maxsize=None)
 def _torch_dtype(np_dtype: np.dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype=np_dtype)).dtype
@@ -403,6 +453,12 @@ def host_column_to_device(col: HostColumn, capacity: int,
             data = _stage(raw, len(raw), np.uint8, 0, device)
         full = _stage(offsets, capacity + 1, np.int32, offsets[-1], device)
         return DeviceColumn(col.dtype, data, validity, full)
+    if col.dtype.is_array:
+        offsets, raw = _array_host_to_buffers(col.dtype, col.values,
+                                              col.validity)
+        data = _stage(raw, len(raw), raw.dtype, 0, device)
+        full = _stage(offsets, capacity + 1, np.int32, offsets[-1], device)
+        return DeviceColumn(col.dtype, data, validity, full)
     data = _stage(col.values, capacity, col.dtype.np_dtype, 0, device)
     return DeviceColumn(col.dtype, data, validity)
 
@@ -423,7 +479,10 @@ def host_batch_bytes(hb: HostBatch) -> int:
     package counts characters there, which differ on non-ASCII text)."""
     total = 0
     for c in hb.columns:
-        if c.dtype.is_string:
+        if c.dtype.is_array:
+            total += sum(len(x) for x in c.values) * int(np.dtype(
+                c.dtype.element.np_dtype).itemsize) + len(c)
+        elif c.dtype.is_string:
             total += (int(c.offsets[-1]) if c.offsets is not None else
                       sum(len(str(x).encode("utf-8")) for x in c.values)) \
                 + len(c)
@@ -438,7 +497,8 @@ def host_sizes(batches: Sequence[ColumnBatch]
     """(num_rows, [string byte totals...]) for many batches in ONE host
     sync: every scalar is stacked on the device and fetched by a single
     ``.tolist()``.  String totals read ``offsets[-1]``, valid because
-    offsets are constant past ``num_rows``."""
+    offsets are constant past ``num_rows``; an array column's total is
+    its element count, in the same list."""
     if not batches:
         return []
     scalars = []
@@ -495,6 +555,14 @@ def device_to_host_many(batches: Sequence[ColumnBatch],
             if f.dtype.is_string and keep_offsets:
                 cols.append(HostColumn(f.dtype, cb[0].numpy(), validity,
                                        cb[2].numpy().copy()))
+            elif f.dtype.is_array:
+                data, offsets = cb[0].numpy(), cb[2].numpy()
+                values = np.empty(len(validity), dtype=object)
+                if len(validity):
+                    for i, seg in enumerate(np.split(
+                            data[:offsets[-1]], offsets[1:-1])):
+                        values[i] = seg.tolist()
+                cols.append(HostColumn(f.dtype, values, validity))
             elif f.dtype.is_string:
                 raw = cb[0].numpy().tobytes()
                 offsets = cb[2].numpy()

@@ -1,11 +1,12 @@
 """Lazy DataFrame frontend over the logical plan (port of the part of
-``spark_rapids_tpu/dataframe.py`` the port runs): select and with_column
-(window expressions hoisted into Window nodes), filter, join and
-cross_join, union, intersect and subtract, group_by().agg() and agg()
-without keys (count(DISTINCT) through the two-level rewrite), rollup, cube
-and grouping_sets (an Expand under one aggregate), distinct, order_by,
-limit, cache, collect, explain, temp views for the SQL front end, and the
-Column operators of the ported expressions."""
+``spark_rapids_tpu/dataframe.py`` the port runs): select, with_column
+(window expressions hoisted into Window nodes) and drop, filter, join and
+cross_join, union, intersect and subtract, explode, group_by().agg() and
+agg() without keys (count(DISTINCT) through the two-level rewrite,
+percentile through row_number and count windows), rollup, cube and
+grouping_sets (an Expand under one aggregate), distinct, order_by, limit,
+cache, collect, explain, temp views for the SQL front end, and the Column
+operators of the ported expressions."""
 
 from __future__ import annotations
 
@@ -267,6 +268,23 @@ class DataFrame:
             exprs.append(self._resolve(_to_expr(col)))
             names.append(name)
         return DataFrame(self._project_node(exprs, names), self.session)
+
+    def drop(self, *names: str) -> "DataFrame":
+        """Every column but ``names`` (a name the frame lacks is
+        ignored)."""
+        keep = [f for f in self.schema.fields if f.name not in names]
+        exprs = [ColumnRef(f.name, f.dtype, f.nullable) for f in keep]
+        return DataFrame(L.Project(exprs, [f.name for f in keep],
+                                   self.plan), self.session)
+
+    def explode(self, column: str, alias: Optional[str] = None,
+                pos: bool = False, outer: bool = False) -> "DataFrame":
+        """One row per element of the array column ``column``, the other
+        columns repeated, the element as ``alias`` (default ``col``);
+        ``pos`` adds the element's position, ``outer`` keeps an empty or
+        NULL array's row with a NULL element (on the host)."""
+        return DataFrame(L.Generate(column, alias or "col", pos, outer,
+                                    self.plan), self.session)
 
     def filter(self, condition) -> "DataFrame":
         e = self._resolve(_to_expr(condition))
@@ -622,10 +640,73 @@ class GroupedData:
             e = e.with_children([resolve(e.child, self.df.schema)])
             out.append(AggregateExpression(
                 e, name or f"{e.name.lower()}_{i}"))
+        if any(isinstance(a.fn, A.Percentile) for a in out):
+            return self._agg_with_percentile(out)
         if any(isinstance(a.fn, A.CountDistinct) for a in out):
             return self._agg_with_distinct(out)
         return DataFrame(L.Aggregate(self.keys, self.names, out,
                                      self.df.plan), self.df.session)
+
+    def _agg_with_percentile(self, out: List[AggregateExpression]
+                             ) -> DataFrame:
+        """The exact-percentile rewrite: no fixed-size buffer holds a
+        percentile's state, so each becomes ranks and an interpolation::
+
+            rn  = row_number() OVER (keys ORDER BY x IS NULL, x)
+            n   = count(x) OVER (keys)             -- the non-NULL count
+            pos = p * (n - 1); lo = floor(pos); frac = pos - lo
+            c   = x * (1 - frac) where rn - 1 == lo,
+                  x * frac       where rn - 1 == lo + 1 and frac > 0,
+                  NULL elsewhere
+            percentile = SUM(c) GROUP BY keys
+
+        NULL rows rank after every value and contribute NULL, so an
+        all-NULL group sums to NULL, as Spark's.  The value is gated, not
+        multiplied by a 0/1 weight, so an inf or NaN off the two ranks
+        cannot poison the sum.  Percentiles of one input share one window
+        pass; the other aggregates ride the final aggregation
+        unchanged."""
+        from spark_rapids_tpu_torch import functions as F
+        from spark_rapids_tpu_torch.exprs.nullexprs import IsNull
+
+        if any(isinstance(a.fn, A.CountDistinct) for a in out):
+            raise NotImplementedError(
+                "percentile and count_distinct in one aggregation; "
+                "split into separate aggregations")
+        df = self.df
+        key_cols = [Column(k) for k in self.keys]
+        contrib: Dict[int, str] = {}
+        ranks: Dict[str, Tuple[str, str]] = {}  # input -> (rn, n) columns
+        for i, a in enumerate(out):
+            if not isinstance(a.fn, A.Percentile):
+                continue
+            x = Column(a.fn.child)
+            wp = F.Window.partition_by(*key_cols)
+            key = repr(a.fn.child)
+            if key not in ranks:
+                nf, rn, n = f"__pct_nf{i}", f"__pct_rn{i}", f"__pct_n{i}"
+                df = (df.with_column(nf, Column(IsNull(a.fn.child)))
+                      .with_column(rn, F.row_number().over(
+                          wp.order_by(F.col(nf), x)))
+                      .with_column(n, F.count(x).over(wp)))
+                ranks[key] = (rn, n)
+            rn, n = ranks[key]
+            pos = (df[n] - 1).cast(T.DOUBLE) * F.lit(a.fn.percentage)
+            lo = F.floor(pos)
+            frac = pos - lo
+            rn0 = (df[rn] - 1).cast(T.DOUBLE)
+            name = f"__pct_c{i}"
+            df = df.with_column(
+                name,
+                F.when(rn0 == lo, x.cast(T.DOUBLE) * (F.lit(1.0) - frac))
+                .when((rn0 == lo + F.lit(1.0)) & (frac > F.lit(0.0)),
+                      x.cast(T.DOUBLE) * frac)
+                .otherwise(None))
+            contrib[i] = name
+        final = [AggregateExpression(
+            A.Sum(resolve(ColumnRef(contrib[i]), df.schema)), a.output_name)
+            if i in contrib else a for i, a in enumerate(out)]
+        return GroupedData(df, self.keys, self.names).agg(*final)
 
     def _agg_with_distinct(self, out: List[AggregateExpression]
                            ) -> DataFrame:

@@ -1,8 +1,8 @@
 """Declarative aggregate functions (port of
-``spark_rapids_tpu/exprs/aggregates.py``: sum, count, avg, min, max, the
-central moments (stddev, variance and their population forms), and
-count(DISTINCT) and grouping_id(), which the DataFrame layer rewrites
-away).
+``spark_rapids_tpu/exprs/aggregates.py``: sum, count, avg, min, max,
+first and last, the central moments (stddev, variance and their
+population forms), and count(DISTINCT), percentile and grouping_id(),
+which the DataFrame layer rewrites away).
 
 Each aggregate declares per-group buffers and three kernels:
 ``segment_update`` folds raw rows into buffers, ``segment_merge`` folds
@@ -17,8 +17,9 @@ The host twin is ``cpu_reduce_groups``: it reduces every group of a host
 aggregate at once, each group's rows contiguous and in row order, and
 gives for every group what the JAX package's ``cpu_reduce`` gives for the
 group alone: integer sums and counts by one ``reduceat``, float sums and
-averages by one ``np.sum`` a group (numpy's pairwise order, so the bits
-are the JAX twin's), min and max by ``reduceat`` except where a float
+averages as one ``np.sum`` a group gives them (numpy's pairwise order,
+so the bits are the JAX twin's; groups of up to 128 rows summed together,
+``_np_group_sums``), min and max by ``reduceat`` except where a float
 group holds a NaN or a zero, where Python's ``min``/``max`` order decides
 as in the JAX twin, string min and max by Python's, and the moments by one
 ``np.var`` a group.  ``cpu_reduce`` is its one-group case.
@@ -68,6 +69,42 @@ def _valid_runs(validity: np.ndarray, starts: np.ndarray):
     keep = np.flatnonzero(validity)
     vstarts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64)
     return keep, vstarts, counts
+
+
+def _np_group_sums(vals: np.ndarray, starts: np.ndarray,
+                   counts: np.ndarray) -> np.ndarray:
+    """Each group's ``np.sum`` (f64), bit for bit, groups of up to 128 rows
+    at once: numpy starts from 0.0 and adds a pairwise sum, which under 8
+    rows is one running sum and up to 128 rows eight running sums over
+    rows i mod 8, combined ((0+1)+(2+3))+((4+5)+(6+7)), then the rest
+    one by one.  Larger groups call ``np.sum`` each."""
+    out = np.zeros(len(starts), dtype=np.float64)
+    few = np.flatnonzero((counts > 0) & (counts < 8))
+    s, c = starts[few], counts[few]
+    acc = np.zeros(len(few))
+    for j in range(7):
+        m = c > j
+        acc[m] += vals[s[m] + j]
+    out[few] = 0.0 + acc
+    mid = np.flatnonzero((counts >= 8) & (counts <= 128))
+    s, c = starts[mid], counts[mid]
+    full = c - c % 8
+    lanes = [vals[s + k] for k in range(8)]
+    for i in range(8, 128, 8):
+        m = i < full
+        if not m.any():
+            break
+        for k in range(8):
+            lanes[k][m] += vals[s[m] + i + k]
+    acc = ((lanes[0] + lanes[1]) + (lanes[2] + lanes[3])) + \
+        ((lanes[4] + lanes[5]) + (lanes[6] + lanes[7]))
+    for j in range(7):
+        m = full + j < c
+        acc[m] += vals[s[m] + full[m] + j]
+    out[mid] = 0.0 + acc
+    for g in np.flatnonzero(counts > 128):
+        out[g] = np.sum(vals[starts[g]:starts[g] + counts[g]])
+    return out
 
 
 @dataclasses.dataclass
@@ -168,10 +205,7 @@ class Sum(AggregateFunction):
             return np.where(has, out, 0), has
         keep, vstarts, counts = _valid_runs(validity, starts)
         vals = values[keep].astype(np.float64)
-        out = np.zeros(len(starts), dtype=np.float64)
-        for g in np.flatnonzero(has):
-            out[g] = np.sum(vals[vstarts[g]:vstarts[g] + counts[g]])
-        return out, has
+        return _np_group_sums(vals, vstarts, counts), has
 
 
 class Count(AggregateFunction):
@@ -329,11 +363,8 @@ class Average(AggregateFunction):
         keep, vstarts, counts = _valid_runs(validity, starts)
         vals = values[keep].astype(np.float64)
         has = counts > 0
-        out = np.zeros(len(starts), dtype=np.float64)
-        for g in np.flatnonzero(has):
-            out[g] = np.sum(vals[vstarts[g]:vstarts[g] + counts[g]]) / \
-                counts[g]
-        return out, has
+        sums = _np_group_sums(vals, vstarts, counts)
+        return np.where(has, sums / np.maximum(counts, 1), 0.0), has
 
 
 class CountDistinct(AggregateFunction):
@@ -466,6 +497,153 @@ class VarianceSamp(_CentralMoment):
 
 class VariancePop(_CentralMoment):
     _sample, _sqrt = False, False
+
+
+_FAR = 1 << 62  # past every row index
+
+
+class _FirstLast(AggregateFunction):
+    """first(x) / last(x) [ignoring NULLs]: the value of the group's row
+    with the smallest (largest) input index.  The buffers are the value,
+    its validity and that row's LONG index, so partials merge by index.
+
+    The exec hands the update each row's global input index
+    (``row_index``): the row's position in its batch plus its partition
+    and batch ordinals above bit 31 (``ops/gpu_exec.py``
+    ``input_index_base``), so the pick is the group's first (last) row in
+    input order, partitions then batches then rows, on the device as on
+    the host, whose twin takes it from each group's rows in row order.
+    The JAX package's device path keeps the batch-local position instead,
+    so where one group spans partitions its merge compares positions of
+    different batches; wherever each group lives in one batch the two
+    agree."""
+
+    _is_first = True
+    #: segment_update takes the rows' input indices
+    takes_row_index = True
+
+    def __init__(self, child: Expression, ignore_nulls: bool = False):
+        self.ignore_nulls = bool(ignore_nulls)
+        super().__init__(child)
+
+    def with_children(self, children):
+        return type(self)(children[0], self.ignore_nulls)
+
+    def _resolve_type(self):
+        self.dtype = self.child.dtype
+        self.nullable = True
+
+    def buffers(self):
+        return [AggBufferSpec(self.dtype), AggBufferSpec(T.BOOLEAN),
+                AggBufferSpec(T.LONG)]
+
+    def _pick(self, data, valid, idx, seg_ids, num_segments, live_mask):
+        dev = data.device
+        cand = live_mask & valid if self.ignore_nulls else live_mask
+        far = _FAR if self._is_first else -_FAR
+        key = torch.where(cand, idx, far)
+        best = torch.full((num_segments,), far, dtype=torch.int64,
+                          device=dev).scatter_reduce_(
+            0, seg_ids.to(torch.int64), key,
+            "amin" if self._is_first else "amax", include_self=True)
+        # indices are unique, so each group has at most one winner
+        winner = cand & (best[seg_ids] == key)
+        slot = torch.where(winner, seg_ids, num_segments)
+        out = torch.zeros(num_segments + 1, dtype=data.dtype, device=dev)
+        out.index_put_((slot,), data)
+        ok = torch.zeros(num_segments + 1, dtype=torch.bool, device=dev)
+        ok.index_put_((slot,), valid & winner)
+        has = best != far
+        return out[:num_segments], ok[:num_segments] & has, \
+            torch.where(has, best, 0)
+
+    def segment_update(self, v, seg_ids, num_segments, live_mask,
+                       row_index=None):
+        if row_index is None:
+            row_index = torch.arange(int(v.data.shape[0]),
+                                     dtype=torch.int64, device=v.data.device)
+        val, ok, idx = self._pick(v.data.to(self.dtype.torch_dtype),
+                                  v.validity, row_index.to(torch.int64),
+                                  seg_ids, num_segments, live_mask)
+        ones = _ones(num_segments, val.device)
+        return [DevVal(self.dtype, val, ones), DevVal(T.BOOLEAN, ok, ones),
+                DevVal(T.LONG, idx, ones)]
+
+    def segment_merge(self, buffers, seg_ids, num_segments, live_mask):
+        val, ok, idx = buffers
+        nv, nok, nidx = self._pick(val.data, ok.data.to(torch.bool),
+                                   idx.data, seg_ids, num_segments,
+                                   live_mask)
+        ones = _ones(num_segments, nv.device)
+        return [DevVal(self.dtype, nv, ones), DevVal(T.BOOLEAN, nok, ones),
+                DevVal(T.LONG, nidx, ones)]
+
+    def finalize(self, buffers):
+        val, ok, _ = buffers
+        return DevVal(self.dtype, val.data, ok.data.to(torch.bool))
+
+    def cpu_reduce_groups(self, values, validity, starts):
+        n = len(validity)
+        counts = np.diff(np.append(starts, n)).astype(np.int64)
+        rows = np.arange(n, dtype=np.int64)
+        if self.ignore_nulls:
+            pos = np.where(validity, rows, n if self._is_first else -1)
+        else:
+            pos = rows
+        has = counts > 0
+        pick = np.zeros(len(starts), dtype=np.int64)
+        if has.any():
+            ufunc = np.minimum if self._is_first else np.maximum
+            pick[has] = ufunc.reduceat(pos, starts[has]) if len(pos) else 0
+        found = has & (pick >= 0) & (pick < n)
+        pick = np.where(found, pick, 0)
+        if self.dtype.is_string:
+            out = np.array([str(values[p]) if ok else "" for p, ok in
+                            zip(pick, found)], dtype=object)
+        else:
+            out = np.where(found, values[pick] if n else 0, 0) \
+                .astype(self.dtype.np_dtype)
+        return out, found & (validity[pick] if n else found)
+
+
+class First(_FirstLast):
+    _is_first = True
+
+
+class Last(_FirstLast):
+    _is_first = False
+
+
+class Percentile(AggregateFunction):
+    """percentile(x, p): Spark's exact percentile, interpolating linearly
+    between the two closest ranks.  Never executed itself:
+    ``GroupedData.agg`` rewrites it into ``row_number`` and ``count``
+    windows and one SUM of interpolation weights
+    (``GroupedData._agg_with_percentile``)."""
+
+    def __init__(self, child: Expression, percentage: float):
+        if not 0.0 <= float(percentage) <= 1.0:
+            raise ValueError(
+                f"percentile percentage must be in [0, 1]: {percentage}")
+        self.percentage = float(percentage)
+        super().__init__(child)
+
+    def with_children(self, children):
+        return Percentile(children[0], self.percentage)
+
+    def _resolve_type(self):
+        dt = self.child.dtype
+        if dt != T.NULL and not dt.is_numeric:  # NULL: not resolved yet
+            raise TypeError(f"percentile needs a numeric input, got {dt}")
+        self.dtype = T.DOUBLE
+        self.nullable = True
+
+    def gpu_supported(self, conf):
+        return None
+
+    def buffers(self):
+        raise AssertionError(
+            "Percentile must be rewritten before execution")
 
 
 @dataclasses.dataclass

@@ -1,6 +1,7 @@
 """Column functions (port of the part of ``spark_rapids_tpu/functions.py``
-whose expressions are ported), and the window specs (``Window``,
-``WindowSpec``, ``Column.over``) with the ranking and offset functions."""
+whose expressions are ported), the ``broadcast`` join hint, and the
+window specs (``Window``, ``WindowSpec``, ``Column.over``) with the
+ranking and offset functions."""
 
 from __future__ import annotations
 
@@ -46,6 +47,16 @@ def max(c) -> Column:  # noqa: A001
     return _agg(A.Max, c)
 
 
+def first(c, ignore_nulls: bool = False) -> Column:
+    return Column(A.First(_to_expr(col(c) if isinstance(c, str) else c),
+                          ignore_nulls))
+
+
+def last(c, ignore_nulls: bool = False) -> Column:
+    return Column(A.Last(_to_expr(col(c) if isinstance(c, str) else c),
+                         ignore_nulls))
+
+
 def stddev(c) -> Column:
     return _agg(A.StddevSamp, c)
 
@@ -74,6 +85,14 @@ def grouping_id() -> Column:
     return Column(A.GroupingID())
 
 
+def percentile(c, percentage: float) -> Column:
+    """Exact percentile with linear interpolation (Spark's
+    ``percentile``), rewritten by ``GroupedData.agg`` into ranks and a
+    sum."""
+    return Column(A.Percentile(
+        _to_expr(col(c) if isinstance(c, str) else c), percentage))
+
+
 def count_distinct(c) -> Column:
     """count(DISTINCT c): rewritten by ``GroupedData.agg`` into two
     stacked aggregations."""
@@ -88,6 +107,110 @@ countDistinct = count_distinct
 
 def _unary(cls, c) -> Column:
     return Column(cls(_to_expr(col(c) if isinstance(c, str) else c)))
+
+
+def abs(c) -> Column:  # noqa: A001
+    from spark_rapids_tpu_torch.exprs.arithmetic import Abs
+    return _unary(Abs, c)
+
+
+def sqrt(c) -> Column:
+    from spark_rapids_tpu_torch.exprs.mathexprs import Sqrt
+    return _unary(Sqrt, c)
+
+
+def exp(c) -> Column:
+    from spark_rapids_tpu_torch.exprs.mathexprs import Exp
+    return _unary(Exp, c)
+
+
+def log(c) -> Column:
+    from spark_rapids_tpu_torch.exprs.mathexprs import Log
+    return _unary(Log, c)
+
+
+def floor(c) -> Column:
+    """DOUBLE, as the JAX package's (Spark gives LONG)."""
+    from spark_rapids_tpu_torch.exprs.mathexprs import Floor
+    return _unary(Floor, c)
+
+
+def ceil(c) -> Column:
+    """DOUBLE, as the JAX package's (Spark gives LONG)."""
+    from spark_rapids_tpu_torch.exprs.mathexprs import Ceil
+    return _unary(Ceil, c)
+
+
+def round(c, scale: int = 0) -> Column:  # noqa: A001
+    from spark_rapids_tpu_torch.exprs.mathexprs import Round
+    return Column(Round(_to_expr(col(c) if isinstance(c, str) else c),
+                        scale))
+
+
+def pow(b, e) -> Column:  # noqa: A001
+    from spark_rapids_tpu_torch.exprs.mathexprs import Pow
+    return Column(Pow(_to_expr(b), _to_expr(e)))
+
+
+def sinh(c) -> Column:
+    from spark_rapids_tpu_torch.exprs.mathexprs import Sinh
+    return _unary(Sinh, c)
+
+
+def cosh(c) -> Column:
+    from spark_rapids_tpu_torch.exprs.mathexprs import Cosh
+    return _unary(Cosh, c)
+
+
+def tanh(c) -> Column:
+    from spark_rapids_tpu_torch.exprs.mathexprs import Tanh
+    return _unary(Tanh, c)
+
+
+def cot(c) -> Column:
+    from spark_rapids_tpu_torch.exprs.mathexprs import Cot
+    return _unary(Cot, c)
+
+
+def coalesce(*cols) -> Column:
+    from spark_rapids_tpu_torch.exprs.nullexprs import Coalesce
+    return Column(Coalesce(*[_to_expr(c) for c in cols]))
+
+
+def isnull(c) -> Column:
+    from spark_rapids_tpu_torch.exprs.nullexprs import IsNull
+    return _unary(IsNull, c)
+
+
+def isnan(c) -> Column:
+    from spark_rapids_tpu_torch.exprs.nullexprs import IsNan
+    return _unary(IsNan, c)
+
+
+def to_date(c, fmt: str = "yyyy-MM-dd") -> Column:
+    from spark_rapids_tpu_torch.exprs.datetime import ToDate
+    return Column(ToDate(_to_expr(col(c) if isinstance(c, str) else c),
+                         fmt))
+
+
+def hash(*cols) -> Column:  # noqa: A001
+    """Spark's murmur3 hash (seed 42) of the columns, INT."""
+    from spark_rapids_tpu_torch.exprs.hashing import Murmur3Hash
+    return Column(Murmur3Hash(*[_to_expr(
+        col(c) if isinstance(c, str) else c) for c in cols]))
+
+
+def array(*cols) -> Column:
+    from spark_rapids_tpu_torch.exprs.misc import CreateArray
+    return Column(CreateArray(*[_to_expr(
+        col(c) if isinstance(c, str) else c) for c in cols]))
+
+
+def broadcast(df):
+    """The join hint: the planner broadcasts this side of a join."""
+    from spark_rapids_tpu_torch.dataframe import DataFrame
+    from spark_rapids_tpu_torch.plan import logical as L
+    return DataFrame(L.BroadcastHint(df.plan), df.session)
 
 
 def year(c) -> Column:

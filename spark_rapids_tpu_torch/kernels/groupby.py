@@ -67,13 +67,15 @@ def group_segments(key_vals: List[DevVal], num_rows) -> GroupSegments:
 def groupby_aggregate(batch: ColumnBatch, key_vals: List[DevVal],
                       agg_inputs: List[DevVal], agg_fns: Sequence,
                       merge: bool, key_schema: T.Schema,
-                      buffer_schemas: List[List[T.DataType]]
+                      buffer_schemas: List[List[T.DataType]],
+                      row_base: int = 0
                       ) -> Tuple[ColumnBatch, List[List[DevVal]]]:
     """One-batch groupby: (group-key batch of num_groups rows, per-agg
     buffer lists aligned with group order).  In ``merge`` mode
     ``agg_inputs`` holds every aggregate's partial buffers, flattened in
     order, and ``segment_merge`` folds them; otherwise raw inputs go
-    through ``segment_update``."""
+    through ``segment_update`` (an aggregate that picks by input index
+    gets each sorted row's position in the batch plus ``row_base``)."""
     cap = batch.capacity
     segs = group_segments(key_vals, batch.num_rows)
     key_batch = ColumnBatch(
@@ -98,8 +100,13 @@ def groupby_aggregate(batch: ColumnBatch, key_vals: List[DevVal],
                                                 segs.live))
     else:
         for fn, v in zip(agg_fns, agg_inputs):
-            out_buffers.append(fn.segment_update(permuted(v), segs.seg_ids,
-                                                 cap, segs.live))
+            if getattr(fn, "takes_row_index", False):
+                out_buffers.append(fn.segment_update(
+                    permuted(v), segs.seg_ids, cap, segs.live,
+                    row_index=segs.perm + row_base))
+            else:
+                out_buffers.append(fn.segment_update(
+                    permuted(v), segs.seg_ids, cap, segs.live))
     return group_keys, out_buffers
 
 

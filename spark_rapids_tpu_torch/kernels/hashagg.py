@@ -14,9 +14,9 @@ Here the same stacked rows go through one ``index_add_`` keyed by
 rows, floats as 53-bit fixed-point limb rows against a per-chunk scale, all
 integer-valued f32 whose per-chunk sums stay below 2^24 — exact in any
 summation order, so atomics on the card give the reference's sums bit for
-bit.  min/max and the central moments ride the same slot ids through the
-aggregates' own segment kernels (the JAX package sends the moments to its
-sort path; the slot ids give the same groups).
+bit.  min/max, first/last and the central moments ride the same slot ids
+through the aggregates' own segment kernels (the JAX package sends the
+moments to its sort path; the slot ids give the same groups).
 """
 
 from __future__ import annotations
@@ -80,15 +80,17 @@ def _float_limb_rows(x: torch.Tensor, use: torch.Tensor, nc: int, c: int):
 
 def hash_group_aggregate(batch: ColumnBatch, key_vals: List[DevVal],
                          agg_inputs: List[DevVal], agg_fns: Sequence,
-                         key_schema: T.Schema, table: int = TABLE_SLOTS):
+                         key_schema: T.Schema, table: int = TABLE_SLOTS,
+                         row_base: int = 0):
     """(group-key batch, per-agg buffer lists, n_groups, fallback flag).
 
     Buffer layout matches the sort-based update path.  ``fallback`` (a 0-d
     bool device tensor) True means the key range did not fit the slot
     table or a float sum saw non-finite values: the caller MUST discard the
-    result and use the sort path."""
+    result and use the sort path.  ``row_base`` is added to each row's
+    position for the aggregates that pick by input index (first, last)."""
     from spark_rapids_tpu_torch.exprs.aggregates import (
-        Count, Max, Min, Sum, _CentralMoment,
+        Count, Max, Min, Sum, _CentralMoment, _FirstLast,
     )
 
     cap = batch.capacity
@@ -139,7 +141,8 @@ def hash_group_aggregate(batch: ColumnBatch, key_vals: List[DevVal],
     rows: List[torch.Tensor] = [live.to(torch.float32)]  # per-slot count
     agg_plan = []
     for fn, v in zip(agg_fns, agg_inputs):
-        if type(fn) in (Min, Max) or isinstance(fn, _CentralMoment):
+        if type(fn) in (Min, Max) or \
+                isinstance(fn, (_CentralMoment, _FirstLast)):
             agg_plan.append(("segment", fn, v))
             continue
         use = v.validity & live
@@ -194,7 +197,11 @@ def hash_group_aggregate(batch: ColumnBatch, key_vals: List[DevVal],
         kind = plan[0]
         if kind == "segment":
             _, sfn, sv = plan
-            sb = sfn.segment_update(sv, slot, tt, live)
+            if getattr(sfn, "takes_row_index", False):
+                sb = sfn.segment_update(sv, slot, tt, live,
+                                        row_index=iota + row_base)
+            else:
+                sb = sfn.segment_update(sv, slot, tt, live)
             bufs = [DevVal(b.dtype, b.data[:ng], b.validity[:ng])
                     for b in sb]
         elif kind == "count":
@@ -258,10 +265,11 @@ def hash_group_aggregate(batch: ColumnBatch, key_vals: List[DevVal],
 
 def hash_agg_capable(mode: str, key_types: List[T.DataType],
                      agg_fns: Sequence) -> bool:
-    """Static capability check: sum/count/avg/min/max and the central
-    moments over fixed-width inputs, grouped by integral/date/bool keys."""
+    """Static capability check: sum/count/avg/min/max, first/last and
+    the central moments over fixed-width inputs, grouped by
+    integral/date/bool keys."""
     from spark_rapids_tpu_torch.exprs.aggregates import (
-        Average, Count, Max, Min, Sum, _CentralMoment,
+        Average, Count, Max, Min, Sum, _CentralMoment, _FirstLast,
     )
     if mode != "update":
         return False
@@ -270,7 +278,7 @@ def hash_agg_capable(mode: str, key_types: List[T.DataType],
             return False
     for fn in agg_fns:
         if type(fn) in (Sum, Average, Min, Max) or \
-                isinstance(fn, _CentralMoment):
+                isinstance(fn, (_CentralMoment, _FirstLast)):
             if fn.child.dtype.is_string:
                 return False
         elif type(fn) is not Count:

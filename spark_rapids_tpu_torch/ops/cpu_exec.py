@@ -18,7 +18,8 @@ here:
 * a hash join emits each left row's matches in build order, then the
   unmatched rows (left, then right); a nested-loop join emits a left row's
   NULL-padded row in its place;
-* an expand emits every input batch once per projection list; the window
+* an expand emits every input batch once per projection list; an
+  explode repeats each row once per element of its array; the window
   exec is ``ops/window.py``.
 
 A string column may arrive as bytes and offsets (a device batch copied
@@ -511,6 +512,71 @@ class CpuAggregateExec(CpuExec):
                 out = self._aggregate(_concat(batches, schema))
             if out is not None:
                 yield out
+
+        return [gen(p) for p in self.children[0].partitions(ctx)]
+
+
+class CpuGenerateExec(CpuExec):
+    """explode / posexplode on the host, and their outer forms: each
+    input row repeated once per element of its array (an outer explode
+    keeps an empty or NULL array's row once, with NULL ``pos`` and
+    element), vectorised by one ``np.repeat`` by the arrays' lengths; the
+    JAX twin walks the rows in Python and gives the same rows."""
+
+    def __init__(self, column: str, alias: str, pos: bool, outer: bool,
+                 child: PhysicalOp, schema: T.Schema):
+        super().__init__([child], schema)
+        self.column = column
+        self.alias = alias
+        self.pos = pos
+        self.outer = outer
+
+    def describe(self):
+        kind = "posexplode" if self.pos else "explode"
+        return f"CpuGenerate({kind}{'_outer' if self.outer else ''}" \
+            f"({self.column}))"
+
+    def _explode(self, hb: HostBatch) -> Optional[HostBatch]:
+        ci = hb.schema.index_of(self.column)
+        arr = hb.columns[ci]
+        lists = [x if ok else [] for x, ok in zip(arr.values, arr.validity)]
+        lengths = np.fromiter((len(x) for x in lists), dtype=np.int64,
+                              count=len(lists))
+        reps = np.maximum(lengths, 1) if self.outer else lengths
+        total = int(reps.sum())
+        if not total:
+            return None
+        parent = np.repeat(np.arange(hb.num_rows, dtype=np.int64), reps)
+        # an element's place in its array; -1 on an outer row of nothing
+        starts = np.cumsum(reps) - reps
+        pos = np.arange(total, dtype=np.int64) - np.repeat(starts, reps)
+        has = np.repeat(lengths > 0, reps)
+        pos = np.where(has, pos, -1)
+        cols = [c.take(parent) for i, c in enumerate(hb.columns) if i != ci]
+        if self.pos:
+            cols.append(HostColumn(T.INT, np.maximum(pos, 0).astype(np.int32),
+                                   pos >= 0))
+        elem = self.output_schema.fields[-1].dtype
+        flat = [e for x in lists for e in x]
+        valid = np.zeros(total, dtype=np.bool_)
+        valid[has] = [e is not None for e in flat]
+        if elem.is_string:
+            values = np.full(total, "", dtype=object)
+            values[has] = [str(e) if e is not None else "" for e in flat]
+        else:
+            values = np.zeros(total, dtype=elem.np_dtype)
+            values[has] = np.asarray([e if e is not None else 0
+                                      for e in flat], dtype=elem.np_dtype)
+        cols.append(HostColumn(elem, values, valid))
+        return HostBatch(self.output_schema, cols)
+
+    def partitions(self, ctx):
+        def gen(part):
+            for hb in part:
+                with host_timer(ctx, self):
+                    out = self._explode(hb)
+                if out is not None:
+                    yield out
 
         return [gen(p) for p in self.children[0].partitions(ctx)]
 

@@ -1,7 +1,7 @@
 """Device operators (port of ``spark_rapids_tpu/ops/tpu_exec.py``: range,
-project, expand, filter, sort, hash aggregate, cached scan, union, local
-limit, the shuffled and broadcast hash joins, and the nested-loop join; the
-window exec is ``ops/window.py``).
+project, expand, filter, sort, hash aggregate, generate (explode), cached
+scan, union, local limit, the shuffled and broadcast hash joins, and the
+nested-loop join; the window exec is ``ops/window.py``).
 
 Each exec runs its per-batch work eagerly as torch ops on ``ctx.device``.
 String columns ride every operator as offsets + bytes; string group keys
@@ -32,8 +32,8 @@ import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.batch import (
-    ColumnBatch, device_scalar, empty_device_batch, host_sizes,
-    round_up_capacity,
+    ColumnBatch, DeviceColumn, device_scalar, empty_device_batch,
+    host_sizes, round_up_capacity,
 )
 from spark_rapids_tpu_torch.config import (
     HASH_AGG_MXU_ENABLED, HASH_AGG_MXU_SLOTS, MESH_SPMD_JOIN_GROWTH,
@@ -43,6 +43,7 @@ from spark_rapids_tpu_torch.exprs.aggregates import AggregateExpression
 from spark_rapids_tpu_torch.exprs.base import (
     DevVal, Expression, GpuEvalCtx, SortOrder, bind_references,
 )
+from spark_rapids_tpu_torch.kernels import cuda_tier
 from spark_rapids_tpu_torch.kernels.groupby import groupby_aggregate
 from spark_rapids_tpu_torch.kernels.hashagg import (
     hash_agg_capable, hash_group_aggregate,
@@ -255,6 +256,16 @@ class GpuSortExec(GpuExec):
 _KEYLESS_SCHEMA = T.Schema([T.Field("__k", T.INT, False)])
 
 
+def input_index_base(part: int, batch: int) -> int:
+    """The input index of row 0 of a partition's batch: the partition
+    ordinal above bit 47 and the batch ordinal above bit 31, so indices
+    order rows by partition, then batch, then position."""
+    if not (0 <= part < 1 << 16 and 0 <= batch < 1 << 16):
+        raise ValueError(f"row index of partition {part}, batch {batch} "
+                         "past 16 bits each")
+    return (part << 47) | (batch << 31)
+
+
 def _buffer_schema(key_names: List[str], keys: List[Expression],
                    aggs: List[AggregateExpression]) -> T.Schema:
     fields = [T.Field(n, e.dtype, e.nullable)
@@ -276,7 +287,10 @@ class GpuHashAggregateExec(GpuExec):
     does, so the merge concatenates every partial once.
 
     mode="merge": concatenate the partition's partials (the gatherScatter
-    pack), merge them with the sort-based groupby, finalize."""
+    pack), merge them with the sort-based groupby, finalize.
+
+    first/last pick by each row's input index: its position in its batch
+    plus :func:`input_index_base` of its partition and batch ordinals."""
 
     def __init__(self, mode: str, key_exprs: List[Expression],
                  key_names: List[str], aggs: List[AggregateExpression],
@@ -329,7 +343,8 @@ class GpuHashAggregateExec(GpuExec):
                            list(group_keys.columns) + cols,
                            group_keys.num_rows, capacity)
 
-    def _aggregate_batch(self, batch: ColumnBatch) -> ColumnBatch:
+    def _aggregate_batch(self, batch: ColumnBatch,
+                         row_base: int = 0) -> ColumnBatch:
         """Sort path, both modes."""
         if self.mode == "update":
             ectx = GpuEvalCtx(batch)
@@ -342,7 +357,8 @@ class GpuHashAggregateExec(GpuExec):
             agg_inputs = [DevVal.from_column(c) for c in batch.columns[nk:]]
         group_keys, buffers = groupby_aggregate(
             batch, key_vals, agg_inputs, [a.fn for a in self.aggs],
-            self.mode == "merge", self.key_schema, self.buffer_schemas)
+            self.mode == "merge", self.key_schema, self.buffer_schemas,
+            row_base)
         if self.mode == "update":
             cols = [b.to_column() for bufs in buffers for b in bufs]
         else:
@@ -350,7 +366,8 @@ class GpuHashAggregateExec(GpuExec):
                     for a, bufs in zip(self.aggs, buffers)]
         return self._output(group_keys, cols, batch.capacity)
 
-    def _aggregate_batch_hash(self, batch: ColumnBatch, table: int):
+    def _aggregate_batch_hash(self, batch: ColumnBatch, table: int,
+                              row_base: int):
         """(partial batch, fallback flag) via the slot aggregate.  Without
         keys every live row of a chunk of 16,384 rows lands on one slot of
         its own chunk, so the scatters do not all contend for one
@@ -360,17 +377,19 @@ class GpuHashAggregateExec(GpuExec):
             batch, self._key_vals(batch, ectx),
             [e.gpu_eval(ectx) for e in self.agg_children],
             [a.fn for a in self.aggs], self.key_schema,
-            table=table)
+            table=table, row_base=row_base)
         cols = [b.to_column() for bufs in buffers for b in bufs]
         return self._output(group_keys, cols, group_keys.capacity), flag
 
-    def _update_partials(self, ctx, batches: Sequence[ColumnBatch]
-                         ) -> List[ColumnBatch]:
+    def _update_partials(self, ctx, batches: Sequence[ColumnBatch],
+                         part: int) -> List[ColumnBatch]:
         sizes = None
+        bases = [input_index_base(part, j) for j in range(len(batches))]
         if self._hash_capable and not self._hash_disabled and \
                 HASH_AGG_MXU_ENABLED.get(ctx.conf):
             table = HASH_AGG_MXU_SLOTS.get(ctx.conf)
-            pairs = [self._aggregate_batch_hash(b, table) for b in batches]
+            pairs = [self._aggregate_batch_hash(b, table, base)
+                     for b, base in zip(batches, bases)]
             # one sync for every flag and every partial's row count
             fetched = torch.stack(
                 [f.to(torch.int64) for _, f in pairs] +
@@ -381,26 +400,123 @@ class GpuHashAggregateExec(GpuExec):
             else:
                 self._hash_disabled = True
         if sizes is None:
-            partials = [self._aggregate_batch(b) for b in batches]
+            partials = [self._aggregate_batch(b, base)
+                        for b, base in zip(batches, bases)]
             sizes = host_sizes(partials)
         return [shrink_to_fit(p, s) for p, s in zip(partials, sizes)]
 
     def partitions(self, ctx):
         if self.mode == "update":
-            def gen(part):
+            def gen(p, part):
                 batches = list(part)
                 if batches:
-                    yield from self._update_partials(ctx, batches)
-        else:
-            child_schema = self.children[0].output_schema
+                    yield from self._update_partials(ctx, batches, p)
 
-            def gen(part):
-                merged = _concat_all(list(part), child_schema)
-                if merged is None and self.keyless:
-                    # no input at all: still the one row of SQL defaults
-                    merged = empty_device_batch(child_schema, ctx.device)
-                if merged is not None:
-                    yield self._aggregate_batch(merged)
+            return [gen(p, part) for p, part in
+                    enumerate(self.children[0].partitions(ctx))]
+        child_schema = self.children[0].output_schema
+
+        def merge(part):
+            merged = _concat_all(list(part), child_schema)
+            if merged is None and self.keyless:
+                # no input at all: still the one row of SQL defaults
+                merged = empty_device_batch(child_schema, ctx.device)
+            if merged is not None:
+                yield self._aggregate_batch(merged)
+
+        return [merge(p) for p in self.children[0].partitions(ctx)]
+
+
+#: rows of one explode output batch, at most (unless one input row alone
+#: has more elements): a kept string column is gathered byte by byte, with
+#: ~40 bytes of index temporaries per output byte, so the input is cut
+#: into row slices whose outputs stay this small
+GENERATE_OUT_ROWS = 1 << 22
+
+
+class GpuGenerateExec(GpuExec):
+    """explode / posexplode of a fixed-width array column (port of
+    ``TpuGenerateExec``): the parent row of every element (one
+    ``searchsorted`` over the array offsets) drives one gather of the kept
+    columns (``layout.gather_rows``); the element buffer is the new
+    column.  A kept string column grows (its rows repeat), so its byte
+    capacity, and the output capacity, are sized on the host from one
+    read of the totals.  An input batch with more than
+    :data:`GENERATE_OUT_ROWS` elements is exploded in row slices
+    (``layout.row_slices``).  The JAX package sizes its output by the
+    static element capacity; the rows are the same."""
+
+    def __init__(self, column: str, alias: str, pos: bool,
+                 child: PhysicalOp, schema: T.Schema):
+        super().__init__([child], schema)
+        self.column = column
+        self.alias = alias
+        self.pos = pos
+
+    def describe(self):
+        kind = "posexplode" if self.pos else "explode"
+        return f"GpuGenerate({kind}({self.column}))"
+
+    def _pieces(self, batch: ColumnBatch):
+        arr = batch.column(self.column)
+        n, total = torch.stack([batch.num_rows.to(torch.int64),
+                                arr.offsets[batch.num_rows].to(
+                                    torch.int64)]).tolist()
+        if total <= GENERATE_OUT_ROWS:
+            return [batch]
+        return row_slices(batch, n, max(1, n * GENERATE_OUT_ROWS // total))
+
+    def _explode(self, batch: ColumnBatch) -> ColumnBatch:
+        ci = batch.schema.index_of(self.column)
+        arr = batch.columns[ci]
+        dev, cap = batch.device, batch.capacity
+        live_in = torch.arange(cap, dtype=torch.int32, device=dev) < \
+            batch.num_rows
+        counts = torch.where(live_in, arr.offsets[1:] - arr.offsets[:-1], 0)
+        kept = [i for i in range(len(batch.schema)) if i != ci]
+        # one read: the element total and each kept string's byte total
+        # (its int32 offsets must hold it: GENERATE_OUT_ROWS rows of a
+        # 24-byte string are ~100 MB, far below 2^31)
+        sizes = [counts.to(torch.int64).sum()]
+        for i in kept:
+            c = batch.columns[i]
+            if c.is_varlen:
+                lens = (c.offsets[1:] - c.offsets[:-1]).to(torch.int64)
+                sizes.append((lens * counts).sum())
+        total, *byte_totals = torch.stack(sizes).tolist()
+        if max(byte_totals, default=0) > 2 ** 31 - 1:
+            raise ValueError(f"explode of {total} rows: a kept string "
+                             "column passes 2^31 - 1 bytes")
+        out_cap = round_up_capacity(max(total, 1))
+        n_out = device_scalar(total, dev)
+        live = torch.arange(out_cap, dtype=torch.int32, device=dev) < n_out
+        parent = cuda_tier.rows_of_positions(arr.offsets, out_cap).clamp(
+            0, cap - 1).to(torch.int64)
+        kept_batch = ColumnBatch(
+            T.Schema([batch.schema.fields[i] for i in kept]),
+            [batch.columns[i] for i in kept], batch.num_rows, cap)
+        g = gather_rows(kept_batch, parent, n_out, out_capacity=out_cap,
+                        out_byte_caps=[round_up_capacity(max(t, 16), 16)
+                                       for t in byte_totals] or None)
+        cols = list(g.columns)
+        if self.pos:
+            pos = torch.arange(out_cap, dtype=torch.int32, device=dev) - \
+                arr.offsets[parent]
+            cols.append(DeviceColumn(T.INT, torch.where(live, pos, 0),
+                                     live))
+        m = min(out_cap, int(arr.data.shape[0]))
+        elem = torch.zeros(out_cap, dtype=arr.data.dtype, device=dev)
+        elem[:m] = arr.data[:m]
+        cols.append(DeviceColumn(self.output_schema.fields[-1].dtype,
+                                 torch.where(live, elem, 0),
+                                 live & arr.validity[parent]))
+        return ColumnBatch(self.output_schema, cols, n_out, out_cap)
+
+    def partitions(self, ctx):
+        def gen(part):
+            for batch in part:
+                for piece in self._pieces(batch):
+                    yield self._explode(piece)
 
         return [gen(p) for p in self.children[0].partitions(ctx)]
 

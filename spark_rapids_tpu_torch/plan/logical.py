@@ -249,6 +249,49 @@ class Window(LogicalPlan):
         return f"Window({', '.join(self.output_names)})"
 
 
+class Generate(LogicalPlan):
+    """explode / posexplode of an array column: the child's other columns
+    repeated once per element, then ``pos`` (posexplode), then the
+    element column ``alias``.  With ``outer`` an empty or NULL array keeps
+    its row, with a NULL element (GpuGenerateExec's role)."""
+
+    def __init__(self, column: str, alias: str, pos: bool, outer: bool,
+                 child: LogicalPlan):
+        self.column = column
+        self.alias = alias
+        self.pos = pos
+        self.outer = outer
+        self.children = (child,)
+
+    @property
+    def schema(self):
+        child = self.children[0].schema
+        arr = child.field(self.column)
+        if not arr.dtype.is_array:
+            raise TypeError(f"explode needs an array, got {arr.dtype}")
+        fields = [f for f in child.fields if f.name != self.column]
+        if self.pos:
+            fields.append(T.Field("pos", T.INT, False))
+        fields.append(T.Field(self.alias, arr.dtype.element, self.outer))
+        return T.Schema(fields)
+
+    def describe(self):
+        kind = "posexplode" if self.pos else "explode"
+        return f"Generate({kind}({self.column}) as {self.alias})"
+
+
+class BroadcastHint(LogicalPlan):
+    """``functions.broadcast(df)``: the planner broadcasts this side of a
+    join whatever its estimated size."""
+
+    def __init__(self, child: LogicalPlan):
+        self.children = (child,)
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+
 class Limit(LogicalPlan):
     def __init__(self, n: int, child: LogicalPlan):
         self.n = n

@@ -32,6 +32,11 @@ a window and a limit take a collapsed host exchange and the host twin
 (``ops/cpu_exec.py``, ``ops/window.py``).  A window goes through a hash
 exchange by its partition keys (a single-partition one without them) into
 the window exec; an expand is a device or host exec of its own.
+``functions.broadcast`` (a BroadcastHint) estimates its side at 0 bytes,
+so it is broadcast.  Array columns ride the device only through projects,
+filters, generates (explode), scans, unions, limits and cached relations;
+any other node over an array column, and an outer explode, runs on the
+host.
 
 File scans decode on the host (``io/scan.py`` v1, ``io/scan_v2.py`` v2, the
 default).  Filter conjuncts over a file scan are pushed into it (advisory:
@@ -197,6 +202,16 @@ class GpuOverrides:
         key = f"spark.rapids.sql.exec.{node.name}"
         if _gate_off(conf, key):
             meta.will_not_work(f"disabled by {key}")
+        # array columns ride the varlen device layout, but only these
+        # nodes take them there (the JAX package's gate, after
+        # GpuOverrides.scala's per-operator nested-type checks)
+        if not isinstance(node, (L.Project, L.Filter, L.Generate,
+                                 L.InMemoryScan, L.FileScan, L.Union,
+                                 L.Limit, L.CachedRelation)):
+            if any(f.dtype.is_array for c in node.children
+                   for f in c.schema.fields):
+                meta.will_not_work(
+                    "array columns: only project/filter/explode run on GPU")
         if isinstance(node, (L.InMemoryScan, L.FileScan)):
             meta.will_not_work("scans decode host-side (by design)")
         elif isinstance(node, L.Project):
@@ -234,6 +249,10 @@ class GpuOverrides:
                 reason = w.gpu_supported(conf)
                 if reason:
                     meta.will_not_work(reason)
+        elif isinstance(node, L.Generate):
+            if node.outer:
+                meta.will_not_work(
+                    "explode_outer emits NULL-element rows (host path)")
 
     def _tag_string_keys(self, meta: PlanMeta, keys, what: str):
         """String keys group and join through device row hashes;
@@ -277,6 +296,8 @@ class GpuOverrides:
                 _to_device(self._convert(meta.children[0]))
             return X.GpuCachedScanExec(node.holder, child, node.schema)
         conv = [self._convert(c) for c in meta.children]
+        if isinstance(node, L.BroadcastHint):
+            return conv[0]
         if isinstance(node, L.InMemoryScan):
             return C.CpuInMemoryScanExec(node.batches, node.schema,
                                          node.num_partitions)
@@ -320,6 +341,13 @@ class GpuOverrides:
                                    node.schema)
         if isinstance(node, L.Window):
             return self._convert_window(node, conv[0], on_gpu)
+        if isinstance(node, L.Generate):
+            if on_gpu:
+                return X.GpuGenerateExec(node.column, node.alias, node.pos,
+                                         _to_device(conv[0]), node.schema)
+            return C.CpuGenerateExec(node.column, node.alias, node.pos,
+                                     node.outer, _to_host(conv[0]),
+                                     node.schema)
         self._refuse(node, "no port of this operator yet")
 
     def _convert_window(self, node: L.Window, child: PhysicalOp,
@@ -405,9 +433,9 @@ class GpuOverrides:
 
     def _field_width(self, f) -> int:
         """Estimated bytes per row of one column as the device holds it:
-        data item size plus a validity byte; a string a 4-byte offset, a
-        validity byte and the heuristic payload."""
-        if f.dtype.is_string:
+        data item size plus a validity byte; a string or an array a 4-byte
+        offset, a validity byte and the heuristic payload."""
+        if f.dtype.is_string or f.dtype.is_array:
             return 5 + self._VARLEN_CELL_BYTES
         return int(np.dtype(f.dtype.np_dtype).itemsize) + 1
 
@@ -422,21 +450,29 @@ class GpuOverrides:
             rows = self._estimate_rows(node.children[0])
             return node.n if rows is None else min(node.n, rows)
         if isinstance(node, (L.Project, L.Filter, L.Sort,
-                             L.CachedRelation)):
+                             L.CachedRelation, L.BroadcastHint)):
             return self._estimate_rows(node.children[0])
         return None
 
     def _estimate_size(self, node: L.LogicalPlan):
         """Plan-output byte estimate for the broadcast decision: an
         in-memory scan is measured (a string cell counts its characters
-        plus 5 bytes), any other estimable node is its row estimate times
-        its own output schema's column widths."""
+        plus 5 bytes, an array cell its elements' bytes plus 5), any other
+        estimable node is its row estimate times its own output schema's
+        column widths; a broadcast hint is 0."""
+        if isinstance(node, L.BroadcastHint):
+            return 0
         if isinstance(node, L.InMemoryScan):
             total = 0
             for hb in node.batches:
                 for f, c in zip(hb.schema.fields, hb.columns):
                     if f.dtype.is_string:
                         total += _string_chars(c.string_values()) + \
+                            5 * len(c)
+                    elif f.dtype.is_array:
+                        ew = int(np.dtype(
+                            f.dtype.element.np_dtype).itemsize)
+                        total += ew * sum(len(x) for x in c.values) + \
                             5 * len(c)
                     else:
                         total += c.values.nbytes + len(c.values)

@@ -642,13 +642,11 @@ class Parser:
 # Functions the JAX package's SQL front end knows whose expressions the
 # port does not have yet.
 _UNPORTED_FUNCTIONS = frozenset("""
-    first last
-    sqrt exp ln log log2 log10 floor ceil ceiling sin cos tan asin acos atan
-    signum sign sinh cosh tanh asinh acosh atanh cot upper ucase lower
+    upper ucase lower
     initcap hex lcase length char_length trim ltrim rtrim hour minute second
-    substring_index split corr covar_pop covar_samp percentile
-    concat pow power round hash replace regexp_replace split_part
-    concat_ws lpad rpad unix_timestamp to_unix_timestamp to_date date_format
+    substring_index split corr covar_pop covar_samp
+    concat replace regexp_replace split_part
+    concat_ws lpad rpad unix_timestamp to_unix_timestamp date_format
     from_unixtime shiftleft shiftright shiftrightunsigned size
     array_contains array_min array_max sort_array array_position explode
     explode_outer posexplode array element_at
@@ -673,15 +671,47 @@ def _build_function(name: str, args: List[Expression], star: bool,
         raise NotImplementedError(
             f"{name.upper()}(DISTINCT ...) is not supported; only "
             "COUNT(DISTINCT x)")
+    from spark_rapids_tpu_torch.exprs import mathexprs as M
     from spark_rapids_tpu_torch.exprs import windows as W
     simple = {"sum": A.Sum, "avg": A.Average, "mean": A.Average,
-              "min": A.Min, "max": A.Max, "isnull": N.IsNull,
+              "min": A.Min, "max": A.Max, "first": A.First,
+              "last": A.Last, "isnull": N.IsNull,
               "isnan": N.IsNan, "stddev": A.StddevSamp,
               "stddev_samp": A.StddevSamp, "std": A.StddevSamp,
               "stddev_pop": A.StddevPop, "variance": A.VarianceSamp,
-              "var_samp": A.VarianceSamp, "var_pop": A.VariancePop}
+              "var_samp": A.VarianceSamp, "var_pop": A.VariancePop,
+              "sqrt": M.Sqrt, "exp": M.Exp, "ln": M.Log, "log": M.Log,
+              "log2": M.Log2, "log10": M.Log10, "floor": M.Floor,
+              "ceil": M.Ceil, "ceiling": M.Ceil, "sin": M.Sin,
+              "cos": M.Cos, "tan": M.Tan, "asin": M.Asin, "acos": M.Acos,
+              "atan": M.Atan, "signum": M.Signum, "sign": M.Signum,
+              "sinh": M.Sinh, "cosh": M.Cosh, "tanh": M.Tanh,
+              "asinh": M.Asinh, "acosh": M.Acosh, "atanh": M.Atanh,
+              "cot": M.Cot}
+    if name == "log" and len(args) == 2:
+        return M.Logarithm(args[0], args[1])
+    if name == "percentile":
+        if len(args) != 2 or not isinstance(args[1], Literal) \
+                or isinstance(args[1].value, bool) \
+                or not isinstance(args[1].value, (int, float)):
+            raise SyntaxError(
+                "percentile(expr, p) needs a numeric literal percentage")
+        return A.Percentile(args[0], float(args[1].value))
     if name in simple:
         return simple[name](*args)
+    if name in ("pow", "power"):
+        return M.Pow(args[0], args[1])
+    if name == "round":
+        return M.Round(args[0], args[1].value if len(args) > 1 else 0)
+    if name == "hash":
+        from spark_rapids_tpu_torch.exprs.hashing import Murmur3Hash
+        return Murmur3Hash(*args)
+    if name == "to_date":
+        if len(args) == 1:
+            return D.ToDate(args[0])
+        if len(args) == 2 and isinstance(args[1], Literal):
+            return D.ToDate(args[0], str(args[1].value))
+        raise SyntaxError("to_date(expr[, fmt]) needs a literal format")
     if name == "grouping_id":
         return A.GroupingID()
     ranking = {"row_number": W.RowNumber, "rank": W.Rank,

@@ -7,8 +7,10 @@ TIMESTAMP and DOUBLE keep their full width on the device without the
 process-wide ``jax_enable_x64`` switch the JAX package needs.
 
 Device layout: fixed-width columns are dense ``[capacity]`` tensors; strings
-are int32 ``offsets[capacity+1]`` into a flat uint8 byte buffer; every column
-carries a bool validity mask (True = valid).
+are int32 ``offsets[capacity+1]`` into a flat uint8 byte buffer; an array
+column (:class:`ArrayType`, fixed-width elements) rides the same layout,
+its flat buffer the elements; every column carries a bool validity mask
+(True = valid).
 """
 
 from __future__ import annotations
@@ -60,6 +62,10 @@ class DataType:
     @property
     def is_datetime(self) -> bool:
         return isinstance(self, (DateType, TimestampType))
+
+    @property
+    def is_array(self) -> bool:
+        return False
 
 
 class NumericType(DataType):
@@ -135,6 +141,37 @@ class NullType(DataType):
 
     torch_dtype = torch.int32
     np_dtype = np.int32
+
+
+class ArrayType(DataType):
+    """array<element>: on the device a flat element buffer, int32
+    ``offsets[capacity+1]`` and the row validity, as strings (which are
+    array<byte>).  Elements are fixed-width and never NULL on the device;
+    array<string> and element NULLs exist only on the host, whose column
+    holds one Python list a row."""
+
+    np_dtype = np.object_
+
+    def __init__(self, element: DataType):
+        if element.torch_dtype is None or isinstance(element, ArrayType):
+            raise TypeError(f"unsupported array element type: {element}")
+        self.element = element
+        self.torch_dtype = None if element.is_string else \
+            element.torch_dtype
+
+    @property
+    def name(self) -> str:
+        return f"array<{self.element.name}>"
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, ArrayType) and self.element == other.element
+
+    def __hash__(self) -> int:
+        return hash((ArrayType, self.element))
+
+    @property
+    def is_array(self) -> bool:
+        return True
 
 
 BOOLEAN = BooleanType()

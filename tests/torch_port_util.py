@@ -109,3 +109,21 @@ def plan_shape(op):
     if tok.endswith("Expand"):
         tok += f"/{len(op.projections)}"
     return (tok, tuple(plan_shape(c) for c in op.children))
+
+
+#: the host execs either package's test mode allows
+#: (``spark.rapids.sql.test.enabled``): scans, transitions, host exchanges
+TEST_MODE_HOST = ("HostToDeviceExec", "CpuInMemoryScanExec",
+                  "CpuFileScanExec", "FileScanV2Exec", "DeviceToHostExec",
+                  "CpuShuffleExchangeExec")
+
+
+def host_execs(op):
+    """The class names of the host execs in either package's physical
+    plan that the test mode would refuse, in plan order (pre-order)."""
+    on_device = getattr(op, "is_gpu", False) or getattr(op, "is_tpu", False)
+    name = type(op).__name__
+    out = [] if on_device or name in TEST_MODE_HOST else [name]
+    for c in op.children:
+        out.extend(host_execs(c))
+    return out
