@@ -135,6 +135,27 @@ Phases, in order; any failure exits non-zero:
      stringHash and gatherScatter call of each second collect held to its
      plain version, each path's rows, collect ms, launches and peak
      device memory on a line (``--lanes-only`` runs this phase alone);
+   * the ETL phase, the expression layer's strings built on the device,
+     time and formatting, bitwise, array functions and corr/covar: part
+     at 2,000,000 rows and lineitem at 6,000,000 rows (TPC-H SF10's and
+     SF1's counts) cached as batches of ``reader.batchSizeRows`` rows;
+     (a) ``ETL_PART_SQL`` through ``session.sql`` over a view that adds
+     ``locate``: a ``LIKE '%green%'`` filter over ``lower(concat_ws(...))``
+     (contains over a built string), two group keys built on the device
+     (stringHash), every string builder (trims, concat and ``||``, pads,
+     ``hex``, ``replace``, ``regexp_replace`` as a literal and as a class,
+     ``split_part``, ``substring_index``, ``initcap``, ``upper``); (b)
+     :func:`etl_lineitem_query` through the DataFrame API: a TIMESTAMP
+     made on the device, grouped by ``from_unixtime`` of ``last_day`` and
+     l_returnflag, the time parts, ``date_format`` of ``TimeAdd``, the
+     shifts and bitwise operators, ``array``/``size``/``array_min``/
+     ``array_max``/``array_contains``/``sort_array``/``array_position``,
+     and corr/covar (their rewrite's windows); each against numpy
+     (``etl_*_reference``), planned wholly on the card in the test mode,
+     every stringHash, contains and gatherScatter call of the second
+     collect held to its plain version, rows, collect ms, launches and
+     peak device memory on a line (``--etl-only`` runs this phase
+     alone);
    each query must launch every kernel of its path, and every path but
    the fallback phase's must plan wholly on the card in the test mode
    (``spark.rapids.sql.test.enabled``: no host exec but a scan, a
@@ -2692,15 +2713,16 @@ def _lane_test_mode(frame, label: str, expected=()) -> None:
     ON_GPU_CHECKED.append(label)
 
 
-def run_lane(query, check, label: str, need) -> dict:
+def run_lane(query, check, label: str, need, on_gpu: bool = False) -> dict:
     """One lane path through :func:`run_checked` (every stringHash and
     gatherScatter call of its second collect held to its plain
-    version), with the device's peak memory over both collects; its rows,
+    version; with ``on_gpu`` its plan held to the test mode too), with
+    the device's peak memory over both collects; its rows,
     second-collect ms, launches and peak memory on a line."""
     import torch
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rec = run_checked(query, check, label, on_gpu=False, concats=True)
+    rec = run_checked(query, check, label, on_gpu=on_gpu, concats=True)
     peak = torch.cuda.max_memory_allocated()
     _require(rec["path"], label, need)
     c2 = rec["path"]["collect2"]
@@ -2878,6 +2900,330 @@ def lanes_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# main paths: the expression layer on an ETL path (strings built on the
+# device, time and formatting, bitwise, arrays, corr/covar)
+# ---------------------------------------------------------------------------
+
+#: path (a): the string functions over part, through session.sql over a
+#: view whose ``ee_pos`` column is ``locate('ee', p_name)`` (locate has no
+#: SQL name in either package)
+ETL_PART_SQL = """
+SELECT upper(split_part(p_type, ' ', 3)) AS material,
+       initcap(substring_index(p_name, ' ', 1)) AS first_word,
+       count(*) AS parts,
+       sum(length(trim(concat('  ', p_container, '  ')))) AS container_len,
+       sum(length(ltrim(concat(' ', p_brand)))
+           + length(rtrim(p_brand || ' '))) AS brand_trim_len,
+       max(ee_pos) AS ee_pos,
+       sum(length(replace(lpad(hex(p_size), 4, '0'), '0', ''))) AS hex_len,
+       sum(length(hex(p_size - 25))) AS hex_signed_len,
+       sum(length(regexp_replace(p_brand, '#', '-'))) AS brand_len,
+       sum(length(regexp_replace(p_container, '[A-E]', 'xy'))) AS class_len,
+       sum(length(replace(p_type, 'BRUSHED', 'B'))) AS type_len,
+       sum(length(replace(rpad(p_container, 7, '.'), '.', ''))) AS pad_len
+FROM part_etl
+WHERE lower(concat_ws(' ', p_mfgr, p_name)) LIKE '%green%'
+GROUP BY upper(split_part(p_type, ' ', 3)),
+         initcap(substring_index(p_name, ' ', 1))
+ORDER BY material, first_word
+"""
+ETL_PART_NAMES = ["material", "first_word", "parts", "container_len",
+                  "brand_trim_len", "ee_pos", "hex_len", "hex_signed_len",
+                  "brand_len", "class_len", "type_len", "pad_len"]
+ETL_LINEITEM_NAMES = [
+    "month_end", "l_returnflag", "n", "tod", "fmt_len", "fmt_day",
+    "packed", "mixed", "high_bits", "arr_max", "arr_min", "arr_size",
+    "has_26", "median", "pos_25", "corr_qp", "covp_qt", "covs_dp"]
+#: the kernels each ETL path must launch a collect
+ETL_KERNELS = {"part": ("gatherScatter", "stringHash", "strings"),
+               "lineitem": ("gatherScatter", "stringHash")}
+
+
+def etl_part_view(part_df, F, S):
+    """The part table with ``ee_pos = locate('ee', p_name)``, in either
+    package's API (``F`` its functions, ``S`` its strings module)."""
+    node = type(F.lit(0))
+    return part_df.with_column("ee_pos", node(S.StringLocate(
+        S.Literal("ee"), F.col("p_name").expr)))
+
+
+def etl_lineitem_query(df, F, D):
+    """Path (b) over lineitem in either package's DataFrame API (``D`` its
+    datetime module: ``Hour``, ``Minute``, ``Second``, ``LastDay`` and
+    ``TimeAdd`` have no function name in either package): a TIMESTAMP
+    made on the device, grouped by a string built on the device
+    (``from_unixtime`` of the month's last day) and l_returnflag, with the
+    time parts, ``date_format``, the bitwise functions, the array
+    functions and corr/covar."""
+    node = type(F.lit(0))
+    ts = (F.unix_timestamp("l_shipdate")
+          + df["l_orderkey"] * 7919 % 86400).cast("timestamp")
+    month_end = F.from_unixtime(F.unix_timestamp(node(D.LastDay(
+        F.col("l_shipdate").expr))))
+    df = df.with_column("ts", ts).with_column("month_end", month_end)
+    t, k = df["ts"], df["l_orderkey"]
+    later = node(D.TimeAdd(t.expr, 5 * 3_600_000_000 + 17))
+    tod = node(D.Hour(t.expr)) * 3600 + node(D.Minute(t.expr)) * 60 + \
+        node(D.Second(t.expr))
+    arr = F.array(F.coalesce(df["l_quantity"], F.lit(0.0)),
+                  F.coalesce(df["l_tax"] * 100, F.lit(0.0)), F.lit(25.0))
+    return (df.group_by("month_end", "l_returnflag").agg(
+        F.count("*").alias("n"),
+        F.sum(tod).alias("tod"),
+        F.sum(F.length(F.date_format(later))).alias("fmt_len"),
+        F.sum(F.dayofmonth(F.to_date(F.date_format(later)))).alias(
+            "fmt_day"),
+        F.sum(F.shiftleft(df["l_suppkey"], 3).bitwiseOR(k.bitwiseAND(7)))
+        .alias("packed"),
+        F.sum(F.bitwise_not(k).bitwiseXOR(F.shiftrightunsigned(k, 3)))
+        .alias("mixed"),
+        F.sum(F.shiftrightunsigned(F.bitwise_not(k), 60)
+              + F.shiftright(F.bitwise_not(k), 62)).alias("high_bits"),
+        F.sum(F.array_max(arr)).alias("arr_max"),
+        F.sum(F.array_min(arr)).alias("arr_min"),
+        F.sum(F.size(arr)).alias("arr_size"),
+        F.sum(F.when(F.array_contains(arr, 26.0), 1).otherwise(0))
+        .alias("has_26"),
+        F.sum(F.sort_array(arr).getItem(1)).alias("median"),
+        F.sum(F.array_position(arr, 25.0)).alias("pos_25"),
+        F.corr("l_quantity", "l_extendedprice").alias("corr_qp"),
+        F.covar_pop("l_quantity", "l_tax").alias("covp_qt"),
+        F.covar_samp("l_discount", "l_extendedprice").alias("covs_dp"))
+        .order_by("month_end", "l_returnflag"))
+
+
+def _per_unique(values, fn):
+    """``fn`` of every row of a column, computed once per distinct
+    value."""
+    uniq, inv = np.unique(np.asarray(values), return_inverse=True)
+    return np.array([fn(str(u)) for u in uniq], dtype=object)[inv]
+
+
+def _initcap(s: str) -> str:
+    out, head = [], True
+    for ch in s:
+        if head and "a" <= ch <= "z":
+            ch = chr(ord(ch) - 32)
+        elif not head and "A" <= ch <= "Z":
+            ch = chr(ord(ch) + 32)
+        out.append(ch)
+        head = ch == " "
+    return "".join(out)
+
+
+def _key_codes(values, fn=None):
+    """(sorted distinct keys, each row's index among them) of ``fn`` of a
+    column (the column itself without ``fn``), ``fn`` computed once per
+    distinct value."""
+    uniq, inv = np.unique(np.asarray(values), return_inverse=True)
+    derived = np.array([fn(str(u)) if fn else str(u) for u in uniq])
+    labels, dinv = np.unique(derived, return_inverse=True)
+    return labels, dinv[inv.reshape(-1)]
+
+
+def _grouped(keys, cols, ops):
+    """Rows grouped by ``keys`` (:func:`_key_codes` pairs) in key order:
+    (each key's column, {name: per-group count, sum or max}, each row's
+    group)."""
+    code = np.zeros(len(keys[0][1]), dtype=np.int64)
+    for labels, c in keys:
+        code = code * len(labels) + c
+    groups, inv = np.unique(code, return_inverse=True)
+    inv = inv.reshape(-1)
+    key_cols, rest = [], groups
+    for labels, _ in reversed(keys):
+        key_cols.insert(0, labels[rest % len(labels)])
+        rest = rest // len(labels)
+    out = {}
+    for name, op in ops.items():
+        if op == "count":
+            out[name] = np.bincount(inv, minlength=len(groups))
+            continue
+        x = cols[name]
+        acc = np.zeros(len(groups), dtype=x.dtype) if op == "sum" else \
+            np.full(len(groups), np.iinfo(np.int64).min)
+        (np.add if op == "sum" else np.maximum).at(acc, inv, x)
+        out[name] = acc
+    return key_cols, out, inv
+
+
+def etl_part_reference(part):
+    """Path (a)'s rows from numpy and Python's str, each function once
+    per distinct value: (names, columns, exact names) for
+    :func:`check_sql_rows`."""
+    import re
+    name = np.asarray(part["p_name"][1])
+    mfgr = np.asarray(part["p_mfgr"][1])
+    keep = _per_unique(np.char.add(np.char.add(mfgr, " "), name),
+                       lambda s: "green" in s.lower()).astype(bool)
+    p = {k: np.asarray(v)[keep] for k, (_, v) in part.items()}
+    size = p["p_size"].astype(np.int64)
+
+    def lens(values, fn):
+        return _per_unique(values, fn).astype(np.int64)
+
+    def hex_len(x):
+        return len(format(x if x >= 0 else x + (1 << 64), "X"))
+
+    cols = {
+        "container_len": lens(p["p_container"],
+                              lambda c: len(("  " + c + "  ").strip(" "))),
+        "brand_trim_len": lens(p["p_brand"], lambda b: len(
+            (" " + b).lstrip(" ")) + len((b + " ").rstrip(" "))),
+        "ee_pos": lens(p["p_name"], lambda n: n.find("ee") + 1),
+        "hex_len": np.array([len(format(v, "X").rjust(4, "0")[:4]
+                                 .replace("0", "")) for v in range(64)]
+                            )[size],
+        "hex_signed_len": np.array([hex_len(v - 25) for v in range(64)]
+                                   )[size],
+        "brand_len": lens(p["p_brand"], lambda b: len(b.replace("#", "-"))),
+        "class_len": lens(p["p_container"],
+                          lambda c: len(re.sub("[A-E]", "xy", c))),
+        "type_len": lens(p["p_type"],
+                         lambda t: len(t.replace("BRUSHED", "B"))),
+        "pad_len": lens(p["p_container"], lambda c: len(
+            (c + "." * 7)[:7].replace(".", ""))),
+    }
+
+    def part3(t):
+        parts = t.split(" ")
+        return parts[2].upper() if len(parts) >= 3 else ""
+
+    keys = [_key_codes(p["p_type"], part3),
+            _key_codes(p["p_name"], lambda n: _initcap(n.split(" ")[0]))]
+    ops = {n: "sum" for n in ETL_PART_NAMES[2:]}
+    ops["parts"], ops["ee_pos"] = "count", "max"
+    (material, first), out, _ = _grouped(keys, cols, ops)
+    want = {"material": material, "first_word": first, **out}
+    return ETL_PART_NAMES, want, set(ETL_PART_NAMES)
+
+
+def etl_lineitem_reference(li):
+    """Path (b)'s rows from numpy: keys, counts and the integer sums
+    exact, the float sums and corr/covar (two-pass, centered on each
+    group's means) within :func:`check_sql_rows`' 1e-9."""
+    k = np.asarray(li["l_orderkey"][1]).astype(np.int64)
+    ship = np.asarray(li["l_shipdate"][1]).astype(np.int64)
+    q = np.asarray(li["l_quantity"][1], dtype=np.float64)
+    tax = np.asarray(li["l_tax"][1], dtype=np.float64)
+    price = np.asarray(li["l_extendedprice"][1], dtype=np.float64)
+    disc = np.asarray(li["l_discount"][1], dtype=np.float64)
+    supp = np.asarray(li["l_suppkey"][1]).astype(np.int64)
+    secs = ship * 86400 + k * 7919 % 86400
+    months = ship.astype("datetime64[D]").astype("datetime64[M]")
+    last = (months + 1).astype("datetime64[D]") - 1
+    later = secs * 1_000_000 + 5 * 3_600_000_000 + 17
+    later_day = np.floor_divide(later, 86_400_000_000).astype(
+        "datetime64[D]")
+    day_of_month = (later_day - later_day.astype("datetime64[M]")
+                    ).astype(np.int64) + 1
+    nk = ~k
+    t100 = tax * 100
+    arr = np.stack([q, t100, np.full_like(q, 25.0)], axis=1)
+    cols = {
+        "tod": secs % 86400,
+        "fmt_len": np.full(len(k), 10, dtype=np.int64),
+        "fmt_day": day_of_month,
+        "packed": (supp << 3) | (k & 7),
+        "mixed": nk ^ (k.view(np.uint64) >> np.uint64(3)).view(np.int64),
+        "high_bits": (nk.view(np.uint64) >> np.uint64(60)).view(np.int64)
+        + (nk >> 62),
+        "arr_max": arr.max(axis=1), "arr_min": arr.min(axis=1),
+        "arr_size": np.full(len(k), 3, dtype=np.int64),
+        "has_26": ((q == 26.0) | (t100 == 26.0)).astype(np.int64),
+        "median": np.sort(arr, axis=1)[:, 1],
+        "pos_25": np.where(q == 25.0, 1, np.where(t100 == 25.0, 2, 3)),
+    }
+    keys = [_key_codes(last, lambda d: d + " 00:00:00"),
+            _key_codes(li["l_returnflag"][1])]
+    ops = {"n": "count", **{n: "sum" for n in cols}}
+    (ends, fl), out, inv = _grouped(keys, cols, ops)
+    g = len(ends)
+    n = np.bincount(inv, minlength=g).astype(np.float64)
+
+    def centered(x, y):
+        mx = np.bincount(inv, x, g) / n
+        my = np.bincount(inv, y, g) / n
+        dx, dy = x - mx[inv], y - my[inv]
+        return (np.bincount(inv, dx * dy, g), np.bincount(inv, dx * dx, g),
+                np.bincount(inv, dy * dy, g))
+
+    sp, sxx, syy = centered(q, price)
+    out["corr_qp"] = sp / np.sqrt(sxx * syy)
+    out["covp_qt"] = centered(q, tax)[0] / n
+    out["covs_dp"] = centered(disc, price)[0] / (n - 1)
+    want = {"month_end": ends, "l_returnflag": fl, **out}
+    floats = {"arr_max", "arr_min", "median", "corr_qp", "covp_qt",
+              "covs_dp"}
+    return ETL_LINEITEM_NAMES, want, set(ETL_LINEITEM_NAMES) - floats
+
+
+def etl_frames(session, part, lineitem, batch_rows: int):
+    """part and lineitem cached on the device as batches of
+    ``batch_rows`` rows; the ``part_etl`` view (:func:`etl_part_view`)
+    registered; (the part view's DataFrame, lineitem's DataFrame)."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.dataframe import DataFrame
+    from spark_rapids_tpu_torch.exprs import strings as S
+    from spark_rapids_tpu_torch.interop import host_batches
+    from spark_rapids_tpu_torch.plan.logical import InMemoryScan
+    frames = []
+    for data in (part, lineitem):
+        parts = host_batches(data, batch_rows)
+        frames.append(DataFrame(InMemoryScan(parts, parts[0].schema, 1),
+                                session).cache())
+    view = etl_part_view(frames[0], F, S)
+    view.create_or_replace_temp_view("part_etl")
+    return view, frames[1]
+
+
+def etl_queries(session, lineitem_df):
+    """{path: query builder} of the two ETL paths."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.exprs import datetime as D
+    return {"part": lambda _: session.sql(ETL_PART_SQL),
+            "lineitem": lambda _: etl_lineitem_query(lineitem_df, F, D)}
+
+
+def etl_phase() -> dict:
+    """The ETL phase: part at ``PART_SF`` and lineitem at
+    ``LINEITEM_SF``, cached as batches of ``reader.batchSizeRows`` rows;
+    path (a) through ``session.sql`` and path (b) through the DataFrame
+    API, each against its numpy answer, planned wholly on the card in the
+    test mode, every stringHash, contains and gatherScatter call of the
+    second collect held to its plain version; rows, second-collect ms,
+    launches and peak device memory on a line."""
+    import torch
+    from spark_rapids_tpu_torch.benchmarks import datagen
+    from spark_rapids_tpu_torch.config import (
+        READER_BATCH_SIZE_ROWS, RapidsConf,
+    )
+    from spark_rapids_tpu_torch.session import GpuSparkSession
+    t0 = time.monotonic()
+    part = datagen.gen_part(PART_SF)
+    lineitem = datagen.gen_lineitem(LINEITEM_SF)
+    refs = {"part": etl_part_reference(part),
+            "lineitem": etl_lineitem_reference(lineitem)}
+    conf = RapidsConf(SQL_SETTINGS)
+    session = GpuSparkSession(conf)
+    _, li_df = etl_frames(session, part, lineitem,
+                          READER_BATCH_SIZE_ROWS.get(conf))
+    print(f"ETL tables: part {len(part['p_partkey'][1])}, lineitem "
+          f"{len(lineitem['l_orderkey'][1])} rows, generated, cached and "
+          f"answered by numpy in {time.monotonic() - t0:.1f} s", flush=True)
+    del part, lineitem
+    out = {}
+    for path, query in etl_queries(session, li_df).items():
+        label = f"ETL {path}"
+        out[label] = run_lane(
+            query, lambda rows, p=path, lb=label: check_sql_rows(
+                rows, refs[p], lb), label, ETL_KERNELS[path], on_gpu=True)
+    del session, li_df
+    torch.cuda.empty_cache()
+    return out
+
+
 def q1_text() -> str:
     from spark_rapids_tpu_torch.benchmarks.tpch_like import QUERIES
     return QUERIES["q1"]
@@ -2919,6 +3265,13 @@ def main() -> int:
         # result line
         tpcds = tpcds_phase()
         print(f"TPC-DS phase: {len(tpcds)} texts; wall "
+              f"{time.monotonic() - t_start:.1f} s", flush=True)
+        return 0
+    if "--etl-only" in sys.argv[1:]:
+        # a development run of the ETL phase alone; it prints no result
+        # line
+        etl = etl_phase()
+        print(f"ETL phase: {len(etl)} paths; wall "
               f"{time.monotonic() - t_start:.1f} s", flush=True)
         return 0
     if "--lanes-only" in sys.argv[1:]:
@@ -3408,6 +3761,13 @@ def main() -> int:
           f"rows, every stringHash and gatherScatter call == its plain "
           f"version, in {time.monotonic() - t0:.1f} s", flush=True)
 
+    # ---- main paths: the expression layer on an ETL path ----------------
+    t0 = time.monotonic()
+    etl = etl_phase()
+    print(f"ETL phase: {len(etl)} paths == numpy, planned wholly on the "
+          f"GPU, every stringHash, contains and gatherScatter call == its "
+          f"plain version, in {time.monotonic() - t0:.1f} s", flush=True)
+
     # ---- string kernels: matrix and timings at the main paths' shapes ----
     p_type = cached_column(p_df, "p_type")
     p_brand = cached_column(p_df, "p_brand")
@@ -3432,7 +3792,8 @@ def main() -> int:
     contains_main = contains_numbers(*p_name, b"green", "p_name batch")
     h_err = max(hash_q1["max_abs_err"], hash_part["max_abs_err"],
                 sql_hash_err, max(r["hash_err"] for r in tpcds.values()),
-                max(r["hash_err"] for r in lanes.values()))
+                max(r["hash_err"] for r in lanes.values()),
+                max(r["hash_err"] for r in etl.values()))
     c_err = int((cuda_tier.rows_with_match(*p_name, b"green") !=
                  cuda_tier.rows_with_match_reference(*p_name, b"green"))
                 .sum())
@@ -3472,6 +3833,8 @@ def main() -> int:
                   for label, r in tpcds.items()})
     paths.update({label: r["path"]["collect2"]["launches"]
                   for label, r in lanes.items()})
+    paths.update({label: r["path"]["collect2"]["launches"]
+                  for label, r in etl.items()})
     print(f"test mode: {len(ON_GPU_CHECKED)} earlier paths plan wholly on "
           f"the GPU with spark.rapids.sql.test.enabled", flush=True)
 
@@ -3517,7 +3880,11 @@ def main() -> int:
                                  "path": r["path"],
                                  "peak_bytes": r["peak_bytes"],
                                  "host_ms": r.get("host_ms")}
-                                 for label, r in lanes.items()}},
+                                 for label, r in lanes.items()},
+                             "etl": {label: {
+                                 "path": r["path"],
+                                 "peak_bytes": r["peak_bytes"]}
+                                 for label, r in etl.items()}},
                "test_mode_paths": ON_GPU_CHECKED,
                "q3_overflow_reruns": q3_fallbacks,
                "sql_metrics": sql_metrics, "card": card}

@@ -6,7 +6,8 @@
                               q15|q16|q17|q18|q19|q20|q21|q22|
                               scan|q1pq|q6pq|q3pq|ds_q1|...|ds_q99|
                               mortgage_etl|mortgage_simple|mortgage_join|
-                              mortgage_pct|xbb_q5|...|xbb_q22 ...]
+                              mortgage_pct|xbb_q5|...|xbb_q22|
+                              etl_part|etl_lineitem ...]
                              [--mesh] [--batches 16] [--set KEY=VALUE ...]
                              [--out build/profile.txt]
 
@@ -30,10 +31,14 @@ aggregates_with_join, ``mortgage_pct`` aggregates_with_percentiles, whose
 largest layers are the 12-way explode and the percentile rewrite's
 window), or a TPCxBB text (``xbb_q5`` to ``xbb_q22``,
 ``benchmarks/tpcxbb_like.py`` at generator sf 30 in 3 partitions, the JAX
-suite's settings); all but the headline and the TPC-DS, mortgage and
+suite's settings), or a path of chip_smoke's ETL phase (``etl_part``:
+the string functions over part at 2,000,000 rows through
+``session.sql``; ``etl_lineitem``: time, bitwise, array functions and
+corr/covar over lineitem at 6,000,000 rows through the DataFrame API;
+the device settings); all but the headline and the TPC-DS, mortgage and
 TPCxBB tables are cached as batches of ``reader.batchSizeRows`` rows.
 ``--query`` may be given several times for texts of one kind (TPC-H,
-TPC-DS, mortgage or TPCxBB): the tables are made once and each is
+TPC-DS, mortgage, TPCxBB or ETL): the tables are made once and each is
 measured in turn, one JSON line each.
 The scan lane's paths read parquet files instead, written with pyarrow at
 its default row groups into a temporary directory, in every collect:
@@ -172,9 +177,10 @@ def main() -> int:
                 "mortgage_join": M.aggregates_with_join,
                 "mortgage_pct": M.aggregates_with_percentiles}
     xbb = {f"xbb_{q}": q for q in X.QUERIES}
+    etl = {"etl_part": "part", "etl_lineitem": "lineitem"}
     ap.add_argument("--query", action="append",
                     choices=("headline", "q1", "part", "q3", *sql,
-                             *on_parquet, *tpcds, *mortgage, *xbb))
+                             *on_parquet, *tpcds, *mortgage, *xbb, *etl))
     ap.add_argument("--mesh", action="store_true",
                     help="join queries only: install a one-device mesh "
                          "(spark.rapids.shuffle.ici.enabled)")
@@ -186,9 +192,10 @@ def main() -> int:
     args = ap.parse_args()
     queries = args.query or ["headline"]
     if len(queries) > 1 and not any(all(q in kind for q in queries)
-                                    for kind in (sql, tpcds, mortgage, xbb)):
+                                    for kind in (sql, tpcds, mortgage, xbb,
+                                                 etl)):
         ap.error("several --query are texts of one kind only (TPC-H, "
-                 "TPC-DS, mortgage or TPCxBB)")
+                 "TPC-DS, mortgage, TPCxBB or ETL)")
     novar = {tpcds[q] in C.TPCDS_NO_VAR_AGG for q in queries if q in tpcds}
     if len(novar) > 1:
         ap.error("q67 and q70 run without variableFloatAgg: profile them "
@@ -201,7 +208,8 @@ def main() -> int:
     conf = RapidsConf(dict(
         C.TPCXBB_SETTINGS if args.query in xbb else
         C.SQL_SETTINGS if args.query in sql or args.query in on_parquet or
-        args.query in tpcds or args.query in mortgage else C.SETTINGS,
+        args.query in tpcds or args.query in mortgage or args.query in etl
+        else C.SETTINGS,
         **C.Q3_MODES["mesh-fused" if args.mesh else "host-driven"]))
     if novar == {True}:
         conf.set("spark.rapids.sql.variableFloatAgg.enabled", False)
@@ -240,6 +248,15 @@ def main() -> int:
         del data
         query = mortgage[args.query](session) if args.query in mortgage \
             else session.sql(X.QUERIES[xbb[args.query]])
+    elif args.query in etl:
+        _, li_df = C.etl_frames(session, datagen.gen_part(C.PART_SF),
+                                datagen.gen_lineitem(C.LINEITEM_SF),
+                                batch_rows)
+        n_batches = len(session.table("part_etl").plan.children[0]
+                        .children[0].batches) + \
+            len(li_df.plan.children[0].batches)
+        etl_queries = C.etl_queries(session, li_df)
+        query = etl_queries[etl[args.query]](None)
     elif args.query in tpcds:
         data = build_tables(C.TPCDS_SF)
         C.tpcds_views(session, data, cache=True)
@@ -291,6 +308,8 @@ def main() -> int:
                 query = mortgage[name](session)
             elif name in xbb:
                 query = session.sql(X.QUERIES[xbb[name]])
+            elif name in etl:
+                query = etl_queries[etl[name]](None)
             else:
                 query = C.sql_query(session, sql[name])(None)
             joins.clear()

@@ -3,7 +3,8 @@
 (window expressions hoisted into Window nodes) and drop, filter, join and
 cross_join, union, intersect and subtract, explode, group_by().agg() and
 agg() without keys (count(DISTINCT) through the two-level rewrite,
-percentile through row_number and count windows), rollup, cube and
+percentile through row_number and count windows, corr and covar through
+mean windows and sums of centered products), rollup, cube and
 grouping_sets (an Expand under one aggregate), distinct, order_by, limit,
 cache, collect, explain, temp views for the SQL front end, and the Column
 operators of the ported expressions."""
@@ -134,6 +135,21 @@ class Column:
 
     def desc(self, nulls_first: Optional[bool] = None) -> SortOrder:
         return SortOrder(self.expr, False, nulls_first)
+
+    def getItem(self, ordinal: int) -> "Column":
+        """The array element at a literal 0-based ordinal (NULL out of
+        range)."""
+        from spark_rapids_tpu_torch.exprs.misc import GetArrayItem
+        return Column(GetArrayItem(self.expr, ordinal))
+
+    def __getitem__(self, ordinal: int) -> "Column":
+        if isinstance(ordinal, bool) or not isinstance(ordinal, int):
+            raise TypeError(f"an array ordinal must be an int: {ordinal!r}")
+        return self.getItem(ordinal)
+
+    def substr(self, start: int, length: int) -> "Column":
+        from spark_rapids_tpu_torch.exprs.strings import Substring
+        return Column(Substring(self.expr, start, length))
 
     def startswith(self, prefix: str) -> "Column":
         from spark_rapids_tpu_torch.exprs.strings import StringStartsWith
@@ -637,15 +653,97 @@ class GroupedData:
                 name, e = e.alias_name, e.children[0]
             if not isinstance(e, AggregateFunction):
                 raise TypeError(f"not an aggregate: {a!r}")
-            e = e.with_children([resolve(e.child, self.df.schema)])
+            e = e.with_children([resolve(c, self.df.schema)
+                                 for c in e.children])
             out.append(AggregateExpression(
                 e, name or f"{e.name.lower()}_{i}"))
+        if any(isinstance(a.fn, A._BinaryStatMarker) for a in out):
+            return self._agg_with_binary_stats(out)
         if any(isinstance(a.fn, A.Percentile) for a in out):
             return self._agg_with_percentile(out)
         if any(isinstance(a.fn, A.CountDistinct) for a in out):
             return self._agg_with_distinct(out)
         return DataFrame(L.Aggregate(self.keys, self.names, out,
                                      self.df.plan), self.df.session)
+
+    def _agg_with_binary_stats(self, out: List[AggregateExpression]
+                               ) -> DataFrame:
+        """The corr / covar_pop / covar_samp rewrite: no aggregation path
+        takes two inputs, so each becomes window means over the rows where
+        both inputs are non-NULL, SUMs of centered products and their
+        ratio in a projection after the aggregation (centered on the
+        group's means, so a large mean does not cancel)::
+
+            gx = x where both x and y are non-NULL; gy likewise
+            mx = avg(gx) OVER (keys); my = avg(gy) OVER (keys)
+            sp = SUM((gx - mx) * (gy - my)); n = COUNT(gx)
+            covar_pop = sp / n; covar_samp = sp / (n - 1), NaN at n = 1
+            corr = sp / sqrt(SUM((gx - mx)^2) * SUM((gy - my)^2)), NaN
+                   where a variance is 0
+            every one NULL at n = 0
+
+        Without keys the windows are one partition.  The other aggregates
+        ride the aggregation unchanged."""
+        from spark_rapids_tpu_torch import functions as F
+
+        df = self.df
+        wp = F.Window.partition_by(*[Column(k) for k in self.keys])
+        final: List[AggregateExpression] = []
+        post = {}  # output name -> its column over the aggregation
+        for i, a in enumerate(out):
+            fn = a.fn
+            if not isinstance(fn, A._BinaryStatMarker):
+                final.append(a)
+                continue
+            x, y = Column(fn.left), Column(fn.right)
+            both = x.is_not_null() & y.is_not_null()
+            gxn, gyn = f"__bs_x{i}", f"__bs_y{i}"
+            mxn, myn = f"__bs_mx{i}", f"__bs_my{i}"
+            df = (df.with_column(gxn, F.when(both, x.cast(T.DOUBLE))
+                                 .otherwise(None))
+                  .with_column(gyn, F.when(both, y.cast(T.DOUBLE))
+                               .otherwise(None)))
+            df = (df.with_column(mxn, F.avg(df[gxn]).over(wp))
+                  .with_column(myn, F.avg(df[gyn]).over(wp)))
+            dx, dy = df[gxn] - df[mxn], df[gyn] - df[myn]
+            spn, nn = f"__bs_sp{i}", f"__bs_n{i}"
+
+            def total(c: Column, name: str, frame=df):
+                return AggregateExpression(
+                    A.Sum(resolve(c.expr, frame.schema)), name)
+
+            final.append(total(dx * dy, spn))
+            final.append(AggregateExpression(
+                A.Count(resolve(ColumnRef(gxn), df.schema)), nn))
+            nan = F.lit(float("nan"))
+            if isinstance(fn, A.Corr):
+                sxn, syn = f"__bs_sx{i}", f"__bs_sy{i}"
+                final.append(total(dx * dx, sxn))
+                final.append(total(dy * dy, syn))
+
+                def result(g, spn=spn, nn=nn, sxn=sxn, syn=syn):
+                    denom = g[sxn] * g[syn]
+                    return (F.when((g[nn] >= 1) & (denom > 0),
+                                   g[spn] / F.sqrt(denom))
+                            .when(g[nn] >= 1, nan).otherwise(None))
+            elif isinstance(fn, A.CovarSamp):
+                def result(g, spn=spn, nn=nn):
+                    samp = g[spn] / (g[nn] - 1).cast(T.DOUBLE)
+                    return (F.when(g[nn] > 1, samp)
+                            .when(g[nn] == 1, nan).otherwise(None))
+            else:
+                def result(g, spn=spn, nn=nn):
+                    return (F.when(g[nn] >= 1,
+                                   g[spn] / g[nn].cast(T.DOUBLE))
+                            .otherwise(None))
+            post[a.output_name] = result
+        grouped = GroupedData(df, self.keys, self.names).agg(*final)
+        sel = [grouped[n].alias(n) for n in self.names]
+        for a in out:
+            col = post[a.output_name](grouped) if a.output_name in post \
+                else grouped[a.output_name]
+            sel.append(col.alias(a.output_name))
+        return grouped.select(*sel)
 
     def _agg_with_percentile(self, out: List[AggregateExpression]
                              ) -> DataFrame:

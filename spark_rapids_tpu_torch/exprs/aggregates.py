@@ -1,8 +1,8 @@
 """Declarative aggregate functions (port of
 ``spark_rapids_tpu/exprs/aggregates.py``: sum, count, avg, min, max,
 first and last, the central moments (stddev, variance and their
-population forms), and count(DISTINCT), percentile and grouping_id(),
-which the DataFrame layer rewrites away).
+population forms), and count(DISTINCT), percentile, corr, covar_pop,
+covar_samp and grouping_id(), which the DataFrame layer rewrites away).
 
 Each aggregate declares per-group buffers and three kernels:
 ``segment_update`` folds raw rows into buffers, ``segment_merge`` folds
@@ -644,6 +644,56 @@ class Percentile(AggregateFunction):
     def buffers(self):
         raise AssertionError(
             "Percentile must be rewritten before execution")
+
+
+class _BinaryStatMarker(AggregateFunction):
+    """corr / covar_pop / covar_samp: two inputs, never executed itself.
+    ``GroupedData.agg`` rewrites each into window means over the rows
+    where both inputs are non-NULL, SUMs of centered products and a
+    projection of their ratio (``GroupedData._agg_with_binary_stats``),
+    since every aggregation path takes one input."""
+
+    def __init__(self, left: Expression, right: Expression):
+        self.children = (left, right)
+        self._resolve_type()
+
+    @property
+    def left(self):
+        return self.children[0]
+
+    @property
+    def right(self):
+        return self.children[1]
+
+    def with_children(self, children):
+        return type(self)(children[0], children[1])
+
+    def _resolve_type(self):
+        for c in self.children:
+            if c.dtype != T.NULL and not c.dtype.is_numeric:
+                raise TypeError(f"{type(self).__name__} needs numeric "
+                                f"inputs, got {c.dtype}")
+        self.dtype = T.DOUBLE
+        self.nullable = True
+
+    def gpu_supported(self, conf):
+        return None
+
+    def buffers(self):
+        raise AssertionError(
+            f"{type(self).__name__} must be rewritten before execution")
+
+
+class CovarPop(_BinaryStatMarker):
+    pass
+
+
+class CovarSamp(_BinaryStatMarker):
+    pass
+
+
+class Corr(_BinaryStatMarker):
+    pass
 
 
 @dataclasses.dataclass

@@ -76,6 +76,16 @@ class GpuEvalCtx:
         self.batch = batch
         self.capacity = batch.capacity
         self.device = batch.device
+        self._row_mask = None
+
+    @property
+    def row_mask(self) -> torch.Tensor:
+        """bool[cap]: the live rows (position < ``num_rows``), made once."""
+        if self._row_mask is None:
+            self._row_mask = torch.arange(
+                self.capacity, dtype=torch.int32,
+                device=self.device) < self.batch.num_rows
+        return self._row_mask
 
 
 def _fp(v) -> str:
@@ -151,11 +161,9 @@ class Expression:
         raise NotImplementedError(f"{self.name}.cpu_eval")
 
     def gpu_supported(self, conf) -> Optional[str]:
-        """None if the port can evaluate this node, else the reason.  A
-        string result is refused unless the node says otherwise: column
-        references, string literals and aliases carry strings through."""
-        if self.dtype.is_string:
-            return f"{self.name}: string results are not ported yet"
+        """None if the port can evaluate this node, else the reason (the
+        JAX package's ``tpu_supported`` text).  A node whose device form
+        cannot build its result says so itself."""
         return None
 
 

@@ -38,6 +38,11 @@ class If(Expression):
     def with_children(self, children):
         return If(*children)
 
+    def gpu_supported(self, conf):
+        if self.dtype.is_string:
+            return "IF over string branches not yet supported on GPU"
+        return None
+
     def gpu_eval(self, ctx) -> DevVal:
         cond = _truth(self.children[0].gpu_eval(ctx))
         a = cast_dev(self.children[1].gpu_eval(ctx), self.dtype)
@@ -87,6 +92,11 @@ class CaseWhen(Expression):
         branches = [(children[2 * i], children[2 * i + 1]) for i in range(n)]
         else_value = children[2 * n] if len(children) > 2 * n else None
         return CaseWhen(branches, else_value)
+
+    def gpu_supported(self, conf):
+        if self.dtype.is_string:
+            return "CASE WHEN over string branches not yet supported on GPU"
+        return None
 
     def gpu_eval(self, ctx) -> DevVal:
         cap, dev = ctx.capacity, ctx.device

@@ -1,7 +1,8 @@
-"""Column functions (port of the part of ``spark_rapids_tpu/functions.py``
-whose expressions are ported), the ``broadcast`` join hint, and the
-window specs (``Window``, ``WindowSpec``, ``Column.over``) with the
-ranking and offset functions."""
+"""Column functions (port of ``spark_rapids_tpu/functions.py`` but for
+``udf``, ``pandas_udf``, ``rand``, ``monotonically_increasing_id`` and
+``spark_partition_id``), the ``broadcast`` join hint, the window specs
+(``Window``, ``WindowSpec``, ``Column.over``) with the ranking and offset
+functions, and ``Column.bitwiseAND``/``bitwiseOR``/``bitwiseXOR``."""
 
 from __future__ import annotations
 
@@ -37,6 +38,9 @@ def count(c) -> Column:
 
 def avg(c) -> Column:
     return _agg(A.Average, c)
+
+
+mean = avg
 
 
 def min(c) -> Column:  # noqa: A001
@@ -77,6 +81,25 @@ var_samp = variance
 
 def var_pop(c) -> Column:
     return _agg(A.VariancePop, c)
+
+
+def _binstat(cls, x, y) -> Column:
+    x = col(x) if isinstance(x, str) else x
+    y = col(y) if isinstance(y, str) else y
+    return Column(cls(_to_expr(x), _to_expr(y)))
+
+
+def corr(x, y) -> Column:
+    """Pearson correlation: rewritten by ``GroupedData.agg``."""
+    return _binstat(A.Corr, x, y)
+
+
+def covar_pop(x, y) -> Column:
+    return _binstat(A.CovarPop, x, y)
+
+
+def covar_samp(x, y) -> Column:
+    return _binstat(A.CovarSamp, x, y)
 
 
 def grouping_id() -> Column:
@@ -232,6 +255,175 @@ def substring(c, pos: int, length: int) -> Column:
     from spark_rapids_tpu_torch.exprs.strings import Substring
     return Column(Substring(_to_expr(col(c) if isinstance(c, str) else c),
                             pos, length))
+
+
+def _c(c):
+    return _to_expr(col(c) if isinstance(c, str) else c)
+
+
+def weekday(c) -> Column:
+    from spark_rapids_tpu_torch.exprs.datetime import WeekDay
+    return _unary(WeekDay, c)
+
+
+def date_format(c, fmt: str = "yyyy-MM-dd") -> Column:
+    from spark_rapids_tpu_torch.exprs.datetime import DateFormat
+    return Column(DateFormat(_c(c), fmt))
+
+
+def unix_timestamp(c) -> Column:
+    from spark_rapids_tpu_torch.exprs.datetime import UnixTimestamp
+    return _unary(UnixTimestamp, c)
+
+
+def from_unixtime(c, fmt: str = "yyyy-MM-dd HH:mm:ss") -> Column:
+    from spark_rapids_tpu_torch.exprs.datetime import FromUnixTime
+    return Column(FromUnixTime(_c(c), fmt))
+
+
+# -- strings -----------------------------------------------------------------
+
+
+def length(c) -> Column:
+    from spark_rapids_tpu_torch.exprs.strings import Length
+    return _unary(Length, c)
+
+
+def upper(c) -> Column:
+    from spark_rapids_tpu_torch.exprs.strings import Upper
+    return _unary(Upper, c)
+
+
+def lower(c) -> Column:
+    from spark_rapids_tpu_torch.exprs.strings import Lower
+    return _unary(Lower, c)
+
+
+def initcap(c) -> Column:
+    from spark_rapids_tpu_torch.exprs.strings import InitCap
+    return _unary(InitCap, c)
+
+
+def trim(c) -> Column:
+    from spark_rapids_tpu_torch.exprs.strings import StringTrim
+    return _unary(StringTrim, c)
+
+
+def concat(*cols) -> Column:
+    from spark_rapids_tpu_torch.exprs.strings import ConcatStrings
+    return Column(ConcatStrings(*[_c(c) for c in cols]))
+
+
+def concat_ws(sep: str, *cols) -> Column:
+    from spark_rapids_tpu_torch.exprs.strings import ConcatWs
+    return Column(ConcatWs(sep, *[_c(c) for c in cols]))
+
+
+def replace(c, search: str, replacement: str) -> Column:
+    from spark_rapids_tpu_torch.exprs.strings import StringReplace
+    return Column(StringReplace(_c(c), search, replacement))
+
+
+def regexp_replace(c, pattern: str, replacement: str) -> Column:
+    from spark_rapids_tpu_torch.exprs.strings import RegExpReplace
+    return Column(RegExpReplace(_c(c), pattern, replacement))
+
+
+def split(c, delimiter: str) -> Column:
+    """array<string>: on the host (variable-length elements)."""
+    from spark_rapids_tpu_torch.exprs.strings import StringSplit
+    return Column(StringSplit(_c(c), delimiter))
+
+
+def split_part(c, delimiter: str, part: int) -> Column:
+    """The 1-based field between literal delimiters (Spark
+    ``split_part``)."""
+    from spark_rapids_tpu_torch.exprs.strings import SplitPart
+    return Column(SplitPart(_c(c), delimiter, part))
+
+
+def substring_index(c, delimiter: str, count: int) -> Column:
+    from spark_rapids_tpu_torch.exprs.strings import SubstringIndex
+    return Column(SubstringIndex(_c(c), delimiter, count))
+
+
+def hex(c) -> Column:  # noqa: A001
+    from spark_rapids_tpu_torch.exprs.strings import Hex
+    return _unary(Hex, c)
+
+
+# -- bitwise -----------------------------------------------------------------
+
+
+def shiftleft(c, n) -> Column:
+    from spark_rapids_tpu_torch.exprs.bitwise import ShiftLeft
+    return Column(ShiftLeft(_c(c), _to_expr(n)))
+
+
+def shiftright(c, n) -> Column:
+    from spark_rapids_tpu_torch.exprs.bitwise import ShiftRight
+    return Column(ShiftRight(_c(c), _to_expr(n)))
+
+
+def shiftrightunsigned(c, n) -> Column:
+    from spark_rapids_tpu_torch.exprs.bitwise import ShiftRightUnsigned
+    return Column(ShiftRightUnsigned(_c(c), _to_expr(n)))
+
+
+def bitwise_not(c) -> Column:
+    from spark_rapids_tpu_torch.exprs.bitwise import BitwiseNot
+    return _unary(BitwiseNot, c)
+
+
+bitwiseNOT = bitwise_not
+
+
+def _bitwise_col(self: Column, other, cls_name: str) -> Column:
+    from spark_rapids_tpu_torch.exprs import bitwise as B
+    return Column(getattr(B, cls_name)(self.expr, _to_expr(other)))
+
+
+Column.bitwiseAND = lambda self, o: _bitwise_col(self, o, "BitwiseAnd")
+Column.bitwiseOR = lambda self, o: _bitwise_col(self, o, "BitwiseOr")
+Column.bitwiseXOR = lambda self, o: _bitwise_col(self, o, "BitwiseXor")
+
+
+# -- arrays ------------------------------------------------------------------
+
+
+def get_item(c, ordinal: int) -> Column:
+    from spark_rapids_tpu_torch.exprs.misc import GetArrayItem
+    return Column(GetArrayItem(_c(c), ordinal))
+
+
+def size(c) -> Column:
+    from spark_rapids_tpu_torch.exprs.misc import ArraySize
+    return _unary(ArraySize, c)
+
+
+def array_contains(c, value) -> Column:
+    from spark_rapids_tpu_torch.exprs.misc import ArrayContains
+    return Column(ArrayContains(_c(c), value))
+
+
+def array_min(c) -> Column:
+    from spark_rapids_tpu_torch.exprs.misc import ArrayMin
+    return _unary(ArrayMin, c)
+
+
+def array_max(c) -> Column:
+    from spark_rapids_tpu_torch.exprs.misc import ArrayMax
+    return _unary(ArrayMax, c)
+
+
+def sort_array(c, asc: bool = True) -> Column:
+    from spark_rapids_tpu_torch.exprs.misc import SortArray
+    return Column(SortArray(_c(c), asc))
+
+
+def array_position(c, value) -> Column:
+    from spark_rapids_tpu_torch.exprs.misc import ArrayPosition
+    return Column(ArrayPosition(_c(c), value))
 
 
 # -- CASE WHEN --------------------------------------------------------------

@@ -28,7 +28,7 @@ the aggregate test, so ``avg(x) OVER (...)`` over a subquery's aggregate
 output plans a Window, not an aggregation.  A construct whose expression
 or operator the port does not have yet raises
 :class:`NotImplementedError` naming it and saying "not ported yet":
-``explode``, ``||`` and every function whose expression is not ported.
+``explode``, ``explode_outer`` and ``posexplode`` in a select list.
 ``COUNT(DISTINCT x)`` is the one DISTINCT aggregate, over one column, as in
 the JAX package.  Nothing is guessed at and nothing is handed to the JAX
 package.
@@ -494,7 +494,10 @@ class Parser:
             elif self.accept("op", "-"):
                 e = Subtract(e, self.parse_multiplicative())
             elif self.accept("op", "||"):
-                _not_ported("string concatenation (||)")
+                from spark_rapids_tpu_torch.exprs.strings import (
+                    ConcatStrings,
+                )
+                e = ConcatStrings(e, self.parse_multiplicative())
             else:
                 return e
 
@@ -639,18 +642,9 @@ class Parser:
         return -n if self.next().value == "preceding" else n
 
 
-# Functions the JAX package's SQL front end knows whose expressions the
-# port does not have yet.
-_UNPORTED_FUNCTIONS = frozenset("""
-    upper ucase lower
-    initcap hex lcase length char_length trim ltrim rtrim hour minute second
-    substring_index split corr covar_pop covar_samp
-    concat replace regexp_replace split_part
-    concat_ws lpad rpad unix_timestamp to_unix_timestamp date_format
-    from_unixtime shiftleft shiftright shiftrightunsigned size
-    array_contains array_min array_max sort_array array_position explode
-    explode_outer posexplode array element_at
-""".split())
+# Functions the JAX package's SQL front end knows whose expressions or
+# operators the port does not have yet.
+_UNPORTED_FUNCTIONS = frozenset("explode explode_outer posexplode".split())
 
 
 def _build_function(name: str, args: List[Expression], star: bool,
@@ -714,6 +708,14 @@ def _build_function(name: str, args: List[Expression], star: bool,
         raise SyntaxError("to_date(expr[, fmt]) needs a literal format")
     if name == "grouping_id":
         return A.GroupingID()
+    if name in ("corr", "covar_pop", "covar_samp"):
+        if len(args) != 2:
+            raise SyntaxError(f"{name}(x, y) takes two arguments")
+        return {"corr": A.Corr, "covar_pop": A.CovarPop,
+                "covar_samp": A.CovarSamp}[name](args[0], args[1])
+    e = _build_scalar(name, args)
+    if e is not None:
+        return e
     ranking = {"row_number": W.RowNumber, "rank": W.Rank,
                "dense_rank": W.DenseRank}
     if name in ranking:
@@ -747,6 +749,93 @@ def _build_function(name: str, args: List[Expression], star: bool,
     if name in _UNPORTED_FUNCTIONS:
         _not_ported(f"the function {name}()")
     raise SyntaxError(f"unknown function {name}")
+
+
+def _literal_int(e: Expression, what: str) -> int:
+    """The int of a literal argument (a negated literal too)."""
+    from spark_rapids_tpu_torch.exprs.arithmetic import UnaryMinus
+    if isinstance(e, Literal) and isinstance(e.value, int):
+        return int(e.value)
+    if isinstance(e, UnaryMinus) and isinstance(e.children[0], Literal):
+        return -int(e.children[0].value)
+    raise SyntaxError(f"{what} needs a literal count")
+
+
+def _build_scalar(name: str, args: List[Expression]) -> Optional[Expression]:
+    """The string, time, bitwise and array functions of the JAX package's
+    table (``sql/parser.py``), or None for another name."""
+    from spark_rapids_tpu_torch.exprs import bitwise as B
+    from spark_rapids_tpu_torch.exprs import datetime as D
+    from spark_rapids_tpu_torch.exprs import misc as X
+    from spark_rapids_tpu_torch.exprs import strings as S
+    unary = {"upper": S.Upper, "ucase": S.Upper, "lower": S.Lower,
+             "lcase": S.Lower, "initcap": S.InitCap, "hex": S.Hex,
+             "length": S.Length, "char_length": S.Length,
+             "trim": S.StringTrim, "ltrim": S.StringTrimLeft,
+             "rtrim": S.StringTrimRight, "hour": D.Hour,
+             "minute": D.Minute, "second": D.Second,
+             "unix_timestamp": D.UnixTimestamp,
+             "to_unix_timestamp": D.ToUnixTimestamp, "size": X.ArraySize,
+             "array_min": X.ArrayMin, "array_max": X.ArrayMax}
+    if name in unary:
+        return unary[name](args[0])
+    if name == "substring_index":
+        if len(args) != 3:
+            raise SyntaxError(
+                "substring_index(str, delim, count) needs a literal count")
+        return S.SubstringIndex(
+            args[0], args[1],
+            _literal_int(args[2], "substring_index(str, delim, count)"))
+    if name == "split":
+        if len(args) != 2:
+            raise SyntaxError("split(str, delimiter) takes two arguments")
+        return S.StringSplit(args[0], args[1])
+    if name == "concat":
+        return S.ConcatStrings(*args)
+    if name == "replace":
+        return S.StringReplace(args[0], args[1], args[2])
+    if name == "regexp_replace":
+        return S.RegExpReplace(args[0], args[1], args[2])
+    if name == "split_part":
+        return S.SplitPart(args[0], args[1], args[2].value)
+    if name == "concat_ws":
+        sep = args[0].value if hasattr(args[0], "value") else str(args[0])
+        return S.ConcatWs(sep, *args[1:])
+    if name in ("lpad", "rpad"):
+        cls = S.StringLPad if name == "lpad" else S.StringRPad
+        pad = args[2].value if len(args) > 2 else " "
+        return cls(args[0], args[1].value, pad)
+    if name == "date_format":
+        if len(args) != 2 or not isinstance(args[1], Literal):
+            raise SyntaxError(
+                "date_format(expr, fmt) needs a literal format")
+        return D.DateFormat(args[0], str(args[1].value))
+    if name == "from_unixtime":
+        if len(args) > 1:
+            return D.FromUnixTime(args[0], args[1].value)
+        return D.FromUnixTime(args[0])
+    shifts = {"shiftleft": B.ShiftLeft, "shiftright": B.ShiftRight,
+              "shiftrightunsigned": B.ShiftRightUnsigned}
+    if name in shifts:
+        return shifts[name](args[0], args[1])
+    if name == "array_contains":
+        return X.ArrayContains(args[0], args[1])
+    if name == "array_position":
+        return X.ArrayPosition(args[0], args[1])
+    if name == "sort_array":
+        asc = True
+        if len(args) == 2:
+            if not isinstance(args[1], Literal):
+                raise SyntaxError(
+                    "sort_array(arr, asc) needs a literal boolean")
+            asc = bool(args[1].value)
+        return X.SortArray(args[0], asc)
+    if name == "array":
+        return X.CreateArray(*args)
+    if name == "element_at":
+        # SQL's element_at is 1-based; the expression's ordinal 0-based
+        return X.GetArrayItem(args[0], int(args[1].value) - 1)
+    return None
 
 
 def _contains_agg(e: Expression) -> bool:

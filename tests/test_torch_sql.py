@@ -295,10 +295,18 @@ def _fallback_sessions(case):
 
 
 #: the REFUSED cases the port has since ported (windows, grouping sets,
-#: set operations, the math functions): they run, and the rows equal the
-#: JAX package's
+#: set operations, the math and string functions, ``||``): they run, and
+#: the rows equal the JAX package's
 PORTED = ("window", "window-agg", "grouping-sets", "rollup", "cube",
-          "union", "intersect", "except", "math")
+          "union", "intersect", "except", "math", "string-length",
+          "string-function", "concat-op")
+
+#: ported cases the JAX package cannot run: ``hour`` of an INT (its numpy
+#: and jax forms overflow int32 at the day's microseconds) gives the
+#: port's hour of that many microseconds; ``date_format`` of an INT is
+#: refused at resolution in both packages
+PORTED_PAST_JAX = {"time-part": [(0,), (0,)]}
+RESOLVE_ERROR = ("date-format",)
 
 
 @pytest.mark.parametrize("case", list(REFUSED))
@@ -311,7 +319,9 @@ def test_unported_construct_raises(case):
     JAX package's host aggregate).  The constructs ported since (windows,
     ROLLUP, CUBE, GROUPING SETS, UNION, INTERSECT, EXCEPT) run on the
     device and give the JAX host engine's rows (compared as a multiset:
-    the texts have no ORDER BY), and so do the math functions."""
+    the texts have no ORDER BY), and so do the math and string functions
+    and ``||``; ``hour`` of an INT runs where the JAX package overflows,
+    and ``date_format`` of an INT is a TypeError in both packages."""
     if case in PORTED:
         sess = _refusal_session()
         got = sess.sql(REFUSED[case]).collect()
@@ -332,6 +342,18 @@ def test_unported_construct_raises(case):
             assert sorted(map(repr, got)) == sorted(map(repr, want))
         from spark_rapids_tpu_torch.session import _assert_on_gpu
         _assert_on_gpu(sess.last_physical_plan)  # no host exec but scans
+        return
+    if case in PORTED_PAST_JAX:
+        sess = _refusal_session()
+        assert sess.sql(REFUSED[case]).collect() == PORTED_PAST_JAX[case]
+        return
+    if case in RESOLVE_ERROR:
+        jsess = TpuSparkSession(JaxConf({}))
+        jsess.create_dataframe({"a": (JT.INT, [1, 2])}
+                               ).create_or_replace_temp_view("t")
+        for sess in (_refusal_session(), jsess):
+            with pytest.raises(TypeError, match="date/timestamp"):
+                sess.sql(REFUSED[case]).collect()
         return
     if case in FALLS_BACK:
         psess, jsess = _fallback_sessions(case)
