@@ -28,7 +28,10 @@ Phases, in order; any failure exits non-zero:
    probe rows against 2^22 build rows; and gatherScatter's every-buffer
    concat (:func:`pack_columns`) over k = 1/2/16/200 batches, every
    width, take_head-truncated string columns, empty batches and zero
-   tails, k = 200 with six string columns (grouped packs);
+   tails, k = 200 with six string columns (grouped packs); and its
+   row-window form (:func:`pack_column_windows`, the shuffle split's
+   piece gather) over windows that start past row 0, empty windows and
+   string windows whose bytes start mid-buffer, k = 1/2/6/16/200;
 4. main paths, each collected twice with the launch counts zeroed just
    before each collect and read just after, rows checked against an
    independent numpy reference:
@@ -89,6 +92,31 @@ Phases, in order; any failure exits non-zero:
      host operators' ms and the bytes the transitions moved; then the
      casts from DOUBLE and FLOAT to every integral type at NaN, ±inf,
      ±2^63 and ±2^31 ± 1 on the card against Java's rules and the CPU;
+   * the exchange phase, over the same views with
+     ``spark.rapids.sql.tpu.exchange.collapseLocal`` off and
+     ``spark.sql.shuffle.partitions`` at its default 8 (the adaptive
+     layer on, the broadcast threshold 10 MiB): (a) the 22 TPC-H texts,
+     rows against numpy and the collapsed runs' rows, one host sync per
+     split exchange, every gatherScatter (concats and the split's
+     pieces), stringHash and contains call of the second collect held to
+     its plain version, each text's ms beside the collapsed one's and its
+     split metrics on a line; (b) a skewed join: lineitem with half its
+     rows on one supplier joined to supplier (the broadcast off), grouped
+     by nation, against numpy, with ``aqeSkewSplits`` >= 1 and
+     ``skewSplitChunks`` > 1; (c) the partitioning API over lineitem:
+     ``repartition(8, l_orderkey)`` with ``spark_partition_id``,
+     ``monotonically_increasing_id`` and ``rand(7)``, ``sample(0.1)``,
+     ``sort_within_partitions``, ``write_parquet`` and
+     ``session.read.parquet``, the rows read back against the port's
+     host engine's (rand against its device form on CPU tensors), round
+     robin into 16 and ``coalesce(2)`` with each partition's rows exact,
+     and a global ``orderBy`` through the range split against numpy; (d)
+     ``drop_duplicates``, ``dropna``, ``fillna``, ``describe``,
+     ``pivot``, ``crosstab``, ``approx_quantile``, ``freq_items``,
+     ``head``, ``take``, ``first`` and ``is_empty`` over lineitem against
+     numpy; then gatherScatter timed at the split's own piece shape;
+     the phase's wall, peak device memory and the card on a line
+     (``--exchange-only`` runs this phase alone);
    * the scan lane, over parquet files written with pyarrow at its
      default row groups into a temporary directory: bench.py's scan query
      (``bench.py:273-296``: read, filter, project revenue, group by
@@ -241,6 +269,16 @@ def graph_ms(call, launches: int = 20) -> float:
     return time_ms(graph.replay) / launches
 
 
+def host_ms(fn, reps: int = 50, warmup: int = 5) -> float:
+    """Mean host time of one ``fn()`` call, by the host clock, no sync."""
+    for _ in range(warmup):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
 def time_ms(fn, reps: int = 30, warmup: int = 5) -> float:
     """Median device time of one ``fn()`` call, by CUDA events."""
     import torch
@@ -364,14 +402,10 @@ def columns_case(rng, k, dtypes, n_strings, device, max_cap=3000):
     return columns, _dev_ints(ns, device), caps, live_bytes
 
 
-def check_columns(columns, ns, out_cap, byte_caps, label) -> None:
-    """The multi-buffer pack against its plain version: every buffer
-    equal bit for bit (torch.equal of the bytes), zero tails and rebuilt
-    offsets included."""
+def _same_buffers(got, want, label) -> None:
+    """Every buffer of two packs equal bit for bit (torch.equal of the
+    bytes), zero tails and rebuilt offsets included."""
     import torch
-    from spark_rapids_tpu_torch.kernels import cuda_tier
-    got = cuda_tier.pack_columns(columns, ns, out_cap, byte_caps)
-    want = cuda_tier.pack_columns_reference(columns, ns, out_cap, byte_caps)
     torch.cuda.synchronize()
     for ci, (g, w) in enumerate(zip(got, want)):  # bit for bit
         for name, gb, wb in zip(("data", "validity", "offsets"), g, w):
@@ -381,6 +415,27 @@ def check_columns(columns, ns, out_cap, byte_caps, label) -> None:
                                                     wb.view(torch.uint8)))):
                 raise AssertionError(f"gatherScatter (all buffers) != plain "
                                      f"version: {label} column {ci} {name}")
+
+
+def check_columns(columns, ns, out_cap, byte_caps, label) -> None:
+    """The multi-buffer pack against its plain version."""
+    from spark_rapids_tpu_torch.kernels import cuda_tier
+    _same_buffers(cuda_tier.pack_columns(columns, ns, out_cap, byte_caps),
+                  cuda_tier.pack_columns_reference(columns, ns, out_cap,
+                                                   byte_caps), label)
+
+
+def check_windows(columns, starts, counts, out_cap, byte_caps,
+                  label) -> None:
+    """The row-window pack (the shuffle split's piece gather) against its
+    plain version."""
+    from spark_rapids_tpu_torch.kernels import cuda_tier
+    _same_buffers(
+        cuda_tier.pack_column_windows(columns, starts, counts, out_cap,
+                                      byte_caps),
+        cuda_tier.pack_column_windows_reference(columns, starts, counts,
+                                                out_cap, byte_caps),
+        f"windows {label}")
 
 
 def check_columns_matrix(device) -> int:
@@ -404,6 +459,58 @@ def check_columns_matrix(device) -> int:
             check_columns(columns, ns, out_cap, byte_caps,
                           f"k={k} strings={n_strings} tail={tail}")
             cases += 1
+    return cases + check_windows_matrix(rng, device)
+
+
+def check_windows_matrix(rng, device) -> int:
+    """pack_column_windows (the split's piece gather: one row window per
+    batch, every buffer in one launch) against its plain version: windows
+    that start past row 0, empty windows (every third batch), string
+    windows whose bytes start mid-buffer (take_head-truncated columns,
+    offsets growing past the live rows), zero tails, k = 200 with six
+    string columns (grouped packs, then a concat of the groups), and a
+    pack over a reordered subset of inputs checked once (the split's
+    ``PackInputs.take``).  Returns the number of cases."""
+    from spark_rapids_tpu_torch.kernels import cuda_tier
+    cases = 0
+    for k, n_strings in ((1, 1), (2, 2), (6, 4), (16, 2), (200, 6)):
+        columns, ns, caps, _ = columns_case(rng, k, PACK_DTYPES, n_strings,
+                                            device)
+        starts, counts = [], []
+        for j, n in enumerate(int(n) for n in ns):
+            start = int(rng.randint(0, n + 1))
+            starts.append(start)
+            counts.append(0 if j % 3 == 2 else
+                          int(rng.randint(0, n - start + 1)))
+        live = [sum(int(o[a + c]) - int(o[a]) for (_, _, o), a, c in
+                    zip(parts, starts, counts))
+                for parts in columns if parts[0][2] is not None]
+        for tail in (0, 1 + int(rng.randint(0, 999))):
+            out_cap = sum(counts) + tail
+            if out_cap == 0:
+                continue
+            check_windows(columns, starts, counts, out_cap,
+                          [b + tail for b in live],
+                          f"k={k} strings={n_strings} tail={tail}")
+            cases += 1
+        # the split's form: inputs checked once, then a pack over a
+        # subset of them in another order (PackInputs.take)
+        sub = list(range(k))[::-2]
+        sub_cols = [[parts[j] for j in sub] for parts in columns]
+        sub_starts = [starts[j] for j in sub]
+        sub_counts = [counts[j] for j in sub]
+        sub_live = [sum(int(o[a + c]) - int(o[a]) for (_, _, o), a, c in
+                        zip(parts, sub_starts, sub_counts))
+                    for parts in sub_cols if parts[0][2] is not None]
+        _same_buffers(
+            cuda_tier.pack_column_windows(
+                None, sub_starts, sub_counts, max(sum(sub_counts), 1),
+                sub_live, inputs=cuda_tier.PackInputs(columns).take(sub)),
+            cuda_tier.pack_column_windows_reference(
+                sub_cols, sub_starts, sub_counts, max(sum(sub_counts), 1),
+                sub_live),
+            f"windows k={k} strings={n_strings}, a taken subset")
+        cases += 1
     return cases
 
 
@@ -1344,8 +1451,10 @@ class Recorder:
     (origin, args): the main path's own inputs for the checks and timings.
     ``origin`` is ``file:qualified name`` of the first caller outside
     ``cuda_tier.py`` and ``exprs/strings.py`` (``string_hash_rows`` and
-    ``string_hash2`` go through ``string_hash_columns``).  The calls go
-    through to the kernel unchanged."""
+    ``string_hash2`` go through ``string_hash_columns``).  A
+    ``pack_column_windows`` call given its inputs as a ``PackInputs`` is
+    kept with those inputs' columns in place of ``columns``.  The calls
+    go through to the kernel unchanged."""
 
     _PASS = ("cuda_tier.py", "strings.py")
 
@@ -1357,7 +1466,7 @@ class Recorder:
         from spark_rapids_tpu_torch.kernels import cuda_tier
         self._real = getattr(cuda_tier, self.name)
 
-        def record(*args):
+        def record(*args, **kwargs):
             f = sys._getframe(1)
             while f is not None and \
                     os.path.basename(f.f_code.co_filename) in self._PASS:
@@ -1365,8 +1474,11 @@ class Recorder:
             origin = ("?" if f is None else
                       f"{os.path.basename(f.f_code.co_filename)}:"
                       f"{f.f_code.co_qualname}")
-            self.calls.append((origin, args))
-            return self._real(*args)
+            kept = args
+            if kwargs.get("inputs") is not None and args[0] is None:
+                kept = (kwargs["inputs"].columns,) + args[1:]
+            self.calls.append((origin, kept))
+            return self._real(*args, **kwargs)
 
         setattr(cuda_tier, self.name, record)
         return self
@@ -1856,23 +1968,29 @@ def run_checked(query, check, label: str, on_gpu: bool = True,
             Recorder("string_hash_columns") as hashes, \
             Recorder("rows_with_match") as matches, \
             (Recorder("pack_columns") if concats else
-             contextlib.nullcontext()) as packs:
-        recorders = (probes, hashes, matches) + ((packs,) if concats else ())
+             contextlib.nullcontext()) as packs, \
+            (Recorder("pack_column_windows") if concats else
+             contextlib.nullcontext()) as windows:
+        recorders = (probes, hashes, matches) + \
+            ((packs, windows) if concats else ())
         path = run_path(None, query, check, label, recorders,
                         on_gpu=on_gpu)
     launches = path["collect2"]["launches"]
+    n_packs = len(packs.calls) + len(windows.calls) if concats else 0
     if len(hashes.calls) < launches["stringHash"] or \
             len(probes.calls) != launches["joinProbe"] or \
             len(matches.calls) < launches["strings"] or \
-            (concats and len(packs.calls) < launches["gatherScatter"]):
+            (concats and n_packs < launches["gatherScatter"]):
         raise AssertionError(f"{label}: {len(hashes.calls)} stringHash, "
                              f"{len(probes.calls)} joinProbe, "
                              f"{len(matches.calls)} contains and "
-                             f"{len(packs.calls) if concats else '-'} "
+                             f"{n_packs if concats else '-'} "
                              f"gatherScatter calls recorded for launches "
                              f"{launches}")
     for i, (origin, args) in enumerate(packs.calls if concats else ()):
         check_columns(*args, f"{label}, concat {i} ({origin})")
+    for i, (origin, args) in enumerate(windows.calls if concats else ()):
+        check_windows(*args, f"{label}, piece {i} ({origin})")
     hash_err = max((check_hashes(args[0], f"{label}, {origin}")
                     for origin, args in hashes.calls), default=0)
     probe_err = max((check_probe(args[:-1], args[-1], f"{label}, join {i}")
@@ -1880,15 +1998,15 @@ def run_checked(query, check, label: str, on_gpu: bool = True,
     for origin, args in matches.calls:
         check_contains(*args, f"{label}, {origin}")
     origins = sorted({origin for origin, _ in hashes.calls})
-    packed = f", {len(packs.calls)} gatherScatter calls" if concats else ""
+    packed = f", {n_packs} gatherScatter calls" if concats else ""
     print(f"{label}: the second collect's {len(hashes.calls)} stringHash "
           f"calls ({', '.join(origins) or 'none'}), {len(probes.calls)} "
           f"joinProbe calls{packed} and {len(matches.calls)} contains "
           "calls == plain versions on their own inputs", flush=True)
     return {"path": path, "probes": probes.calls, "hashes": hashes.calls,
             "matches": matches.calls, "hash_err": hash_err,
-            "probe_err": probe_err,
-            "packs": len(packs.calls) if concats else 0}
+            "probe_err": probe_err, "packs": n_packs,
+            "windows": windows.calls if concats else []}
 
 
 def check_contains(data, offsets, needle: bytes, label: str) -> None:
@@ -1902,18 +2020,25 @@ def check_contains(data, offsets, needle: bytes, label: str) -> None:
         raise AssertionError(f"contains != plain version on {label}")
 
 
-def run_sql_more(session, refs):
+def run_sql_more(session, refs, kept=None):
     """The fifteen texts of :data:`SQL_MORE`, host-driven, each through
-    :func:`run_sql` with its rows held to ``refs``.  Every text runs
-    before any failure is reported, so one run names them all.  Returns
+    :func:`run_sql` with its rows held to ``refs`` (and kept in ``kept``
+    under "sql <name> host-driven" when given).  Every text runs before
+    any failure is reported, so one run names them all.  Returns
     ({label: (run_sql's result, the query's metrics)}, [faults])."""
     runs, faults = {}, []
+    kept = {} if kept is None else kept
+
+    def check(rows, name, label):
+        check_sql_rows(rows, refs[name], label)
+        kept[f"sql {name} host-driven"] = rows
+
     for name in SQL_MORE:
         label = f"SQL {name.upper()} host-driven"
         try:
             rec = run_sql(session, name,
-                          lambda rows, n=name, lb=label:
-                          check_sql_rows(rows, refs[n], lb), label)
+                          lambda rows, n=name, lb=label: check(rows, n, lb),
+                          label)
         except Exception as e:  # noqa: BLE001  (named with the others)
             faults.append(f"{label}: {type(e).__name__}: {e}")
             print(f"{label}: FAILED {type(e).__name__}: {e}", flush=True)
@@ -3224,6 +3349,591 @@ def etl_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# main paths with the partitioned exchange: the split, the adaptive layer,
+# the partitioning API and the DataFrame methods
+# ---------------------------------------------------------------------------
+
+#: the SQL phases' settings with the exchanges split and
+#: ``spark.sql.shuffle.partitions`` at its default, 8 (the adaptive layer
+#: on and the broadcast threshold 10 MiB, their defaults)
+SPLIT_SETTINGS = dict(SQL_SETTINGS, **{
+    "spark.rapids.sql.tpu.exchange.collapseLocal": False,
+    "spark.sql.shuffle.partitions": 8})
+SPLIT_TEXTS = ("q1", "q2", "q3", "q4", "q5", "q6", "q7", "q8", "q9", "q10",
+               "q11", "q12", "q13", "q14", "q15", "q16", "q17", "q18", "q19",
+               "q20", "q21", "q22")
+Q1_NAMES = ["l_returnflag", "l_linestatus", "sum_qty", "sum_base_price",
+            "avg_qty", "avg_price", "avg_disc", "count_order"]
+#: the supplier that holds half of lineitem's rows in the skewed join
+HOT_SUPPLIER = 7
+#: the partitioning API path's columns of lineitem
+API_COLUMNS = ["l_orderkey", "l_partkey", "l_suppkey", "l_quantity",
+               "l_extendedprice", "l_returnflag", "l_shipdate", "l_shipmode"]
+
+
+def split_tables():
+    """The SQL phase's tables at TPC-H SF1's counts and their numpy
+    answers, for ``--exchange-only``."""
+    from spark_rapids_tpu_torch.benchmarks import datagen
+    data = {"customer": datagen.gen_customer(Q3_SF),
+            "orders": datagen.gen_orders(Q3_SF),
+            "lineitem": datagen.gen_lineitem(Q3_SF),
+            "supplier": datagen.gen_supplier(SUPPLIER_SF),
+            "nation": datagen.gen_nation(), "region": datagen.gen_region(),
+            "part": datagen.gen_part(SQL_PART_SF),
+            "partsupp": datagen.gen_partsupp(SQL_PART_SF)}
+    refs = sql_references(data)
+    refs.update(sql_references_more(data))
+    refs["q1"] = q1_reference(data["lineitem"])
+    refs["q3"] = q3_reference(data["customer"], data["orders"],
+                              data["lineitem"])
+    return data, refs
+
+
+def split_ops(session):
+    """The per-operator metrics of the exchanges of the last query that
+    split (dispatched a pid sort)."""
+    return {op: m for op, m in session.last_op_metrics.items()
+            if m.get("shuffleSplitDispatches")}
+
+
+class ExchangeSyncs:
+    """Around every split and range sample of the device exchanges, the
+    host syncs torch's sync debug mode flags (each synchronizing call: a
+    ``.tolist()``, a stream synchronize, a blocking copy) beside the syncs
+    the exchange counted itself (``shuffleSyncs``, ``rangeSampleSyncs``):
+    ``calls`` holds (what, flagged, counted) a call."""
+
+    def __enter__(self):
+        import warnings
+        import torch
+        from spark_rapids_tpu_torch.parallel.exchange import (
+            GpuShuffleExchangeExec as X,
+        )
+        self.calls = []
+        self._saved = (X._split, X._sample_range)
+
+        def wrap(fn, what, metric):
+            def run(ex, ctx, *args):
+                m = ctx.metric(ex.op_id, metric)
+                before = m.value
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    with warnings.catch_warnings(record=True) as caught:
+                        warnings.simplefilter("always")
+                        out = fn(ex, ctx, *args)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                flagged = sum(1 for w in caught
+                              if "synchroniz" in str(w.message))
+                self.calls.append((what, flagged, m.value - before))
+                return out
+            return run
+
+        X._split = wrap(X._split, "split", "shuffleSyncs")
+        X._sample_range = wrap(X._sample_range, "range sample",
+                               "rangeSampleSyncs")
+        return self
+
+    def __exit__(self, *exc):
+        from spark_rapids_tpu_torch.parallel.exchange import (
+            GpuShuffleExchangeExec as X,
+        )
+        X._split, X._sample_range = self._saved
+        return False
+
+
+def run_split_texts(session, refs, kept, collapsed_ms):
+    """(a) The 22 TPC-H texts with the exchanges split, each through
+    :func:`run_checked` with every gatherScatter (concats and split
+    pieces), stringHash and contains call of the second collect held to
+    its plain version; rows against numpy and the collapsed run's rows;
+    one sync per split exchange, three per range sample, and every split
+    and sample of both collects taking the syncs it counted, as torch's
+    sync debug mode flags them; gatherScatter launched where the plan
+    split.  Every text runs before a fault is raised."""
+    runs, faults, pieces = {}, [], []
+    for name in SPLIT_TEXTS:
+        label = f"split {name.upper()}"
+
+        def check(rows, name=name, label=label):
+            if name == "q1":
+                check_string_rows(rows, Q1_NAMES, refs["q1"], label)
+            elif name == "q3":
+                check_q3_rows(rows, refs["q3"], label)
+            else:
+                check_sql_rows(rows, refs[name], label)
+            other = kept.get(f"sql {name} host-driven")
+            if other is not None:
+                check_same_rows(rows, other, f"{label} vs collapsed")
+
+        try:
+            with ExchangeSyncs() as flagged:
+                rec = run_checked(sql_query(session, name), check, label,
+                                  concats=True)
+        except Exception as e:  # noqa: BLE001  (named with the others)
+            faults.append(f"{label}: {type(e).__name__}: {e}")
+            print(f"{label}: FAILED {type(e).__name__}: {e}", flush=True)
+            continue
+        metrics = dict(session.last_metrics)
+        splits = split_ops(session)
+        c2 = rec["path"]["collect2"]
+        shown = {k: metrics.get(k, 0) for k in (
+            "shufflePieces", "shuffleSyncs", "rangeSampleSyncs",
+            "coalescedTo", "aqeCoalescedPartitions", "replannedBroadcast",
+            "shuffleElided")}
+        print(f"{label}: {c2['rows']} rows, collect "
+              f"{c2['wall_s'] * 1e3:.1f} ms (collapsed "
+              f"{collapsed_ms.get(name, float('nan')):.1f} ms), "
+              f"{len(splits)} split exchanges, {shown}, launches "
+              f"{c2['launches']}", flush=True)
+        syncs = [m.get("shuffleSyncs") for m in splits.values()]
+        if any(n != 1 for n in syncs):
+            faults.append(f"{label}: shuffleSyncs {syncs}, not 1 per split "
+                          "exchange")
+        samples = [m["rangeSampleSyncs"] for m in splits.values()
+                   if "rangeSampleSyncs" in m]
+        if any(n != 3 for n in samples):
+            faults.append(f"{label}: rangeSampleSyncs {samples}, not 3 per "
+                          "range sample")
+        miscounted = [c for c in flagged.calls if c[1] != c[2]]
+        print(f"{label}: syncs flagged by torch / counted, both collects: "
+              f"{[f'{w} {f}/{c}' for w, f, c in flagged.calls]}",
+              flush=True)
+        if miscounted or (splits and not flagged.calls):
+            faults.append(f"{label}: exchange syncs flagged/counted "
+                          f"{flagged.calls}")
+        if metrics.get("shufflePieces") and \
+                c2["launches"]["gatherScatter"] == 0:
+            faults.append(f"{label} split into pieces without gatherScatter")
+        pieces.extend(args for _, args in rec.pop("windows"))
+        runs[label] = rec
+    return runs, faults, pieces
+
+
+def skew_frames(session, data, batch_rows):
+    """lineitem with every other row's l_suppkey set to
+    :data:`HOT_SUPPLIER` (a marketplace table whose top seller holds half
+    the rows), and supplier, cached; and the join grouped by the
+    supplier's nation."""
+    from spark_rapids_tpu_torch import functions as F
+    li = dict(data["lineitem"])
+    dtype, keys = li["l_suppkey"]
+    keys = np.array(keys, copy=True)
+    keys[::2] = HOT_SUPPLIER
+    li["l_suppkey"] = (dtype, keys)
+    tables = q3_tables(session, {"lineitem": li,
+                                 "supplier": data["supplier"]}, batch_rows)
+    lf = tables["lineitem"].select("l_suppkey", "l_extendedprice",
+                                   "l_discount", "l_quantity")
+    sf = tables["supplier"].select("s_suppkey", "s_nationkey")
+    query = (lf.join(sf, lf["l_suppkey"] == sf["s_suppkey"])
+             .group_by("s_nationkey")
+             .agg(F.sum(lf["l_extendedprice"] * (1 - lf["l_discount"]))
+                  .alias("revenue"),
+                  F.sum("l_quantity").alias("qty"),
+                  F.count("*").alias("n"))
+             .order_by("s_nationkey"))
+    s = _np(data["supplier"])
+    ln = _np(li)
+    hit = (keys >= 1) & (keys <= len(s["s_suppkey"]))  # s_suppkey is 1..n
+    nation = s["s_nationkey"][keys[hit] - 1]
+    n_nat = int(s["s_nationkey"].max()) + 1
+    rev = np.bincount(nation, (ln["l_extendedprice"] *
+                               (1 - ln["l_discount"]))[hit], n_nat)
+    qty = np.bincount(nation, ln["l_quantity"][hit], n_nat)
+    cnt = np.bincount(nation, minlength=n_nat)
+    has = cnt > 0
+    ref = (["s_nationkey", "revenue", "qty", "n"],
+           {"s_nationkey": np.arange(n_nat)[has], "revenue": rev[has],
+            "qty": qty[has], "n": cnt[has]}, ("s_nationkey", "n"))
+    return (lambda _: query), ref
+
+
+def api_query(df, F):
+    """(c) repartition by l_orderkey, the nondeterministic columns, a 10%
+    sample, a sort within each partition."""
+    return (df.repartition(8, "l_orderkey")
+            .with_column("pid", F.spark_partition_id())
+            .with_column("mid", F.monotonically_increasing_id())
+            .with_column("r", F.rand(7))
+            .sample(0.1, 11)
+            .sort_within_partitions("l_orderkey"))
+
+
+def check_api_rows(rows, names, label):
+    """pid from the id's high bits, ids unique, rand in [0, 1) and equal
+    to the device form run on CPU tensors for its partition and row (each
+    partition arrives as one piece, so its base row id is 0)."""
+    import torch
+    from spark_rapids_tpu_torch.exprs.misc import rand_uniform
+    pid = np.array([r[names.index("pid")] for r in rows], dtype=np.int64)
+    mid = np.array([r[names.index("mid")] for r in rows], dtype=np.int64)
+    rnd = np.array([r[names.index("r")] for r in rows], dtype=np.float64)
+    if len(np.unique(mid)) != len(mid):
+        raise AssertionError(f"{label}: monotonically_increasing_id repeats")
+    if not np.array_equal(mid >> 33, pid):
+        raise AssertionError(f"{label}: id high bits != spark_partition_id")
+    if not (np.all(rnd >= 0) and np.all(rnd < 1)):
+        raise AssertionError(f"{label}: rand outside [0, 1)")
+    for p in np.unique(pid):
+        at = pid == p
+        offset = mid[at] - (p << 33)
+        want = rand_uniform(7, int(p), 0, int(offset.max()) + 1,
+                            torch.device("cpu")).numpy()[offset]
+        if not np.array_equal(rnd[at].view(np.int64), want.view(np.int64)):
+            raise AssertionError(f"{label}: rand of partition {p} != the "
+                                 "device form on CPU tensors")
+
+
+def run_api_path(session, host_session, li, batch_rows, tmp):
+    """(c) The partitioning API over lineitem: :func:`api_query` collected
+    twice (rand equal between the collects), written as parquet and read
+    back, the rows (but rand) equal to the port's host engine's; then
+    round robin into 16 and coalesce into 2 (each partition's row count
+    exact), and a global sort through the range split against numpy."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.dataframe import DataFrame
+    from spark_rapids_tpu_torch.interop import host_batches
+    from spark_rapids_tpu_torch.plan.logical import InMemoryScan
+    table = {k: li[k] for k in API_COLUMNS}
+    parts = host_batches(table, batch_rows)
+    df = DataFrame(InMemoryScan(parts, parts[0].schema, 1),
+                   session).cache()
+    names = API_COLUMNS + ["pid", "mid", "r"]
+    kept = []
+
+    def check(rows):
+        check_api_rows(rows, names, "API path")
+        if session.last_metrics.get("shufflePieces") != 8:
+            raise AssertionError(f"API path: pieces {session.last_metrics}")
+        kept.append(rows)
+
+    rec = run_checked(lambda _: api_query(df, F), check, "API path",
+                      concats=True)
+    if kept[0] != kept[1]:
+        raise AssertionError("API path: the two collects differ")
+    out = os.path.join(tmp, "api")
+    stats = api_query(df, F).write_parquet(out)
+    back = session.read.parquet(out).collect()
+    host_df = DataFrame(InMemoryScan(parts, parts[0].schema, 1),
+                        host_session)
+    t0 = time.monotonic()
+    host = api_query(host_df, F).collect()
+    host_s = time.monotonic() - t0
+    ri = names.index("r")
+    strip = [tuple(x for i, x in enumerate(r) if i != ri) for r in back]
+    if strip != [tuple(x for i, x in enumerate(r) if i != ri)
+                 for r in host]:
+        raise AssertionError("API path: the rows read back != the host "
+                             "engine's")
+    if [r[ri] for r in back] != [r[ri] for r in kept[1]]:
+        raise AssertionError("API path: rand read back != collected")
+    print(f"API path: {len(back)} rows written ({stats}) and read back == "
+          f"the host engine's ({host_s:.1f} s) but rand; ids unique, their "
+          "high bits the partition id, rand == the device form on CPU "
+          "tensors", flush=True)
+    # round robin and coalesce: each partition's rows exact
+    ns = [p.num_rows for p in parts]
+    for label, frame, n in (("repartition(16)", df.repartition(16), 16),
+                            ("coalesce(2)", df.coalesce(2), 2)):
+        got = dict(frame.with_column("p", F.spark_partition_id())
+                   .group_by("p").agg(F.count("*").alias("n"))
+                   .collect())
+        want = {p: sum(nb // n + (p < nb % n) for nb in ns)
+                for p in range(n)}
+        if got != want:
+            raise AssertionError(f"{label}: rows per partition {got}, "
+                                 f"not {want}")
+        print(f"{label}: rows per partition == round robin's {want}",
+              flush=True)
+    # the global sort through the range split
+    price = np.asarray(table["l_extendedprice"][1])
+    okey = np.asarray(table["l_orderkey"][1])
+    order = np.lexsort((okey, -price))
+    t0 = time.monotonic()
+    frame = df.order_by(df["l_extendedprice"].desc(), "l_orderkey") \
+        .select("l_extendedprice", "l_orderkey")
+    got = session.execute(frame.plan)  # numpy columns, no row objects
+    ms = (time.monotonic() - t0) * 1e3
+    metrics = dict(session.last_metrics)
+    if not (np.array_equal(got.columns[0].values, price[order]) and
+            np.array_equal(got.columns[1].values, okey[order])):
+        raise AssertionError("orderBy through the range split != numpy")
+    print(f"orderBy(desc(l_extendedprice), l_orderkey): {len(order)} rows "
+          f"in numpy's order, {ms:.1f} ms with the collect, metrics "
+          f"{metrics}", flush=True)
+    return rec
+
+
+def run_methods(session, li, batch_rows):
+    """(d) The DataFrame methods over lineitem (6,000,000 rows) on the
+    split session, each against numpy."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch import types as T
+    t = {k: np.asarray(v) for k, (_, v) in li.items()}
+    base = q3_tables(session, {"li": {k: li[k] for k in (
+        "l_orderkey", "l_returnflag", "l_linestatus", "l_quantity",
+        "l_extendedprice", "l_discount")}}, batch_rows)["li"]
+    q, disc = t["l_quantity"], t["l_discount"]
+    nul = base.with_column("disc_q", F.when(base["l_quantity"] > 25,
+                                            base["l_discount"])
+                           .otherwise(F.lit(None).cast(T.DOUBLE)))
+    t0 = time.monotonic()
+    done = []  # (method, seconds since the previous one)
+    last = [t0]
+
+    def note(label):
+        now = time.monotonic()
+        done.append(f"{label} {now - last[0]:.2f} s")
+        last[0] = now
+
+    def same(label, got, want):
+        if got != want:
+            raise AssertionError(f"{label}: {got!r} != numpy's {want!r}")
+        note(label)
+
+    keys = list(zip(t["l_returnflag"].tolist(), t["l_linestatus"].tolist()))
+    first = {}
+    for i, k in enumerate(keys):
+        first.setdefault(k, i)
+    got = sorted(base.drop_duplicates(["l_returnflag", "l_linestatus"])
+                 .collect(), key=lambda r: (r[0], r[1]))
+    same("drop_duplicates", got, [
+        (str(k[0]), str(k[1]), int(t["l_orderkey"][i]), float(q[i]),
+         float(t["l_extendedprice"][i]), float(disc[i]))
+        for k, i in sorted(first.items())])
+    same("dropna", nul.dropna(subset=["disc_q"]).count(),
+         int((q > 25).sum()))
+    filled = nul.fillna(0.0, subset=["disc_q"]).agg(
+        F.sum("disc_q").alias("s")).collect()[0][0]
+    np.testing.assert_allclose(filled, np.where(q > 25, disc, 0.0).sum(),
+                               rtol=1e-9, err_msg="fillna")
+    note("fillna")
+    desc = {r[0]: r[1:] for r in base.describe(
+        "l_quantity", "l_extendedprice").collect()}
+    for j, c in enumerate(("l_quantity", "l_extendedprice")):
+        v = t[c]
+        if (desc["count"][j], desc["min"][j], desc["max"][j]) != (
+                str(len(v)), str(float(v.min())), str(float(v.max()))):
+            raise AssertionError(f"describe {c}: {desc}")
+        np.testing.assert_allclose(
+            [float(desc["mean"][j]), float(desc["stddev"][j])],
+            [v.mean(), v.std(ddof=1)], rtol=1e-9,
+            err_msg=f"describe {c}")
+    note("describe")
+    piv = base.group_by("l_returnflag").pivot("l_linestatus") \
+        .sum("l_quantity")
+    statuses = sorted(set(t["l_linestatus"].tolist()))
+    if piv.columns != ["l_returnflag"] + statuses:
+        raise AssertionError(f"pivot columns {piv.columns}")
+    for r in piv.collect():
+        for s_, v in zip(statuses, r[1:]):
+            at = (t["l_returnflag"] == r[0]) & (t["l_linestatus"] == s_)
+            want = q[at].sum() if at.any() else None
+            if (v is None) != (want is None) or (
+                    v is not None and abs(v - want) > 1e-9 * want):
+                raise AssertionError(f"pivot {r[0]} {s_}: {v} != {want}")
+    note("pivot")
+    ct = {r[0]: r[1:] for r in base.crosstab("l_returnflag",
+                                             "l_linestatus").collect()}
+    for flag_, counts in ct.items():
+        want = tuple(int(((t["l_returnflag"] == flag_) &
+                          (t["l_linestatus"] == s_)).sum())
+                     for s_ in statuses)
+        same(f"crosstab {flag_}", tuple(counts), want)
+    np.testing.assert_allclose(
+        base.approx_quantile("l_quantity", [0.25, 0.5, 0.75]),
+        np.percentile(q, [25, 50, 75]), rtol=1e-9,
+        err_msg="approx_quantile")
+    note("approx_quantile")
+    flags, fcounts = np.unique(t["l_returnflag"], return_counts=True)
+    same("freq_items", sorted(base.freq_items(["l_returnflag"], 0.3)
+                              .collect()[0][0]),
+         sorted(str(f) for f, c in zip(flags, fcounts)
+                if c > 0.3 * len(q)))
+
+    def row(i):
+        return (int(t["l_orderkey"][i]), str(t["l_returnflag"][i]),
+                str(t["l_linestatus"][i]), float(q[i]),
+                float(t["l_extendedprice"][i]), float(disc[i]))
+
+    same("head", base.head(3), [row(i) for i in range(3)])
+    same("take", base.take(5), [row(i) for i in range(5)])
+    same("first", base.first(), row(0))
+    same("is_empty", base.is_empty(), False)
+    same("is_empty (filtered)",
+         base.filter(base["l_quantity"] < 0).is_empty(), True)
+    wall = time.monotonic() - t0
+    print(f"methods: {', '.join(done)} == numpy in {wall:.1f} s",
+          flush=True)
+    return {"methods": done, "wall_s": wall}
+
+
+def exchange_phase(data=None, refs=None, kept=None, collapsed_ms=None
+                   ) -> dict:
+    """The exchange phase (module docstring, item 4): (a) the 22 TPC-H
+    texts split, (b) a skewed join, (c) the partitioning API, (d) the
+    DataFrame methods, all at ``SPLIT_SETTINGS`` over SF1's counts.
+    ``data``/``refs`` are the SQL phase's tables and numpy answers, made
+    here when None; ``kept`` the collapsed runs' rows and
+    ``collapsed_ms`` their second-collect ms, by text.  Returns the runs
+    and the recorded split pieces."""
+    import torch
+    from spark_rapids_tpu_torch import functions as F  # noqa: F401
+    from spark_rapids_tpu_torch.config import (
+        READER_BATCH_SIZE_ROWS, RapidsConf,
+    )
+    from spark_rapids_tpu_torch.session import GpuSparkSession
+    t_phase = time.monotonic()
+    if data is None:
+        data, refs = split_tables()
+        print(f"exchange phase tables and numpy answers in "
+              f"{time.monotonic() - t_phase:.1f} s", flush=True)
+    kept, collapsed_ms = kept or {}, collapsed_ms or {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    conf = RapidsConf(SPLIT_SETTINGS)
+    batch_rows = READER_BATCH_SIZE_ROWS.get(conf)
+    session = GpuSparkSession(conf)
+    sql_tables(session, data, batch_rows)
+    t0 = time.monotonic()
+    runs, faults, pieces = run_split_texts(session, refs, kept,
+                                           collapsed_ms)
+    print(f"split texts: {len(runs)} of {len(SPLIT_TEXTS)} in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    if faults:
+        raise AssertionError("; ".join(faults))
+    del session
+    torch.cuda.empty_cache()
+    # (b) the skewed join, shuffled (broadcast off)
+    skew_session = GpuSparkSession(RapidsConf(dict(
+        SPLIT_SETTINGS, **{"spark.sql.autoBroadcastJoinThreshold": -1})))
+    query, ref = skew_frames(skew_session, data, batch_rows)
+    rec = run_checked(query, lambda rows: check_sql_rows(
+        rows, ref, "skewed join"), "skewed join", concats=True)
+    metrics = dict(skew_session.last_metrics)
+    print(f"skewed join: plan\n"
+          f"{skew_session.last_physical_plan.tree_string()}metrics "
+          f"{metrics}", flush=True)
+    if metrics.get("aqeSkewSplits", 0) < 1 or \
+            metrics.get("skewSplitChunks", 0) <= 1:
+        raise AssertionError(f"skewed join: no skew split {metrics}")
+    rec.pop("windows")
+    runs["skewed join"] = rec
+    del skew_session, query
+    torch.cuda.empty_cache()
+    # (c) the partitioning API and (d) the methods
+    session = GpuSparkSession(conf)
+    host_session = GpuSparkSession(RapidsConf(dict(
+        SPLIT_SETTINGS, **{"spark.rapids.sql.enabled": False})))
+    li = data["lineitem"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_split_") as tmp:
+        rec = run_api_path(session, host_session, li, batch_rows, tmp)
+    pieces.extend(args for _, args in rec.pop("windows"))
+    runs["API path"] = rec
+    methods = run_methods(session, li, batch_rows)
+    # the split's piece gather at lineitem's own shape: 6 batches into 8
+    # targets, every column
+    from spark_rapids_tpu_torch.plan.logical import InMemoryScan
+    from spark_rapids_tpu_torch.dataframe import DataFrame
+    from spark_rapids_tpu_torch.interop import host_batches
+    parts = host_batches(li, batch_rows)
+    li_df = DataFrame(InMemoryScan(parts, parts[0].schema, 1),
+                      session).cache()
+    li_df.agg(F.count("*")).collect()  # fill the cache
+    with Recorder("pack_column_windows") as rec_w:
+        li_df.repartition(8, "l_orderkey").agg(F.count("*")).collect()
+    piece_args = max((args for _, args in rec_w.calls),
+                     key=lambda a: a[3])
+    check_windows(*piece_args, "lineitem piece")
+    piece = _windows_numbers(*piece_args, torch.device("cuda", 0))
+    piece["shape"] = (f"lineitem's {len(piece_args[1])} cached batches "
+                      f"into 8 targets by l_orderkey: the largest piece, "
+                      f"{piece['live_rows']} rows, {piece['buffers']} "
+                      "buffers")
+    print(f"gatherScatter split-piece shape: {json.dumps(piece)}",
+          flush=True)
+    wall = time.monotonic() - t_phase
+    peak = torch.cuda.max_memory_allocated()
+    print(f"exchange phase: wall {wall:.1f} s, peak device memory "
+          f"{peak / 2**30:.2f} GiB, card {card_line()}", flush=True)
+    del session, host_session, li_df
+    torch.cuda.empty_cache()
+    return {"runs": runs, "pieces": len(pieces), "piece": piece,
+            "methods": methods, "wall_s": wall, "peak_bytes": peak}
+
+
+def _windows_numbers(columns, starts, counts, out_cap, byte_caps, device,
+                     launches: int = 20) -> dict:
+    """One split piece (every buffer): the wrapper, the kernel alone (its
+    launch table built once, the launch replayed from a CUDA graph), the
+    plain version, and the library (one ``torch.cat`` of the windows'
+    ``narrow`` views per buffer into a preallocated output; offsets
+    concatenated as they are, not rebased), and the host's parts, on the
+    host clock: checking the k batches' buffers once an exchange
+    (``inputs_ms``, a ``PackInputs``) and building a piece's launch table
+    and outputs (``table_ms``).  Bytes: each window read once, each
+    output written once, each varlen window's two element bounds read
+    once."""
+    import torch
+    from spark_rapids_tpu_torch.kernels import cuda_tier
+    k = len(starts)
+    nbytes = k * 8 * len(byte_caps)
+    windows, outs = [], []
+    str_caps = iter(byte_caps)
+    for parts in columns:
+        rows = [(v.narrow(0, s, c), d.narrow(0, s, c) if o is None else None)
+                for (d, v, o), s, c in zip(parts, starts, counts)]
+        bufs = [([r[0] for r in rows], out_cap)]
+        if parts[0][2] is None:
+            bufs.append(([r[1] for r in rows], out_cap))
+        else:
+            ends = [(int(o[s]), int(o[s + c]))
+                    for (_, _, o), s, c in zip(parts, starts, counts)]
+            bufs.append(([d.narrow(0, a, b - a) for (d, _, _), (a, b) in
+                          zip(parts, ends)], next(str_caps)))
+            bufs.append(([o.narrow(0, s, c + 1) for (_, _, o), s, c in
+                          zip(parts, starts, counts)], out_cap + 1))
+        for wins, cap in bufs:
+            got = sum(int(w.numel()) for w in wins)
+            width = wins[0].element_size()
+            nbytes += got * width + cap * width
+            windows.append(wins)
+            outs.append(torch.empty(got, dtype=wins[0].dtype,
+                                    device=device))
+
+    def library():
+        for wins, out in zip(windows, outs):
+            torch.cat(wins, out=out)
+
+    def call():  # as the split calls it: inputs checked once an exchange
+        return cuda_tier.pack_column_windows(None, starts, counts, out_cap,
+                                             byte_caps, inputs=inputs)
+
+    inputs = cuda_tier.PackInputs(columns)
+
+    def table():
+        return cuda_tier._windows_table(inputs, starts, counts, out_cap,
+                                        byte_caps)
+
+    desc, _outs = table()
+    table_ms = host_ms(table)
+    inputs_ms = host_ms(lambda: cuda_tier.PackInputs(columns))
+    torch.cuda.synchronize()
+    return {
+        "ms": time_ms(call), "table_ms": table_ms, "inputs_ms": inputs_ms,
+        "kernel_only_ms": graph_ms(lambda: cuda_tier._run_pack(desc, device),
+                                   launches),
+        "plain_ms": time_ms(lambda: cuda_tier.pack_column_windows_reference(
+            columns, starts, counts, out_cap, byte_caps), reps=10, warmup=2),
+        "library_ms": time_ms(library),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+        "buffers": len(windows), "live_rows": sum(counts),
+    }
+
+
 def q1_text() -> str:
     from spark_rapids_tpu_torch.benchmarks.tpch_like import QUERIES
     return QUERIES["q1"]
@@ -3272,6 +3982,17 @@ def main() -> int:
         # line
         etl = etl_phase()
         print(f"ETL phase: {len(etl)} paths; wall "
+              f"{time.monotonic() - t_start:.1f} s", flush=True)
+        return 0
+    if "--exchange-only" in sys.argv[1:]:
+        # a development run of the exchange phase alone, after the
+        # gatherScatter matrices its piece gather goes through; it prints
+        # no result line
+        cases = check_columns_matrix(device)
+        print(f"kernel phase: gatherScatter (every buffer of a concat, row "
+              f"windows) == plain version over {cases} cases", flush=True)
+        exchange = exchange_phase()
+        print(f"exchange phase: {len(exchange['runs'])} paths; wall "
               f"{time.monotonic() - t_start:.1f} s", flush=True)
         return 0
     if "--lanes-only" in sys.argv[1:]:
@@ -3608,7 +4329,7 @@ def main() -> int:
     # is raised, so one run names them all
     sql_session = GpuSparkSession(RapidsConf(SQL_SETTINGS))
     sql_tables(sql_session, sql_data, batch_rows)
-    runs, faults = run_sql_more(sql_session, sql_refs)
+    runs, faults = run_sql_more(sql_session, sql_refs, kept)
     for label, run in runs.items():
         keep(run[0], label, run[1])
     del runs
@@ -3618,6 +4339,18 @@ def main() -> int:
           f"in {', '.join(q.upper() for q in SQL_NESTED_LOOP)}", flush=True)
     del sql_session
     torch.cuda.empty_cache()
+    # the exchange phase: the same views with the exchanges split
+    collapsed_ms = {
+        name: sql_paths[f"SQL {name.upper()} host-driven"]["collect2"]
+        ["wall_s"] * 1e3 for name in SPLIT_TEXTS
+        if f"SQL {name.upper()} host-driven" in sql_paths}
+    t0 = time.monotonic()
+    exchange = exchange_phase(sql_data, dict(sql_refs, q3=q3_ref), kept,
+                              collapsed_ms)
+    print(f"exchange phase: {len(exchange['runs'])} paths == numpy or the "
+          f"host engine's rows, {exchange['pieces']} split pieces and "
+          f"every other gatherScatter, stringHash and contains call == its "
+          f"plain version, in {time.monotonic() - t0:.1f} s", flush=True)
     # the fallback phase: operators on the host by the planner's tags
     t0 = time.monotonic()
     fallback = fallback_phase(sql_data, sql_refs, q1_names, q1_ref, p_df,
@@ -3835,6 +4568,8 @@ def main() -> int:
                   for label, r in lanes.items()})
     paths.update({label: r["path"]["collect2"]["launches"]
                   for label, r in etl.items()})
+    paths.update({label: r["path"]["collect2"]["launches"]
+                  for label, r in exchange["runs"].items()})
     print(f"test mode: {len(ON_GPU_CHECKED)} earlier paths plan wholly on "
           f"the GPU with spark.rapids.sql.test.enabled", flush=True)
 
@@ -3856,7 +4591,7 @@ def main() -> int:
     kernels = [
         entry("gatherScatter", main_shape, max_err,
               paths["headline"]["gatherScatter"], bandwidth=bandwidth,
-              strings=strings_shape),
+              strings=strings_shape, split_piece=exchange["piece"]),
         entry("stringHash", hash_q1, h_err,
               sum(launches["stringHash"] for launches in paths.values()),
               part_keys=hash_part, q3_segment=hash_q3,
@@ -3884,7 +4619,13 @@ def main() -> int:
                              "etl": {label: {
                                  "path": r["path"],
                                  "peak_bytes": r["peak_bytes"]}
-                                 for label, r in etl.items()}},
+                                 for label, r in etl.items()},
+                             "exchange": {
+                                 "paths": {label: r["path"] for label, r
+                                           in exchange["runs"].items()},
+                                 "methods": exchange["methods"],
+                                 "wall_s": exchange["wall_s"],
+                                 "peak_bytes": exchange["peak_bytes"]}},
                "test_mode_paths": ON_GPU_CHECKED,
                "q3_overflow_reruns": q3_fallbacks,
                "sql_metrics": sql_metrics, "card": card}

@@ -579,3 +579,26 @@ def device_to_host_many(batches: Sequence[ColumnBatch],
 
 def device_to_host(batch: ColumnBatch) -> HostBatch:
     return device_to_host_many([batch])[0]
+
+
+def fixed_row_bytes(schema: T.Schema) -> int:
+    """Bytes per row of a schema's fixed-width buffers as the device holds
+    them: data item size plus a validity byte a column; a varlen column
+    its 4-byte offset and validity byte (its elements are counted from
+    its offsets).  The shuffle split's piece sizes, which the adaptive
+    layer reads, are these plus the elements' bytes."""
+    total = 0
+    for f in schema.fields:
+        if f.dtype.is_string or f.dtype.is_array:
+            total += 5
+        else:
+            total += int(np.dtype(f.dtype.np_dtype).itemsize) + 1
+    return total
+
+
+def varlen_byte_scales(schema: T.Schema) -> List[int]:
+    """Bytes per element of each varlen column, in column order: 1 for a
+    string, the element's item size for an array."""
+    return [1 if f.dtype.is_string else
+            int(np.dtype(f.dtype.element.np_dtype).itemsize)
+            for f in schema.fields if f.dtype.is_string or f.dtype.is_array]

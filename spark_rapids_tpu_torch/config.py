@@ -133,8 +133,7 @@ EXPLAIN = conf_str(
 TEST_ENABLED = conf_bool(
     "spark.rapids.sql.test.enabled", False,
     "Testing only: fail a query if any operator other than a scan, a "
-    "host<->device transition or a collapsed host exchange would run on "
-    "the host.")
+    "host<->device transition or a host exchange would run on the host.")
 STRING_HASH_JOIN = conf_bool(
     "spark.rapids.sql.stringHashGroupJoin.enabled", True,
     "Group by / join on string keys via row hashes computed on the "
@@ -180,6 +179,52 @@ EXCHANGE_COLLAPSE_LOCAL = conf_bool(
     "Collapse shuffle exchanges to a single logical partition in "
     "single-process execution: partitioning only constrains placement, "
     "which one partition trivially satisfies.")
+SHUFFLE_COALESCE_MAX_BYTES = conf_bytes(
+    "spark.rapids.sql.tpu.exchange.splitCoalesceMaxBytes", 256 << 20,
+    "A target partition whose combined size exceeds this stays as "
+    "per-batch pieces instead of one coalesced piece (<= 0: always "
+    "coalesce).")
+CPU_RANGE_PARTITIONING_SAMPLE = conf_int(
+    "spark.rapids.sql.rangePartitioning.sampleSize", 1 << 16,
+    "Rows sampled (the first ones, in partition and batch order) when "
+    "computing range-partitioning bounds.")
+AQE_COALESCE_ENABLED = conf_bool(
+    "spark.rapids.sql.adaptive.coalescePartitions.enabled", True,
+    "Group small post-shuffle partitions so each downstream task covers "
+    "a worthwhile size; join pairs coalesce by combined size to stay "
+    "co-partitioned.")
+AQE_TARGET_ROWS = conf_int(
+    "spark.rapids.sql.adaptive.targetPartitionRows", 1 << 16,
+    "Row-count target per coalesced post-shuffle partition (used only "
+    "when the exchange did not record byte sizes).")
+AQE_TARGET_BYTES = conf_bytes(
+    "spark.rapids.sql.adaptive.advisoryPartitionSizeInBytes", 64 << 20,
+    "Byte-size target per coalesced post-shuffle partition, preferred "
+    "over the row target whenever the exchange recorded piece bytes.")
+AQE_REPLAN_JOINS = conf_bool(
+    "spark.rapids.sql.adaptive.replanJoins.enabled", True,
+    "At execution time, run a shuffled hash join whose build side's "
+    "exchange came in under spark.sql.autoBroadcastJoinThreshold actual "
+    "bytes as a broadcast join, skipping the probe side's split.")
+AQE_SKEW_FACTOR = conf_float(
+    "spark.rapids.sql.adaptive.skewJoin.skewedPartitionFactor", 5.0,
+    "A join partition is skewed when its size exceeds this multiple of "
+    "the median partition size (and the skew floor); its stream side is "
+    "then joined piece by piece, in bounded row slices.")
+TPU_ADAPTIVE_ENABLED = conf_bool(
+    "spark.rapids.sql.tpu.adaptive.enabled", True,
+    "Master gate of the adaptive layer (plan/adaptive.py): post-shuffle "
+    "coalescing, the shuffled-to-broadcast join switch and the skew "
+    "split, all from sizes the shuffle split already fetched.")
+ADAPTIVE_COALESCE_TARGET_BYTES = conf_bytes(
+    "spark.rapids.sql.tpu.adaptive.coalesce.targetBytes", 0,
+    "Byte target per coalesced post-shuffle partition; 0 inherits "
+    "spark.rapids.sql.adaptive.advisoryPartitionSizeInBytes.")
+ADAPTIVE_SKEW_THRESHOLD_BYTES = conf_bytes(
+    "spark.rapids.sql.tpu.adaptive.skew.thresholdBytes", 0,
+    "Absolute floor a partition must also exceed (besides "
+    "skewedPartitionFactor x median) to count as skewed; 0 inherits the "
+    "coalesce byte target.")
 AUTO_BROADCAST_THRESHOLD = conf_int(
     "spark.sql.autoBroadcastJoinThreshold", 10 << 20,
     "Max estimated build-side bytes for choosing a broadcast hash join "

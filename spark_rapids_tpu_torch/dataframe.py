@@ -285,6 +285,15 @@ class DataFrame:
             names.append(name)
         return DataFrame(self._project_node(exprs, names), self.session)
 
+    def with_column_renamed(self, old: str, new: str) -> "DataFrame":
+        exprs = [ColumnRef(f.name, f.dtype, f.nullable)
+                 for f in self.schema.fields]
+        names = [new if f.name == old else f.name
+                 for f in self.schema.fields]
+        return DataFrame(L.Project(exprs, names, self.plan), self.session)
+
+    withColumnRenamed = with_column_renamed
+
     def drop(self, *names: str) -> "DataFrame":
         """Every column but ``names`` (a name the frame lacks is
         ignored)."""
@@ -554,10 +563,279 @@ class DataFrame:
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(L.Limit(n, self.plan), self.session)
 
+    def sort_within_partitions(self, *cols) -> "DataFrame":
+        orders = [self._resolve_order(_to_order(c)) for c in cols]
+        return DataFrame(L.Sort(orders, False, self.plan), self.session)
+
+    sortWithinPartitions = sort_within_partitions
+
+    def repartition(self, n: int, *cols) -> "DataFrame":
+        """Hash partitioning by ``cols``, round robin without them."""
+        if cols:
+            keys = [self._resolve(_to_expr(self[c] if isinstance(c, str)
+                                           else c)) for c in cols]
+            node = L.Repartition("hash", n, keys, self.plan)
+        else:
+            node = L.Repartition("roundrobin", n, [], self.plan)
+        return DataFrame(node, self.session)
+
+    def coalesce(self, n: int) -> "DataFrame":
+        return DataFrame(L.Repartition("roundrobin", n, [], self.plan),
+                         self.session)
+
+    def sample(self, fraction: float, seed: int = 42) -> "DataFrame":
+        return DataFrame(L.Sample(fraction, seed, self.plan), self.session)
+
+    def sample_by(self, col_name: str, fractions: Dict, seed: int = 42
+                  ) -> "DataFrame":
+        """Stratified sample without replacement (pyspark sampleBy): each
+        row kept where ``rand(seed)`` is under its key's fraction; keys
+        absent from ``fractions`` are dropped."""
+        from spark_rapids_tpu_torch import functions as F
+        for k, f in fractions.items():
+            if not (0.0 <= float(f) <= 1.0):
+                raise ValueError(f"fraction for {k!r} must be in [0, 1]")
+        if not fractions:  # pyspark: empty strata -> empty sample
+            return self.filter(F.lit(False))
+        key = self[col_name]
+        frac = None
+        for k, f in fractions.items():
+            branch = key.is_null() if k is None else (key == k)
+            frac = F.when(branch, float(f)) if frac is None \
+                else frac.when(branch, float(f))
+        return self.filter(F.rand(seed) < frac.otherwise(0.0))
+
+    sampleBy = sample_by
+
+    # -- stat functions (pyspark DataFrameStatFunctions) --------------------
+
+    def describe(self, *cols) -> "DataFrame":
+        """count/mean/stddev/min/max of the numeric and string columns
+        (pyspark ``describe``): a small string frame with a 'summary'
+        column, from one aggregation."""
+        from spark_rapids_tpu_torch import functions as F
+        targets = list(cols) or [f.name for f in self.schema.fields
+                                 if f.dtype.is_numeric or f.dtype.is_string]
+        data = {"summary": (T.STRING,
+                            ["count", "mean", "stddev", "min", "max"])}
+        if targets:
+            aggs = []
+            for c in targets:
+                aggs.append(F.count(c).alias(f"c_{c}"))
+                if self.schema.field(c).dtype.is_numeric:
+                    aggs += [F.avg(c).alias(f"m_{c}"),
+                             F.stddev(c).alias(f"s_{c}")]
+                aggs += [F.min(c).alias(f"mn_{c}"), F.max(c).alias(f"mx_{c}")]
+            row = iter(self.agg(*aggs).collect()[0])
+
+            def s(v):
+                return None if v is None else str(v)
+
+            for c in targets:
+                cnt = next(row)
+                mean = std = None
+                if self.schema.field(c).dtype.is_numeric:
+                    mean, std = next(row), next(row)
+                mn, mx = next(row), next(row)
+                data[c] = (T.STRING,
+                           [str(cnt), s(mean), s(std), s(mn), s(mx)])
+        return self.session.create_dataframe(data, num_partitions=1)
+
+    def fillna(self, value, subset: Optional[List[str]] = None
+               ) -> "DataFrame":
+        """Replace NULLs, and NaNs in float columns, with ``value``
+        (pyspark ``na.fill``): a scalar over the type-compatible columns,
+        or a {column: value} dict; the value is cast to the column's type
+        (2.5 fills an INT column as 2)."""
+        from spark_rapids_tpu_torch import functions as F
+        from spark_rapids_tpu_torch.exprs.nullexprs import NaNvl
+
+        def check(v):
+            if isinstance(v, (bool, int, float, str)):
+                return v
+            raise TypeError("value should be a float, int, string, bool or "
+                            f"dict, got {type(v).__name__}")
+
+        if isinstance(value, dict):
+            mapping = {c: check(v) for c, v in value.items()}
+            for c in mapping:
+                self.schema.field(c)  # raises on unknown columns
+        else:
+            check(value)
+            cols = subset or [f.name for f in self.schema.fields]
+            for c in cols:
+                self.schema.field(c)
+            mapping = {c: value for c in cols}
+        sel = []
+        for f in self.schema.fields:
+            v = mapping.get(f.name)
+            if v is not None and _fill_compatible(f.dtype, v):
+                if f.dtype.is_integral and isinstance(v, float):
+                    v = int(v)  # pyspark casts the value to the column
+                filled = F.coalesce(self[f.name], F.lit(v))
+                if f.dtype in (T.FLOAT, T.DOUBLE):  # NaN is filled too
+                    filled = F.coalesce(
+                        Column(NaNvl(self[f.name].expr,
+                                     Literal(float(v), T.DOUBLE))),
+                        F.lit(v))
+                sel.append(filled.cast(f.dtype).alias(f.name))
+            else:
+                sel.append(self[f.name].alias(f.name))
+        return self.select(*sel)
+
+    def dropna(self, how: str = "any", thresh: Optional[int] = None,
+               subset: Optional[List[str]] = None) -> "DataFrame":
+        """Drop rows with NULL/NaN values (pyspark ``na.drop``: a Filter
+        over AtLeastNNonNulls)."""
+        from spark_rapids_tpu_torch.exprs.nullexprs import AtLeastNNonNulls
+        cols = subset or [f.name for f in self.schema.fields]
+        if thresh is None:
+            if how not in ("any", "all"):
+                raise ValueError(f"how ({how!r}) should be 'any' or 'all'")
+            thresh = len(cols) if how == "any" else 1
+        return self.filter(Column(AtLeastNNonNulls(thresh, *[
+            resolve(ColumnRef(c), self.schema) for c in cols])))
+
+    def drop_duplicates(self, subset: Optional[List[str]] = None
+                        ) -> "DataFrame":
+        """Distinct rows, or one row per ``subset`` key: an aggregate by
+        the key taking ``first`` of every other column."""
+        if subset is None:
+            return self.distinct()
+        keys = [self._resolve(ColumnRef(n)) for n in subset]
+        aggs = [AggregateExpression(A.First(self._resolve(ColumnRef(f.name))),
+                                    f.name)
+                for f in self.schema.fields if f.name not in subset]
+        return DataFrame(L.Aggregate(keys, list(subset), aggs, self.plan),
+                         self.session)
+
+    dropDuplicates = drop_duplicates
+
+    def crosstab(self, col1: str, col2: str) -> "DataFrame":
+        """Pairwise frequency table (pyspark ``crosstab``): a row per
+        ``col1`` value, a column per ``col2`` value, pair counts (0 where
+        absent); NULL keys read "null" on both axes."""
+        from spark_rapids_tpu_torch import functions as F
+        tmp = "__ct_p"
+        normalized = self.with_column(
+            tmp, F.coalesce(self[col2].cast(T.STRING), F.lit("null")))
+        out = (normalized.group_by(col1).pivot(tmp)
+               .agg(F.count("*").alias("n")))
+        first = out.columns[0]
+        sel = [F.coalesce(out[first].cast(T.STRING), F.lit("null"))
+               .alias(f"{col1}_{col2}")]
+        for c in out.columns[1:]:
+            sel.append(F.coalesce(out[c], F.lit(0)).alias(c))
+        return out.select(*sel)
+
+    def approx_quantile(self, col_name: str, probabilities, rel_err=0.0
+                        ) -> List[float]:
+        """Quantiles of a numeric column (pyspark ``approxQuantile``),
+        exact (``rel_err`` is accepted and not needed)."""
+        from spark_rapids_tpu_torch import functions as F
+        if not probabilities:
+            return []
+        row = self.agg(*[F.percentile(col_name, float(p)).alias(f"q{i}")
+                         for i, p in enumerate(probabilities)]).collect()[0]
+        if all(v is None for v in row):
+            return []  # no non-NULL values
+        return list(row)
+
+    approxQuantile = approx_quantile
+
+    def freq_items(self, cols: List[str], support: float = 0.01
+                   ) -> "DataFrame":
+        """The values in more than ``support`` of the rows, one array
+        column per input (pyspark ``freqItems``; exact heavy hitters)."""
+        from spark_rapids_tpu_torch import functions as F
+        out = {}
+        thresh = support * self.count()
+        for c in cols:
+            g = self.group_by(c).agg(F.count("*").alias("__n"))
+            vals = [k for k, _ in g.filter(g["__n"] > float(thresh))
+                    .collect()]
+            out[f"{c}_freqItems"] = (T.ArrayType(self.schema.field(c).dtype),
+                                     [vals])
+        return self.session.create_dataframe(out, num_partitions=1)
+
+    freqItems = freq_items
+
+    # -- actions -------------------------------------------------------------
+
     def collect(self) -> List[tuple]:
         hb = self.session.execute(self.plan)
         cols = [c.to_list() for c in hb.columns]
         return [tuple(c[i] for c in cols) for i in range(hb.num_rows)]
+
+    def to_pydict(self) -> Dict[str, list]:
+        return self.session.execute(self.plan).to_pydict()
+
+    def to_pandas(self):
+        import pandas as pd  # only this method needs pandas
+        return pd.DataFrame(self.to_pydict())
+
+    toPandas = to_pandas
+
+    def count(self) -> int:
+        node = L.Aggregate([], [], [AggregateExpression(A.count_star(),
+                                                        "count")], self.plan)
+        return int(self.session.execute(node).columns[0].values[0])
+
+    def show(self, n: int = 20) -> None:
+        rows = self.limit(n).collect()
+        names = self.columns
+        widths = [max(len(str(x)) for x in [nm] + [r[i] for r in rows])
+                  for i, nm in enumerate(names)]
+        line = "+" + "+".join("-" * (w + 2) for w in widths) + "+"
+        print(line)
+        print("|" + "|".join(f" {nm:<{w}} "
+                             for nm, w in zip(names, widths)) + "|")
+        print(line)
+        for r in rows:
+            print("|" + "|".join(f" {str(x):<{w}} "
+                                 for x, w in zip(r, widths)) + "|")
+        print(line)
+
+    def head(self, n: int = 1):
+        rows = self.limit(n).collect()
+        return rows[0] if n == 1 and rows else rows
+
+    def first(self):
+        return self.head(1)
+
+    def take(self, n: int) -> List[tuple]:
+        return self.limit(n).collect()
+
+    def is_empty(self) -> bool:
+        return not self.limit(1).collect()
+
+    isEmpty = is_empty
+
+    @property
+    def dtypes(self) -> List[Tuple[str, str]]:
+        return [(f.name, f.dtype.name) for f in self.schema.fields]
+
+    def print_schema(self) -> None:
+        print("root")
+        for f in self.schema.fields:
+            null = "true" if f.nullable else "false"
+            print(f" |-- {f.name}: {f.dtype} (nullable = {null})")
+
+    printSchema = print_schema
+
+    def write_parquet(self, path: str, mode: str = "error",
+                      partition_by=None) -> dict:
+        from spark_rapids_tpu_torch.io.writer import write_dataframe
+        return write_dataframe(self, "parquet", path, mode,
+                               partition_by=partition_by)
+
+    def write_csv(self, path: str, mode: str = "error") -> dict:
+        from spark_rapids_tpu_torch.io.writer import write_dataframe
+        return write_dataframe(self, "csv", path, mode)
+
+    def write_orc(self, path: str, mode: str = "error") -> dict:
+        from spark_rapids_tpu_torch.io.writer import write_dataframe
+        return write_dataframe(self, "orc", path, mode)
 
     def explain(self) -> str:
         """Print and return the placement of every operator (``*`` on the
@@ -578,6 +856,13 @@ class DataFrame:
             return self
         return DataFrame(L.CachedRelation(self.plan, L.CacheHolder()),
                          self.session)
+
+    persist = cache
+
+    def unpersist(self) -> "DataFrame":
+        if isinstance(self.plan, L.CachedRelation):
+            self.plan.holder.unpersist()
+        return self
 
 
 def _dedupe_right(left: DataFrame, right: DataFrame, is_semi: bool):
@@ -665,6 +950,61 @@ class GroupedData:
             return self._agg_with_distinct(out)
         return DataFrame(L.Aggregate(self.keys, self.names, out,
                                      self.df.plan), self.df.session)
+
+    @staticmethod
+    def _unwrap_agg(a):
+        """(aggregate function, alias or None) of an ``agg`` argument."""
+        if isinstance(a, AggregateExpression):
+            return a.fn, a.output_name
+        if isinstance(a, Column):
+            e, name = a.expr, None
+            if isinstance(e, Alias):
+                name, e = e.alias_name, e.children[0]
+            if isinstance(e, AggregateFunction):
+                return e, name
+        raise TypeError(f"not an aggregate: {a!r}")
+
+    def count(self) -> DataFrame:
+        return self.agg(Column(Alias(A.count_star(), "count")))
+
+    def pivot(self, col_name: str, values: Optional[List] = None
+              ) -> "PivotedData":
+        """Pivot a column's values into output columns (pyspark
+        ``pivot``).  Without ``values`` the distinct values are computed
+        first (at most 10000), ascending, NULL first."""
+        if values is None:
+            raw = [r[0] for r in (self.df.select(self.df[col_name]
+                                                 .alias("__pv"))
+                                  .distinct().limit(10_001).collect())]
+            if len(raw) > 10_000:
+                raise ValueError(
+                    "pivot column has more than 10000 distinct values; "
+                    "pass an explicit values list")
+            values = ([None] if any(v is None for v in raw) else []) + \
+                sorted(v for v in raw if v is not None)
+        return PivotedData(self.df, self.keys, self.names, col_name,
+                           list(values))
+
+    def _simple(self, cls, cols) -> DataFrame:
+        targets = cols or [f.name for f in self.df.schema.fields
+                           if f.dtype.is_numeric]
+        return self.agg(*[Column(Alias(cls(self.df._resolve(ColumnRef(c))),
+                                       f"{cls.__name__.lower()}({c})"))
+                          for c in targets])
+
+    def sum(self, *cols) -> DataFrame:
+        return self._simple(A.Sum, cols)
+
+    def avg(self, *cols) -> DataFrame:
+        return self._simple(A.Average, cols)
+
+    mean = avg
+
+    def min(self, *cols) -> DataFrame:
+        return self._simple(A.Min, cols)
+
+    def max(self, *cols) -> DataFrame:
+        return self._simple(A.Max, cols)
 
     def _agg_with_binary_stats(self, out: List[AggregateExpression]
                                ) -> DataFrame:
@@ -980,3 +1320,68 @@ class GroupingSetsData(GroupedData):
         return out.select(*[c for c in out.columns
                             if c not in (GROUPING_ID_COL,
                                          GROUPING_SET_COL)])
+
+
+def _agg_label(e: Expression) -> str:
+    """pyspark's pivot column label of an unaliased aggregate: 'sum(x)'
+    (the argument's repr when it is computed)."""
+    child = e.children[0] if e.children else None
+    if isinstance(child, ColumnRef):
+        arg = child.column
+    elif isinstance(child, Literal):
+        arg = str(child.value)
+    else:
+        arg = repr(child) if child is not None else ""
+    return f"{e.name.lower()}({arg})"
+
+
+def _fill_compatible(dtype: T.DataType, value) -> bool:
+    """pyspark's fill rules: a number fills a numeric column, a string a
+    string one, a bool a boolean one."""
+    if isinstance(value, bool):
+        return dtype == T.BOOLEAN
+    if isinstance(value, (int, float)):
+        return dtype.is_numeric
+    if isinstance(value, str):
+        return dtype.is_string
+    return False
+
+
+class PivotedData(GroupedData):
+    """GroupedData after ``pivot``: ``agg`` plans Spark's two-phase pivot,
+    an aggregation by (keys, pivot column), then one by the keys picking
+    each pivot value's result with ``first(CASE WHEN pivot = v THEN agg
+    END, ignoreNulls)``.  A key with no row for a value gets NULL, count
+    included (as pyspark)."""
+
+    def __init__(self, df: DataFrame, keys: List[Expression],
+                 names: List[str], pivot_col: str, values: List):
+        super().__init__(df, keys, names)
+        self.pivot_col = pivot_col
+        self.values = values
+
+    def agg(self, *aggs) -> DataFrame:
+        from spark_rapids_tpu_torch import functions as F
+        from spark_rapids_tpu_torch.exprs.nullexprs import IsNull
+        norm = [self._unwrap_agg(a) for a in aggs]
+        pv_name = "__pivot_val"
+        inner = GroupedData(
+            self.df,
+            self.keys + [resolve(ColumnRef(self.pivot_col), self.df.schema)],
+            self.names + [pv_name]).agg(*[
+                Column(Alias(e, f"__pv_a{j}")) for j, (e, _) in
+                enumerate(norm)])
+        pcol = inner[pv_name]
+        outer = []
+        for v in self.values:
+            cond = Column(IsNull(pcol.expr)) if v is None else (pcol == v)
+            vlabel = "null" if v is None else str(v)
+            for j, (e, name) in enumerate(norm):
+                picked = A.First(F.when(cond, inner[f"__pv_a{j}"])
+                                 .otherwise(None).expr, ignore_nulls=True)
+                out_name = vlabel if len(norm) == 1 else \
+                    f"{vlabel}_{name or _agg_label(e)}"
+                outer.append(Column(Alias(picked, out_name)))
+        return GroupedData(inner, [inner._resolve(ColumnRef(n))
+                                   for n in self.names],
+                           list(self.names)).agg(*outer)

@@ -62,20 +62,31 @@ class CpuVal:
 
 
 class CpuEvalCtx:
-    """Evaluation context for one host batch."""
+    """Evaluation context for one host batch.  ``partition_index`` (the
+    partition's ordinal) and ``base_row_id`` (the partition's rows before
+    this batch) are the nondeterministic expressions' context
+    (``exprs/misc.py``); the project and filter execs set them."""
 
-    def __init__(self, batch: HostBatch):
+    def __init__(self, batch: HostBatch, partition_index: int = 0,
+                 base_row_id: int = 0):
         self.batch = batch
         self.num_rows = batch.num_rows
+        self.partition_index = partition_index
+        self.base_row_id = base_row_id
 
 
 class GpuEvalCtx:
-    """Evaluation context for one device batch."""
+    """Evaluation context for one device batch; ``partition_index`` and
+    ``base_row_id`` as :class:`CpuEvalCtx`'s, the row id a 0-d int64
+    device tensor (a running sum with no host sync), None for 0."""
 
-    def __init__(self, batch: ColumnBatch):
+    def __init__(self, batch: ColumnBatch, partition_index: int = 0,
+                 base_row_id: Optional[torch.Tensor] = None):
         self.batch = batch
         self.capacity = batch.capacity
         self.device = batch.device
+        self.partition_index = partition_index
+        self.base_row_id = base_row_id
         self._row_mask = None
 
     @property

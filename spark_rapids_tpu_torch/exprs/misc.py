@@ -1,7 +1,18 @@
-"""Arrays and float normalization (port of ``spark_rapids_tpu/exprs/misc.py``
-without its nondeterministic nodes): ``array``, ``getItem``, ``size``,
+"""Nondeterministic expressions, arrays and float normalization (port of
+``spark_rapids_tpu/exprs/misc.py``): ``monotonically_increasing_id``,
+``spark_partition_id``, ``rand``, ``array``, ``getItem``, ``size``,
 ``array_contains``, ``array_min``, ``array_max``, ``sort_array``,
 ``array_position`` and ``KnownFloatingPointNormalized``.
+
+The nondeterministic three read the evaluation context's
+``partition_index`` and ``base_row_id``, which the project and filter
+execs set per partition and batch (the JAX package leaves both at 0):
+``monotonically_increasing_id`` is ``(partition << 33) + row``, unique over
+batches and partitions; ``rand(seed)`` on the device gives the JAX device
+form's bits for the same context: threefry-2x32 (written out in int64
+words, as murmur3 is) keyed by ``seed + 1000003 * (partition + 1)``, the
+row id folded in, 64 random bits a row made a double in [0, 1); on the
+host the JAX twin's ``RandomState`` stream.
 
 ``array(e1, ..., ek)`` gives each row a k-element array.  On the device
 the elements ride the varlen layout (``batch.py``): a flat ``[cap * k]``
@@ -29,6 +40,129 @@ from spark_rapids_tpu_torch.exprs.base import (
     CpuVal, DevVal, Expression, Literal, UnaryExpression, cast_cpu,
 )
 from spark_rapids_tpu_torch.kernels import cuda_tier
+
+_M32 = 0xFFFFFFFF
+
+
+class _Nondeterministic(Expression):
+    """A leaf whose value depends on the row's partition and position."""
+
+    nondeterministic = True
+    children = ()
+    nullable = False
+
+    def with_children(self, children):
+        return self
+
+    def gpu_supported(self, conf):
+        return None
+
+
+class MonotonicallyIncreasingID(_Nondeterministic):
+    """(partition_id << 33) + row offset within partition."""
+
+    dtype = T.LONG
+
+    def gpu_eval(self, ctx) -> DevVal:
+        data = torch.arange(ctx.capacity, dtype=torch.int64,
+                            device=ctx.device) + (ctx.partition_index << 33)
+        if ctx.base_row_id is not None:
+            data = data + ctx.base_row_id
+        return DevVal(T.LONG, data, torch.ones(ctx.capacity, dtype=torch.bool,
+                                               device=ctx.device))
+
+    def cpu_eval(self, ctx) -> CpuVal:
+        base = (np.int64(ctx.partition_index) << np.int64(33)) + \
+            np.int64(ctx.base_row_id)
+        return CpuVal(T.LONG, base + np.arange(ctx.num_rows, dtype=np.int64),
+                      np.ones(ctx.num_rows, dtype=np.bool_))
+
+
+class SparkPartitionID(_Nondeterministic):
+    dtype = T.INT
+
+    def gpu_eval(self, ctx) -> DevVal:
+        return DevVal(T.INT, torch.full((ctx.capacity,), ctx.partition_index,
+                                        dtype=torch.int32, device=ctx.device),
+                      torch.ones(ctx.capacity, dtype=torch.bool,
+                                 device=ctx.device))
+
+    def cpu_eval(self, ctx) -> CpuVal:
+        return CpuVal(T.INT, np.full(ctx.num_rows, ctx.partition_index,
+                                     dtype=np.int32),
+                      np.ones(ctx.num_rows, dtype=np.bool_))
+
+
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """jax's threefry-2x32 hash (``prng._threefry2x32_lowering``) over u32
+    values held in int64 (tensors or ints): 20 rounds of add, rotate, xor,
+    with the key schedule injected every four."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x0 = (x1 + ks[0]) & _M32
+    x1 = (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _THREEFRY_ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = ((x1 << r) & _M32) | (x1 >> (32 - r))
+            x1 = x0 ^ x1
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def rand_uniform(seed: int, partition_index: int, base_row_id, cap: int,
+                 device) -> torch.Tensor:
+    """float64[cap]: the JAX device form of ``rand(seed)``,
+    ``uniform(fold_in(PRNGKey(seed + 1000003 * (partition + 1)),
+    uint32(base_row_id)), (cap,), float64)`` under jax's partitionable
+    threefry: the key is the int64 seed's two halves; ``fold_in`` hashes
+    the count (0, row id); row i's 64 bits hash (0, i), of which the top
+    52 become the mantissa of a double in [1, 2), minus 1.  ``base_row_id``
+    is a 0-d int64 tensor or an int."""
+    s = (seed + 1000003 * (partition_index + 1)) & 0xFFFFFFFFFFFFFFFF
+    if isinstance(base_row_id, torch.Tensor):
+        row = base_row_id.reshape(()).to(torch.int64) & _M32
+    else:
+        row = torch.full((), int(base_row_id) & _M32, dtype=torch.int64,
+                         device=device)
+    k1, k2 = threefry2x32(s >> 32, s & _M32, torch.zeros_like(row), row)
+    iota = torch.arange(cap, dtype=torch.int64, device=device)
+    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(iota), iota)
+    mantissa = (b1 << 20) | (b2 >> 12)
+    return (mantissa | 0x3FF0000000000000).view(torch.float64) - 1.0
+
+
+class Rand(_Nondeterministic):
+    """Uniform [0, 1) a row; on the device jax's threefry stream for the
+    (seed, partition, base row id) context, on the host the JAX twin's
+    ``RandomState`` stream (the two differ, in both packages)."""
+
+    dtype = T.DOUBLE
+
+    def __init__(self, seed: int = 0):
+        self.seed = int(seed)
+
+    def gpu_eval(self, ctx) -> DevVal:
+        base = ctx.base_row_id if ctx.base_row_id is not None else 0
+        return DevVal(T.DOUBLE, rand_uniform(self.seed, ctx.partition_index,
+                                             base, ctx.capacity, ctx.device),
+                      torch.ones(ctx.capacity, dtype=torch.bool,
+                                 device=ctx.device))
+
+    def cpu_eval(self, ctx) -> CpuVal:
+        rng = np.random.RandomState(
+            (self.seed + 1000003 * (ctx.partition_index + 1)
+             + 31 * int(ctx.base_row_id)) % (2 ** 31))
+        return CpuVal(T.DOUBLE, rng.uniform(size=ctx.num_rows),
+                      np.ones(ctx.num_rows, dtype=np.bool_))
+
+
+def is_nondeterministic(e: Expression) -> bool:
+    """Whether ``e`` reads the partition and row context."""
+    return bool(e.collect(lambda x: getattr(x, "nondeterministic", False)))
 
 
 class CreateArray(Expression):

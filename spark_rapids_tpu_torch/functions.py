@@ -1,6 +1,5 @@
 """Column functions (port of ``spark_rapids_tpu/functions.py`` but for
-``udf``, ``pandas_udf``, ``rand``, ``monotonically_increasing_id`` and
-``spark_partition_id``), the ``broadcast`` join hint, the window specs
+``udf`` and ``pandas_udf``), the ``broadcast`` join hint, the window specs
 (``Window``, ``WindowSpec``, ``Column.over``) with the ranking and offset
 functions, and ``Column.bitwiseAND``/``bitwiseOR``/``bitwiseXOR``."""
 
@@ -563,3 +562,18 @@ def lead(c, offset: int = 1, default=None) -> Column:
     e = _to_expr(col(c) if isinstance(c, str) else c)
     d = None if default is None else _to_expr(default)
     return Column(W.Lead(e, offset, d))
+
+
+def monotonically_increasing_id() -> Column:
+    from spark_rapids_tpu_torch.exprs.misc import MonotonicallyIncreasingID
+    return Column(MonotonicallyIncreasingID())
+
+
+def spark_partition_id() -> Column:
+    from spark_rapids_tpu_torch.exprs.misc import SparkPartitionID
+    return Column(SparkPartitionID())
+
+
+def rand(seed: int = 42) -> Column:
+    from spark_rapids_tpu_torch.exprs.misc import Rand
+    return Column(Rand(seed))

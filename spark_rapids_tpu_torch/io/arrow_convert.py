@@ -129,3 +129,36 @@ def arrow_to_host_batch(table_or_batch,
             values = values.astype(f.dtype.np_dtype, copy=False)
         cols.append(HostColumn(f.dtype, values, validity))
     return HostBatch(schema, cols)
+
+
+def host_batch_to_arrow(hb: HostBatch) -> pa.Table:
+    """An Arrow table of a host batch, the JAX package's column types
+    (DATE as date32, TIMESTAMP as UTC microseconds): each column built from
+    its numpy buffers and validity, a string column held as bytes and
+    offsets handed over as those buffers; no Python step a row except
+    for strings held one ``str`` a row."""
+    arrays = []
+    for f, c in zip(hb.schema.fields, hb.columns):
+        n = len(c)
+        mask = ~c.validity
+        if f.dtype.is_string and c.offsets is not None:
+            validity = pa.py_buffer(np.packbits(c.validity,
+                                                bitorder="little"))
+            arrays.append(pa.StringArray.from_buffers(
+                n, pa.py_buffer(c.offsets.astype(np.int32)),
+                pa.py_buffer(np.ascontiguousarray(c.values)), validity))
+        elif f.dtype.is_string:
+            arrays.append(pa.array(
+                [None if not ok else str(v)
+                 for v, ok in zip(c.values, c.validity)], type=pa.string()))
+        elif f.dtype == T.DATE:
+            arrays.append(pa.array(c.values.astype(np.int32), mask=mask,
+                                   type=pa.int32()).cast(pa.date32()))
+        elif f.dtype == T.TIMESTAMP:
+            arrays.append(pa.array(c.values.astype(np.int64), mask=mask,
+                                   type=pa.int64())
+                          .cast(pa.timestamp("us", tz="UTC")))
+        else:
+            arrays.append(pa.array(c.values, mask=mask,
+                                   type=sql_type_to_arrow(f.dtype)))
+    return pa.table(dict(zip(hb.schema.names, arrays)))

@@ -41,6 +41,7 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence
 
+import numpy as np
 import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -258,28 +259,54 @@ def pack_columns_reference(columns, num_rows, out_cap: int,
     num_rows[j])``; a string column's bytes are packed over ``[0,
     offsets_j[num_rows[j]])`` and its offsets rebuilt from one int32
     cumsum of the packed row lengths.  Arguments as :func:`pack_columns`."""
-    zeros = [0] * len(num_rows)
+    return _pack_windows_reference(columns, [0] * len(num_rows), num_rows,
+                                   out_cap, byte_caps)
+
+
+def pack_column_windows_reference(columns, starts, counts, out_cap: int,
+                                  byte_caps: Sequence[int]) -> list:
+    """Plain PyTorch form of :func:`pack_column_windows`: the port of the
+    JAX package's ``layout.gather_segments_kway`` body (plain columns).
+    Input j's rows ``[starts[j], starts[j] + counts[j])`` of every buffer,
+    a varlen column's elements over ``[offsets_j[starts[j]],
+    offsets_j[starts[j] + counts[j]])``, offsets rebuilt from one int32
+    cumsum of the packed row lengths.  The windows are host ints, so each
+    row buffer (a varlen column's offsets too) is cut to its window
+    first: the pack then reads only the piece's rows."""
+    cut = [[(d, v[s:s + c], o[s:s + c + 1]) if o is not None
+            else (d[s:s + c], v[s:s + c], None)
+            for (d, v, o), s, c in zip(parts, starts, counts)]
+           for parts in columns]
+    return _pack_windows_reference(cut, [0] * len(starts), counts, out_cap,
+                                   byte_caps)
+
+
+def _pack_windows_reference(columns, starts, counts, out_cap, byte_caps):
+    device = columns[0][0][1].device
+    los = _index_vector(starts, device)
+    his = los + _index_vector(counts, device)
     out = []
-    str_i = 0
+    var_i = 0
     for parts in columns:
-        validity = pack_segments_reference([p[1] for p in parts], zeros,
-                                           num_rows, out_cap)
+        validity = pack_segments_reference([p[1] for p in parts], los, his,
+                                           out_cap)
         if parts[0][2] is None:
-            data = pack_segments_reference([p[0] for p in parts], zeros,
-                                           num_rows, out_cap)
+            data = pack_segments_reference([p[0] for p in parts], los, his,
+                                           out_cap)
             out.append((data, validity, None))
             continue
         offs = [p[2] for p in parts]
         lens = pack_segments_reference([o[1:] - o[:-1] for o in offs],
-                                       zeros, num_rows, out_cap)
+                                       los, his, out_cap)
         offsets = torch.cat([
             torch.zeros(1, dtype=torch.int32, device=lens.device),
             torch.cumsum(lens, 0, dtype=torch.int32)])
         data = pack_segments_reference(
-            [p[0] for p in parts], zeros,
-            [o[n.reshape(()).long()] for o, n in zip(offs, num_rows)],
-            byte_caps[str_i])
-        str_i += 1
+            [p[0] for p in parts],
+            [o[lo.long()] for o, lo in zip(offs, los.unbind())],
+            [o[hi.long()] for o, hi in zip(offs, his.unbind())],
+            byte_caps[var_i])
+        var_i += 1
         out.append((data, validity, offsets))
     return out
 
@@ -300,14 +327,20 @@ def _pack_max_inputs(n_sets: int) -> int:
     return (_pack_max_words - 7) // (4 * n_sets + 1)
 
 
-def _run_pack(desc: list, device: torch.device) -> None:
+def _run_pack(desc, device: torch.device) -> None:
     """Launch gatherScatter over a table of int64 words (the layout in
-    pack_segments.cu) and count its launches."""
+    pack_segments.cu; a list or an int64 numpy array) and count its
+    launches."""
     lib = load("gatherScatter")
     launches = ctypes.c_int(0)
-    table = array.array("q", desc)
-    err = _launch(device, lib.srt_pack_multi, table.buffer_info()[0],
-                  len(table), ctypes.byref(launches))
+    if isinstance(desc, np.ndarray):
+        table = np.ascontiguousarray(desc, dtype=np.int64)
+        address, words = table.ctypes.data, table.size
+    else:
+        table = array.array("q", desc)
+        address, words = table.buffer_info()
+    err = _launch(device, lib.srt_pack_multi, address, words,
+                  ctypes.byref(launches))
     if err != 0:
         raise RuntimeError(f"gatherScatter launch failed: CUDA error {err}")
     _launches["gatherScatter"] += launches.value
@@ -416,6 +449,212 @@ def pack_columns(columns, num_rows, out_cap: int,
     return out
 
 
+def pack_column_windows(columns, starts, counts, out_cap: int,
+                        byte_caps: Sequence[int], inputs=None) -> list:
+    """Every buffer of k row windows of batches packed back to back, in one
+    gatherScatter launch: the shuffle split's piece gather (the JAX
+    package's ``layout.gather_segments_kway``).
+
+    ``columns`` as :func:`pack_columns`; ``starts`` and ``counts`` host
+    ints, input j's window its rows ``[starts[j], starts[j] +
+    counts[j])``, which must lie within its live rows; ``byte_caps`` each
+    varlen column's output element capacity.  A varlen column's elements
+    are packed over ``[offsets_j[starts[j]], offsets_j[starts[j] +
+    counts[j]])``: the kernel reads those two offsets itself, and rebases
+    the window's offsets by the first.  ``inputs``, a :class:`PackInputs`
+    of ``columns`` made once, spares a caller that packs many windows of
+    the same batches the checks and addresses of every buffer (``columns``
+    is then not read).  Returns per column ``(data, validity, offsets)``
+    of capacity ``out_cap``, zeros past the live totals.  CPU tensors take
+    :func:`pack_column_windows_reference`."""
+    if inputs is None:
+        inputs = PackInputs(columns)
+    columns = None
+    device = inputs.device
+    k = len(starts)
+    if len(counts) != k or len(inputs.caps) != k:
+        raise ValueError("pack_column_windows needs one start and one count "
+                         "per input of every column")
+    for s, n, cap in zip(starts, counts, inputs.caps):
+        if not 0 <= s <= s + n <= cap:
+            raise ValueError(f"pack_column_windows: window [{s}, {s + n}) "
+                             f"outside a batch of capacity {cap}")
+    if device.type == "cpu":
+        return pack_column_windows_reference(inputs.columns, starts, counts,
+                                             out_cap, byte_caps)
+    if device.type != "cuda":
+        raise ValueError(f"pack_column_windows has no kernel for {device}")
+    if not 0 <= out_cap < 2 ** 31:
+        raise ValueError(f"out_cap {out_cap} outside [0, 2^31)")
+    varlen = len(inputs.var_cols)
+    if len(byte_caps) != varlen:
+        raise ValueError(f"pack_column_windows: {len(byte_caps)} element "
+                         f"capacities for {varlen} varlen columns")
+    limit = _pack_max_inputs(1 + varlen)
+    if k > limit:
+        # pack groups of windows into intermediates, then concat them
+        columns = inputs.columns
+        groups, group_rows = [], []
+        for g in range(0, k, limit):
+            sl = slice(g, g + limit)
+            cols = [parts[sl] for parts in columns]
+            rows = sum(counts[sl])
+            caps_g = [sum(int(d.shape[0]) for d, _, _ in parts)
+                      for parts in cols if parts[0][2] is not None]
+            groups.append(pack_column_windows(cols, starts[sl], counts[sl],
+                                              max(rows, 1), caps_g))
+            group_rows.append(torch.full((), rows, dtype=torch.int32,
+                                         device=device))
+        merged = [[g[ci] for g in groups] for ci in range(len(columns))]
+        return pack_columns(merged, group_rows, out_cap, byte_caps)
+    desc, out = _windows_table(inputs, starts, counts, out_cap, byte_caps)
+    _run_pack(desc, device)
+    return out
+
+
+class PackInputs:
+    """k batches' buffers checked once for gatherScatter's window packs:
+    on CUDA the device address of every buffer of every input, in numpy
+    arrays, so that a pack over a subset of the inputs (:meth:`take`)
+    builds its launch table by array arithmetic.  The shuffle split packs
+    one piece a target from the same sorted batches.  ``columns`` as
+    :func:`pack_columns`."""
+
+    def __init__(self, columns, _parent=None, _idx=None):
+        if _parent is not None:  # a subset of the parent's inputs
+            self._parent, self._idx = _parent, _idx
+            self.device, self.var_cols = _parent.device, _parent.var_cols
+            self.kinds = _parent.kinds
+            self.caps = [_parent.caps[i] for i in _idx]
+            if _parent.ptrs is not None:
+                self.ptrs = _parent.ptrs[:, _idx]
+                self.var_sizes = _parent.var_sizes[:, _idx]
+                self.var_offs = _parent.var_offs[:, _idx]
+                self.shifts, self.meta = _parent.shifts, _parent.meta
+            else:
+                self.ptrs = None
+            self._columns = None
+            return
+        self._parent, self._columns = None, columns
+        self.device = columns[0][0][1].device
+        self.caps = [int(v.shape[0]) for _, v, _ in columns[0]]
+        if any(len(parts) != len(self.caps) for parts in columns):
+            raise ValueError("pack inputs: every column needs one buffer set "
+                             "per input")
+        #: per column, its data's dtype and whether it is varlen
+        self.kinds = [(parts[0][0].dtype, parts[0][2] is not None)
+                      for parts in columns]
+        self.var_cols = [ci for ci, (_, var) in enumerate(self.kinds) if var]
+        self.ptrs = None
+        if self.device.type == "cuda":
+            self._addresses(columns, self.device.index
+                            if self.device.index is not None
+                            else torch.cuda.current_device())
+
+    def _addresses(self, columns, index: int) -> None:
+        """Every buffer's checked address on device ``index``, and how a
+        window moves it."""
+        caps = self.caps
+        # buffer rows in table order: each column's validity, data and (a
+        # varlen column) offsets; shifts: bytes a window start moves the
+        # input's address (a varlen column's elements move by its bounds)
+        ptrs, shifts, meta, var_offs, var_sizes = [], [], [], [], []
+        for parts in columns:
+            data0, _, offs0 = parts[0]
+            ptrs.append(_pointers("pack_columns", [v for _, v, _ in parts],
+                                  torch.bool, index, caps))
+            shifts.append(1)
+            meta.append(1)
+            if data0.dtype.is_complex or \
+                    data0.element_size() not in (1, 2, 4, 8):
+                raise ValueError(
+                    f"pack_columns has no kernel for {data0.dtype}")
+            width = data0.element_size()
+            if offs0 is None:
+                ptrs.append(_pointers("pack_columns",
+                                      [d for d, _, _ in parts],
+                                      data0.dtype, index, caps))
+                shifts.append(width)
+                meta.append(width)
+                continue
+            offs = _pointers("pack_columns", [o for _, _, o in parts],
+                             torch.int32, index, [c + 1 for c in caps])
+            ptrs.append(_pointers("pack_columns", [d for d, _, _ in parts],
+                                  data0.dtype, index))
+            shifts.append(0)
+            meta.append(width | (len(var_offs) + 1) << 16)
+            ptrs.append(offs)
+            shifts.append(4)
+            meta.append(4 | _KIND_OFFSETS << 8)
+            var_offs.append(offs)
+            var_sizes.append([int(d.shape[0]) for d, _, _ in parts])
+        k = len(caps)
+        self.ptrs = np.array(ptrs, dtype=np.int64).reshape(-1, k)
+        self.shifts = np.array(shifts, dtype=np.int64)
+        self.meta = np.array(meta, dtype=np.int64)
+        self.var_offs = np.array(var_offs, dtype=np.int64).reshape(-1, k)
+        self.var_sizes = np.array(var_sizes, dtype=np.int64).reshape(-1, k)
+
+    @property
+    def columns(self):
+        """The inputs' ``(data, validity, offsets)`` per column."""
+        if self._columns is None:
+            self._columns = [[parts[i] for i in self._idx]
+                             for parts in self._parent.columns]
+        return self._columns
+
+    def take(self, idx: Sequence[int]) -> "PackInputs":
+        """The inputs ``idx``, in that order."""
+        return PackInputs(None, self, list(idx))
+
+
+def _windows_table(inputs: PackInputs, starts, counts, out_cap: int,
+                   byte_caps):
+    """gatherScatter's launch table for :func:`pack_column_windows` (an
+    int64 numpy array) and the outputs it writes.  A row window needs no
+    bound on the device: its row buffers' addresses move to the window's
+    first row and its count is the input's size.  A varlen window's
+    element bounds are the addresses of its two offsets, which the kernel
+    reads itself."""
+    device = inputs.device
+    st = np.asarray(starts, dtype=np.int64)
+    ct = np.asarray(counts, dtype=np.int64)
+    k = len(st)
+    n_var = len(inputs.var_cols)
+    sets = np.zeros((1 + n_var, k, 4), dtype=np.int64)
+    sets[0, :, 3] = ct  # set 0: the row windows
+    sets[1:, :, 0] = inputs.var_offs + 4 * st  # lo offsets[start]
+    sets[1:, :, 1] = inputs.var_offs + 4 * (st + ct)  # hi offsets[end]
+    sets[1:, :, 3] = inputs.var_sizes
+    n_buf = len(inputs.meta)
+    bufs = np.empty((n_buf, 4 + k), dtype=np.int64)
+    bufs[:, 4:] = inputs.ptrs + inputs.shifts[:, None] * st
+    bufs[:, 2] = inputs.meta
+    bufs[:, 3] = 0
+    out, addr, elems = [], [], []
+    var_i = 0
+    for dtype, is_var in inputs.kinds:
+        validity = torch.empty(out_cap, dtype=torch.bool, device=device)
+        if not is_var:
+            data = torch.empty(out_cap, dtype=dtype, device=device)
+            addr += (validity.data_ptr(), data.data_ptr())
+            elems += (out_cap, out_cap)
+            out.append((data, validity, None))
+            continue
+        cap = byte_caps[var_i]
+        var_i += 1
+        data = torch.empty(cap, dtype=dtype, device=device)
+        offsets = torch.empty(out_cap + 1, dtype=torch.int32, device=device)
+        addr += (validity.data_ptr(), data.data_ptr(), offsets.data_ptr())
+        elems += (out_cap, cap, out_cap + 1)
+        out.append((data, validity, offsets))
+    bufs[:, 0] = addr
+    bufs[:, 1] = elems
+    desc = np.concatenate([np.array([k, 1 + n_var, n_buf], dtype=np.int64),
+                           sets.reshape(-1), bufs.reshape(-1)])
+    return desc, out
+
+
 def _pointers(fn: str, tensors, dtype, index: int, lengths=None) -> list:
     """Device addresses of ``tensors`` after the checks the kernel needs:
     ``dtype``, contiguous, on device ``index`` and, where ``lengths`` is
@@ -433,53 +672,57 @@ def _pointers(fn: str, tensors, dtype, index: int, lengths=None) -> list:
 
 
 def _pack_columns_table(columns, num_rows, out_cap, byte_caps, device):
-    """gatherScatter's launch table for :func:`pack_columns` (the int64
-    words of pack_segments.cu's layout) and the outputs it writes."""
+    """gatherScatter's launch table (the int64 words of pack_segments.cu's
+    layout) for :func:`pack_columns` and the outputs it writes: the
+    windows ``[0, num_rows[j])``, bounds read on the device, a string's
+    byte window ending at ``offsets[num_rows[j]]``."""
     index = device.index if device.index is not None else \
         torch.cuda.current_device()
+    caps = [int(v.shape[0]) for _, v, _ in columns[0]]
     ns = []
     for n in num_rows:
         if n.numel() != 1 or n.get_device() != index:
-            raise ValueError(f"pack_columns: num_rows must be scalars on "
-                             f"{device}, got {tuple(n.shape)} on {n.device}")
+            raise ValueError(
+                f"pack_columns: num_rows must be scalars on {device}, "
+                f"got {tuple(n.shape)} on {n.device}")
         if n.dtype != torch.int32:  # freed in stream order, after the read
             n = n.to(torch.int32)
         ns.append(n.data_ptr())
-    caps = [int(v.shape[0]) for _, v, _ in columns[0]]
-    strings = [parts for parts in columns if parts[0][2] is not None]
-    desc = [len(ns), 1 + len(strings), 2 * len(columns) + len(strings)]
+    varlen = [parts for parts in columns if parts[0][2] is not None]
+    desc = [len(caps), 1 + len(varlen), 2 * len(columns) + len(varlen)]
     for n, cap in zip(ns, caps):  # set 0: the row windows
         desc += (0, n, 0, cap)
-    for parts in strings:  # set 1 + s: string s's byte windows
+    for parts in varlen:  # set 1 + s: string column s's byte windows
         offs = _pointers("pack_columns", [o for _, _, o in parts],
                          torch.int32, index, [c + 1 for c in caps])
-        for (d, _, _), n, o in zip(parts, ns, offs):
-            desc += (0, n, o, d.shape[0])
+        for n, (d, _, _), o in zip(ns, parts, offs):
+            desc += (0, n, o, d.shape[0])  # lo 0, hi offsets[num_rows]
     out = []
-    str_i = 0
+    var_i = 0
     for parts in columns:
         data0, _, offs0 = parts[0]
         validity = torch.empty(out_cap, dtype=torch.bool, device=device)
         desc += (validity.data_ptr(), out_cap, 1, 0)
         desc += _pointers("pack_columns", [v for _, v, _ in parts],
                           torch.bool, index, caps)
+        if data0.dtype.is_complex or \
+                data0.element_size() not in (1, 2, 4, 8):
+            raise ValueError(f"pack_columns has no kernel for {data0.dtype}")
+        width = data0.element_size()
         if offs0 is None:
-            if data0.dtype.is_complex or \
-                    data0.element_size() not in (1, 2, 4, 8):
-                raise ValueError(
-                    f"pack_columns has no kernel for {data0.dtype}")
             data = torch.empty(out_cap, dtype=data0.dtype, device=device)
-            desc += (data.data_ptr(), out_cap, data0.element_size(), 0)
+            desc += (data.data_ptr(), out_cap, width, 0)
             desc += _pointers("pack_columns", [d for d, _, _ in parts],
                               data0.dtype, index, caps)
             out.append((data, validity, None))
             continue
-        str_i += 1
-        data = torch.empty(byte_caps[str_i - 1], dtype=torch.uint8,
+        var_i += 1
+        data = torch.empty(byte_caps[var_i - 1], dtype=data0.dtype,
                            device=device)
-        desc += (data.data_ptr(), byte_caps[str_i - 1], 1 | str_i << 16, 0)
+        desc += (data.data_ptr(), byte_caps[var_i - 1],
+                 width | var_i << 16, 0)
         desc += _pointers("pack_columns", [d for d, _, _ in parts],
-                          torch.uint8, index)
+                          data0.dtype, index)
         offsets = torch.empty(out_cap + 1, dtype=torch.int32, device=device)
         desc += (offsets.data_ptr(), out_cap + 1, 4 | _KIND_OFFSETS << 8, 0)
         desc += [o.data_ptr() for _, _, o in parts]

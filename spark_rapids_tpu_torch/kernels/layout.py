@@ -171,3 +171,53 @@ def concat_kway(batches: Sequence[ColumnBatch], out_capacity: int,
     cols = [DeviceColumn(f.dtype, data, validity, offsets)
             for f, (data, validity, offsets) in zip(schema.fields, packed)]
     return ColumnBatch(schema, cols, total, out_capacity)
+
+
+def segment_inputs(batches: Sequence[ColumnBatch]):
+    """The batches' buffers, checked once, for many
+    :func:`gather_segments_kway` calls over them (``inputs``)."""
+    return cuda_tier.PackInputs(
+        [[(c.data, c.validity, c.offsets) for c in parts]
+         for parts in zip(*(b.columns for b in batches))])
+
+
+def gather_segments_kway(batches: Sequence[ColumnBatch], starts, counts,
+                         out_capacity: int,
+                         out_byte_caps: Optional[Sequence[int]] = None,
+                         inputs=None) -> ColumnBatch:
+    """Gather one contiguous row segment per input batch into ONE packed
+    batch: input j contributes rows ``[starts[j], starts[j] + counts[j])``
+    at output row ``sum(counts[:j])`` (the shuffle split's piece gather,
+    port of the JAX package's ``layout.gather_segments_kway``, plain
+    columns).  ``starts`` and ``counts`` are host ints, and each segment
+    lies within its batch's live rows.  Every buffer of the piece is one
+    gatherScatter launch on CUDA (:func:`cuda_tier.pack_column_windows`):
+    validity and data, each varlen column's elements over
+    ``[offsets[start], offsets[start + count])`` and its offsets rebased
+    from there.  Output rows and elements past the live totals are zeros.
+    ``out_byte_caps`` defaults to the summed input element capacities.
+    ``inputs`` (:func:`segment_inputs` of ``batches``, or a ``take`` of
+    one made over more batches) spares a caller that gathers many
+    segments of the same batches their buffers' checks."""
+    if not batches:
+        raise ValueError("gather_segments_kway needs at least one batch")
+    schema = batches[0].schema
+    for b in batches[1:]:
+        if b.schema is not schema and b.schema != schema:
+            raise ValueError(f"{b.schema} != {schema}")
+    starts = [int(s) for s in starts]
+    counts = [int(c) for c in counts]
+    if inputs is None:
+        inputs = segment_inputs(batches)
+    if out_byte_caps is None:
+        out_byte_caps = [sum(int(d.shape[0]) for d, _, _ in parts)
+                         for parts in inputs.columns
+                         if parts[0][2] is not None]
+    packed = cuda_tier.pack_column_windows(None, starts, counts,
+                                           out_capacity, list(out_byte_caps),
+                                           inputs=inputs)
+    cols = [DeviceColumn(f.dtype, data, validity, offsets)
+            for f, (data, validity, offsets) in zip(schema.fields, packed)]
+    return ColumnBatch(schema, cols, device_scalar(sum(counts),
+                                                   batches[0].device),
+                       out_capacity)

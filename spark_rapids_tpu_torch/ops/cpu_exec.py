@@ -334,16 +334,19 @@ class CpuProjectExec(CpuExec):
         return e.cpu_eval(cctx).to_column()
 
     def partitions(self, ctx):
-        def gen(part):
+        def gen(pi, part):
+            base = 0
             for hb in part:
                 with host_timer(ctx, self):
-                    cctx = CpuEvalCtx(hb)
+                    cctx = CpuEvalCtx(hb, pi, base)
                     out = HostBatch(self.output_schema,
                                     [self._column(e, hb, cctx)
                                      for e in self.exprs])
+                base += hb.num_rows
                 yield out
 
-        return [gen(p) for p in self.children[0].partitions(ctx)]
+        return [gen(pi, p) for pi, p in
+                enumerate(self.children[0].partitions(ctx))]
 
 
 class CpuExpandExec(CpuExec):
@@ -379,17 +382,20 @@ class CpuFilterExec(CpuExec):
         return f"CpuFilter({self.condition!r})"
 
     def partitions(self, ctx):
-        def gen(part):
+        def gen(pi, part):
+            base = 0
             for hb in part:
                 with host_timer(ctx, self):
-                    v = self.condition.cpu_eval(CpuEvalCtx(hb))
+                    v = self.condition.cpu_eval(CpuEvalCtx(hb, pi, base))
                     keep = np.flatnonzero(v.validity &
                                           v.values.astype(bool))
                     out = _take(hb, keep) if len(keep) else None
+                base += hb.num_rows
                 if out is not None:
                     yield out
 
-        return [gen(p) for p in self.children[0].partitions(ctx)]
+        return [gen(pi, p) for pi, p in
+                enumerate(self.children[0].partitions(ctx))]
 
 
 class CpuUnionExec(CpuExec):
@@ -514,6 +520,30 @@ class CpuAggregateExec(CpuExec):
                 yield out
 
         return [gen(p) for p in self.children[0].partitions(ctx)]
+
+
+class CpuSampleExec(CpuExec):
+    """Bernoulli sample: partition p draws ``rng.rand(rows) < fraction``
+    a batch from ``np.random.RandomState(seed + p)``."""
+
+    def __init__(self, fraction: float, seed: int, child: PhysicalOp):
+        super().__init__([child], child.output_schema)
+        self.fraction = fraction
+        self.seed = seed
+
+    def describe(self):
+        return f"CpuSample({self.fraction}, seed={self.seed})"
+
+    def partitions(self, ctx):
+        def gen(pi, part):
+            rng = np.random.RandomState(self.seed + pi)
+            for hb in part:
+                keep = np.flatnonzero(rng.rand(hb.num_rows) < self.fraction)
+                if len(keep):
+                    yield _take(hb, keep)
+
+        return [gen(pi, p) for pi, p in
+                enumerate(self.children[0].partitions(ctx))]
 
 
 class CpuGenerateExec(CpuExec):

@@ -1,7 +1,10 @@
 """Device operators (port of ``spark_rapids_tpu/ops/tpu_exec.py``: range,
-project, expand, filter, sort, hash aggregate, generate (explode), cached
-scan, union, local limit, the shuffled and broadcast hash joins, and the
-nested-loop join; the window exec is ``ops/window.py``).
+project, expand, filter, sort, hash aggregate, generate (explode), sample,
+cached scan, union, local limit, the coalescing shuffle reader, the
+shuffled and broadcast hash joins, and the nested-loop join; the window
+exec is ``ops/window.py``).  Over split exchanges the merge aggregate,
+the reader and the shuffled join act on the adaptive layer's plans
+(``plan/adaptive.py``).
 
 Each exec runs its per-batch work eagerly as torch ops on ``ctx.device``.
 String columns ride every operator as offsets + bytes; string group keys
@@ -26,14 +29,16 @@ either way.
 
 from __future__ import annotations
 
+import itertools
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.batch import (
     ColumnBatch, DeviceColumn, device_scalar, empty_device_batch,
-    host_sizes, round_up_capacity,
+    fixed_row_bytes, host_sizes, round_up_capacity, varlen_byte_scales,
 )
 from spark_rapids_tpu_torch.config import (
     HASH_AGG_MXU_ENABLED, HASH_AGG_MXU_SLOTS, MESH_SPMD_JOIN_GROWTH,
@@ -43,6 +48,7 @@ from spark_rapids_tpu_torch.exprs.aggregates import AggregateExpression
 from spark_rapids_tpu_torch.exprs.base import (
     DevVal, Expression, GpuEvalCtx, SortOrder, bind_references,
 )
+from spark_rapids_tpu_torch.exprs.misc import is_nondeterministic
 from spark_rapids_tpu_torch.kernels import cuda_tier
 from spark_rapids_tpu_torch.kernels.groupby import groupby_aggregate
 from spark_rapids_tpu_torch.kernels.hashagg import (
@@ -55,6 +61,7 @@ from spark_rapids_tpu_torch.kernels.layout import (
     compact, concat_kway, gather_rows, row_slices, take_head,
 )
 from spark_rapids_tpu_torch.kernels.sort import sort_batch
+from spark_rapids_tpu_torch.plan import adaptive
 from spark_rapids_tpu_torch.plan.physical import GpuExec, PhysicalOp
 
 
@@ -109,6 +116,51 @@ def concat_static(batches: List[ColumnBatch], schema: T.Schema
                                        for b in batches), minimum=16)
                  for i, f in enumerate(schema.fields) if f.dtype.is_string]
     return concat_kway(batches, cap, out_byte_caps=byte_caps or None)
+
+
+def _coalesce_groups(ctx, op_id: str, child: PhysicalOp, lazy_parts):
+    """The adaptive grouping of a shuffle's output partitions
+    (``plan/adaptive.py``): (groups of partitions, each group's skew
+    flag), from the sizes the split recorded when it did (nothing is
+    fetched), else from one sync of the batches' row counts (grouped to
+    the row target, no skew marks); None when coalescing is off or there
+    is one partition."""
+    if not adaptive.coalesce_enabled(ctx) or len(lazy_parts) <= 1:
+        return None
+    sizes, unit = adaptive.part_stats(child, len(lazy_parts))
+    if sizes is not None:
+        return adaptive.plan_groups(ctx, op_id, lazy_parts, sizes, unit)
+    parts = [list(p) for p in lazy_parts]
+    flat = [b for p in parts for b in p]
+    rows = {id(b): s[0] for b, s in zip(flat, host_sizes(flat))}
+    sizes = [sum(rows[id(b)] for b in p) for p in parts]
+    groups = adaptive.group_by_target(parts, sizes, adaptive.target_rows(ctx))
+    return groups, [False] * len(groups)
+
+
+class GpuCoalescedShuffleReaderExec(GpuExec):
+    """Post-shuffle partition coalescing as a plan operator (port of
+    ``TpuCoalescedShuffleReaderExec``, GpuCustomShuffleReaderExec's
+    role): adjacent small partitions of the exchange below are chained
+    into one until each group reaches the adaptive target, a skewed one
+    left alone.  The planner puts it above the exchanges under a window
+    and a global sort.  ``coalescedTo`` counts the groups."""
+
+    def __init__(self, child: PhysicalOp):
+        super().__init__([child], child.output_schema)
+
+    def describe(self):
+        return "GpuCoalescedShuffleReader"
+
+    def partitions(self, ctx):
+        child = self.children[0]
+        lazy_parts = child.partitions(ctx)
+        planned = _coalesce_groups(ctx, self.op_id, child, lazy_parts)
+        if planned is None:
+            return lazy_parts
+        groups = planned[0]
+        ctx.metric(self.op_id, "coalescedTo").add(len(groups))
+        return [itertools.chain(*g) for g in groups]
 
 
 class GpuRangeExec(GpuExec):
@@ -191,39 +243,64 @@ class GpuExpandExec(GpuExec):
         return [gen(p) for p in self.children[0].partitions(ctx)]
 
 
+def _with_row_ids(run, parts):
+    """``run(batch, partition_index, base_row_id)`` over every batch of
+    ``parts``: the partition's ordinal, and its rows before the batch as
+    a running 0-d int64 device sum (None for the first batch)."""
+    def gen(pi, part):
+        base = None
+        for b in part:
+            yield run(b, pi, base)
+            n = b.num_rows.to(torch.int64)
+            base = n if base is None else base + n
+
+    return [gen(pi, p) for pi, p in enumerate(parts)]
+
+
 class GpuProjectExec(GpuExec):
     def __init__(self, exprs: List[Expression], child: PhysicalOp,
                  schema: T.Schema):
         super().__init__([child], schema)
         self.exprs = [bind_references(e, child.output_schema) for e in exprs]
+        self._row_ids = any(is_nondeterministic(e) for e in self.exprs)
 
     def describe(self):
         return f"GpuProject({', '.join(f.name for f in self.output_schema)})"
 
-    def _run(self, batch: ColumnBatch) -> ColumnBatch:
-        ctx = GpuEvalCtx(batch)
+    def _run(self, batch: ColumnBatch, partition_index: int = 0,
+             base_row_id=None) -> ColumnBatch:
+        ctx = GpuEvalCtx(batch, partition_index, base_row_id)
         cols = [e.gpu_eval(ctx).to_column() for e in self.exprs]
         return ColumnBatch(self.output_schema, cols, batch.num_rows,
                            batch.capacity)
 
     def partitions(self, ctx):
-        return [map(self._run, p) for p in self.children[0].partitions(ctx)]
+        parts = self.children[0].partitions(ctx)
+        if self._row_ids:
+            return _with_row_ids(self._run, parts)
+        return [map(self._run, p) for p in parts]
 
 
 class GpuFilterExec(GpuExec):
     def __init__(self, condition: Expression, child: PhysicalOp):
         super().__init__([child], child.output_schema)
         self.condition = bind_references(condition, child.output_schema)
+        self._row_ids = is_nondeterministic(self.condition)
 
     def describe(self):
         return f"GpuFilter({self.condition!r})"
 
-    def _run(self, batch: ColumnBatch) -> ColumnBatch:
-        v = self.condition.gpu_eval(GpuEvalCtx(batch))
+    def _run(self, batch: ColumnBatch, partition_index: int = 0,
+             base_row_id=None) -> ColumnBatch:
+        v = self.condition.gpu_eval(GpuEvalCtx(batch, partition_index,
+                                               base_row_id))
         return compact(batch, v.validity & v.data.to(torch.bool))
 
     def partitions(self, ctx):
-        return [map(self._run, p) for p in self.children[0].partitions(ctx)]
+        parts = self.children[0].partitions(ctx)
+        if self._row_ids:
+            return _with_row_ids(self._run, parts)
+        return [map(self._run, p) for p in parts]
 
 
 class GpuSortExec(GpuExec):
@@ -414,17 +491,50 @@ class GpuHashAggregateExec(GpuExec):
 
             return [gen(p, part) for p, part in
                     enumerate(self.children[0].partitions(ctx))]
-        child_schema = self.children[0].output_schema
+        child = self.children[0]
 
         def merge(part):
-            merged = _concat_all(list(part), child_schema)
+            merged = _concat_all(list(part), child.output_schema)
             if merged is None and self.keyless:
                 # no input at all: still the one row of SQL defaults
-                merged = empty_device_batch(child_schema, ctx.device)
+                merged = empty_device_batch(child.output_schema, ctx.device)
             if merged is not None:
                 yield self._aggregate_batch(merged)
 
-        return [merge(p) for p in self.children[0].partitions(ctx)]
+        parts = child.partitions(ctx)
+        planned = _coalesce_groups(ctx, self.op_id, child, parts)
+        if planned is not None:  # small shuffle partitions merged as one
+            parts = [itertools.chain(*g) for g in planned[0]]
+        return [merge(p) for p in parts]
+
+
+class GpuSampleExec(GpuExec):
+    """Bernoulli sample with the host twin's stream: partition p draws
+    ``rng.rand(rows) < fraction`` a batch from
+    ``np.random.RandomState(seed + p)`` (one row-count read a batch), and
+    the device compacts the kept rows."""
+
+    def __init__(self, fraction: float, seed: int, child: PhysicalOp):
+        super().__init__([child], child.output_schema)
+        self.fraction = fraction
+        self.seed = seed
+
+    def describe(self):
+        return f"GpuSample({self.fraction}, seed={self.seed})"
+
+    def partitions(self, ctx):
+        def gen(pi, part):
+            rng = np.random.RandomState(self.seed + pi)
+            for db in part:
+                n = int(db.num_rows)
+                keep = torch.zeros(db.capacity, dtype=torch.bool,
+                                   device=db.device)
+                keep[:n] = torch.from_numpy(
+                    rng.rand(n) < self.fraction).to(db.device)
+                yield compact(db, keep)
+
+        return [gen(pi, p) for pi, p in
+                enumerate(self.children[0].partitions(ctx))]
 
 
 #: rows of one explode output batch, at most (unless one input row alone
@@ -645,11 +755,19 @@ class _HashJoinBase(GpuExec):
 
 
 class GpuShuffledHashJoinExec(_HashJoinBase):
-    """Equi-join of co-partitioned (left, right) pairs; on one device each
-    side is one partition, concatenated and joined once.  Host-driven by
+    """Equi-join of co-partitioned (left, right) pairs.  Host-driven by
     default; fused when a mesh is active and both children are mesh
-    exchanges and the join has no residual condition.  Not ported: AQE
-    pair coalescing, the skew split and the dynamic broadcast switch."""
+    exchanges and the join has no residual condition.
+
+    Over split exchanges the adaptive layer (``plan/adaptive.py``) acts
+    here as in the JAX package: first the broadcast switch (the first
+    legal build side whose exchange came in under
+    ``spark.sql.autoBroadcastJoinThreshold`` actual bytes is broadcast to
+    every partition of the other side, whose split is skipped when it has
+    not run: ``replannedBroadcast``); else the pairs are grouped by their
+    combined size, a skewed pair alone (never for a full join), and a
+    skewed pair's stream side is joined piece by piece, a piece above the
+    byte target in row slices (``skewSplitChunks``)."""
 
     _FUSABLE_HOWS = ("inner", "left", "right", "full", "left_semi",
                      "left_anti")
@@ -674,11 +792,19 @@ class GpuShuffledHashJoinExec(_HashJoinBase):
             all(isinstance(c, GpuShuffleExchangeExec) for c in self.children)
 
     def partitions(self, ctx):
-        lparts = self.children[0].partitions(ctx)
-        rparts = self.children[1].partitions(ctx)
+        lchild, rchild = self.children
+        if self.num_partitions(ctx) > 1:
+            switched = self._try_broadcast_switch(ctx)
+            if switched is not None:
+                return switched
+        lparts = lchild.partitions(ctx)
+        rparts = rchild.partitions(ctx)
         if len(lparts) != len(rparts):
             raise ValueError(f"join sides have {len(lparts)} and "
                              f"{len(rparts)} partitions")
+        skewed = [False] * len(lparts)
+        if adaptive.coalesce_enabled(ctx) and len(lparts) > 1:
+            lparts, rparts, skewed = self._group_pairs(ctx, lparts, rparts)
         fused = self._fusable(ctx)
 
         def host(lbs, rbs):
@@ -687,15 +813,141 @@ class GpuShuffledHashJoinExec(_HashJoinBase):
                                   ctx.device)
             return [] if out is None else [out]
 
-        def gen(lp, rp):
+        def gen(lp, rp, skew):
             lbs, rbs = list(lp), list(rp)
-            if fused and lbs and rbs:
+            if skew and self.how != "full":
+                yield from self._join_skewed(ctx, lbs, rbs)
+            elif fused and lbs and rbs:
                 yield from self._join_fused(ctx, lbs, rbs,
                                             lambda: host(lbs, rbs))
             else:
                 yield from host(lbs, rbs)
 
-        return [gen(lp, rp) for lp, rp in zip(lparts, rparts)]
+        return [gen(lp, rp, sk) for lp, rp, sk in zip(lparts, rparts, skewed)]
+
+    def _group_pairs(self, ctx, lparts, rparts):
+        """Co-partitioned pairs grouped by combined size: from the sizes
+        both splits recorded, else from one sync of every batch's rows
+        (then no skew marks count as free stats)."""
+        lchild, rchild = self.children
+        lsz, lunit = adaptive.part_stats(lchild, len(lparts))
+        rsz, runit = adaptive.part_stats(rchild, len(rparts))
+        if lsz is not None and rsz is not None and lunit == runit:
+            sizes = [a + b for a, b in zip(lsz, rsz)]
+            unit, record = lunit, True
+        else:
+            lparts = [list(p) for p in lparts]
+            rparts = [list(p) for p in rparts]
+            flat = [b for p in lparts + rparts for b in p]
+            rows = {id(b): s[0] for b, s in zip(flat, host_sizes(flat))}
+            sizes = [sum(rows[id(b)] for b in lp) +
+                     sum(rows[id(b)] for b in rp)
+                     for lp, rp in zip(lparts, rparts)]
+            unit, record = "rows", False
+        groups, skewed = adaptive.plan_groups(
+            ctx, self.op_id, list(zip(lparts, rparts)), sizes, unit,
+            record=record, detect_skew=self.how != "full")
+        return ([itertools.chain(*(lp for lp, _ in g)) for g in groups],
+                [itertools.chain(*(rp for _, rp in g)) for g in groups],
+                skewed)
+
+    def _try_broadcast_switch(self, ctx):
+        """The first legal build side whose exchange materialized under
+        the broadcast threshold becomes a broadcast build; the other
+        side's split is skipped when it has not run.  None keeps the
+        shuffled shape."""
+        from spark_rapids_tpu_torch.parallel.exchange import (
+            GpuShuffleExchangeExec,
+        )
+        if not adaptive.replan_joins_enabled(ctx):
+            return None
+        thr = adaptive.broadcast_threshold(ctx)
+        if thr < 0:
+            return None
+        lchild, rchild = self.children
+        for side in adaptive.broadcast_build_sides(self.how):
+            build = rchild if side == "right" else lchild
+            probe = lchild if side == "right" else rchild
+            bparts = build.partitions(ctx)
+            bbytes = getattr(build, "_last_part_bytes", None)
+            if bbytes is None or len(bbytes) != len(bparts) or \
+                    sum(bbytes) > thr:
+                continue
+            adaptive.record_stats(ctx, self.op_id, bbytes, "bytes")
+            if isinstance(probe, GpuShuffleExchangeExec) and \
+                    not probe.has_materialized_split(ctx):
+                sparts = probe.bypass_partitions(ctx)
+            else:
+                sparts = probe.partitions(ctx)
+            return self._broadcast_partitions(ctx, side, bparts, sparts)
+        return None
+
+    def _broadcast_partitions(self, ctx, side, build_parts, stream_parts):
+        """Join every stream partition against the build side,
+        concatenated once per query (kept on the context)."""
+        key = (self.op_id, side)
+        if key not in ctx.held:
+            ctx.held[key] = _concat_all(
+                [b for p in build_parts for b in p],
+                self.right_schema if side == "right" else self.left_schema)
+        build = ctx.held[key]
+        ctx.metric(self.op_id, "replannedBroadcast").add(1)
+        stream_schema = self.left_schema if side == "right" \
+            else self.right_schema
+
+        def gen(part):
+            sbs = list(part)
+            if not sbs:
+                return
+            sb = _concat_all(sbs, stream_schema)
+            pair = (sb, build) if side == "right" else (build, sb)
+            out = self._join_pair(*pair, ctx.device)
+            if out is not None:
+                yield out
+
+        return [gen(p) for p in stream_parts]
+
+    def _join_skewed(self, ctx, lbs, rbs):
+        """A skewed pair: the stream side (the left one, the right one for
+        a right join) joined per piece the split made against the whole
+        build side, a piece above the byte target in row slices, so one
+        join's pair space stays bounded.  A stream row is in one slice, so
+        the stream side's outer rows come out once.  One sync sizes every
+        piece."""
+        split_left = self.how != "right"
+        stream = lbs if split_left else rbs
+        build = rbs if split_left else lbs
+        stream_schema = self.left_schema if split_left else self.right_schema
+        build_b = _concat_all(build, self.right_schema if split_left
+                              else self.left_schema)
+        frb = fixed_row_bytes(stream_schema)
+        scales = varlen_byte_scales(stream_schema)
+        target = max(adaptive.target_bytes(ctx), 1)
+        plan, chunks = [], 0
+        for piece, (rows, totals) in zip(
+                stream, host_sizes(stream) if stream else []):
+            if rows == 0:
+                continue
+            pbytes = rows * frb + sum(t * sc for t, sc in zip(totals, scales))
+            n_chunks = max(1, min(rows, -(-pbytes // target)))
+            rows_per = -(-rows // n_chunks)
+            plan.append((piece, rows, rows_per))
+            chunks += -(-rows // rows_per)
+        ctx.metric(self.op_id, "skewSplitChunks").add(chunks)
+
+        def pair(sb):
+            return (sb, build_b) if split_left else (build_b, sb)
+
+        if not plan:
+            out = self._join_pair(*pair(None), ctx.device)
+            if out is not None:
+                yield out
+            return
+        for piece, rows, rows_per in plan:
+            for sb in row_slices(piece, rows, rows_per):
+                out = self._join_pair(*pair(sb), ctx.device)
+                if out is not None:
+                    yield out
 
 
 class GpuBroadcastHashJoinExec(_HashJoinBase):

@@ -305,6 +305,53 @@ class Limit(LogicalPlan):
         return f"Limit({self.n})"
 
 
+class Repartition(LogicalPlan):
+    """Explicit exchange: mode in {hash, roundrobin, range, single}."""
+
+    def __init__(self, mode: str, num_partitions: int,
+                 keys: List[Expression], child: LogicalPlan,
+                 orders: Optional[List[SortOrder]] = None):
+        self.mode = mode
+        self.num_partitions = num_partitions
+        self.keys = keys
+        self.orders = orders
+        self.children = (child,)
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+    def describe(self):
+        return f"Repartition({self.mode}, {self.num_partitions})"
+
+
+class Sample(LogicalPlan):
+    def __init__(self, fraction: float, seed: int, child: LogicalPlan):
+        self.fraction = fraction
+        self.seed = seed
+        self.children = (child,)
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+
+class WriteFile(LogicalPlan):
+    """Data-writing command (GpuDataWritingCommandExec analogue)."""
+
+    def __init__(self, fmt: str, path: str, mode: str,
+                 options: Dict[str, Any], child: LogicalPlan):
+        self.fmt = fmt
+        self.path = path
+        self.mode = mode
+        self.options = options
+        self.children = (child,)
+
+    @property
+    def schema(self):
+        return T.Schema([])
+
+
 class CacheHolder:
     """Materialized cache state shared by every DataFrame over a cached
     plan: the device batches, one list per partition, once filled.  Plain
@@ -316,6 +363,10 @@ class CacheHolder:
     @property
     def is_materialized(self) -> bool:
         return self.partitions is not None
+
+    def unpersist(self) -> None:
+        """Drop the device batches; the next query fills them again."""
+        self.partitions = None
 
 
 class CachedRelation(LogicalPlan):

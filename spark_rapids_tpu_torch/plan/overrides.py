@@ -14,9 +14,19 @@ switched off by ``spark.rapids.sql.exec.<Name>`` /
 ``spark.rapids.sql.expression.<Name>``, or ``spark.rapids.sql.enabled``
 false each put the node on the host.  Scans decode on the host by design.
 Nothing moves an operator because a GPU is missing or a kernel failed.
-:class:`UnsupportedPlanError` is left for what neither side can run: a
-partitioned shuffle (``spark.rapids.sql.tpu.exchange.collapseLocal`` off)
-and an aggregate outside an aggregation.
+:class:`UnsupportedPlanError` is left for what neither side can run: an
+aggregate outside an aggregation.
+
+Exchanges carry the JAX package's partitionings
+(``parallel/partitioning.py``): an aggregate's and a join's by hash of
+their keys (``spark.sql.shuffle.partitions``), a global sort's by range, a
+limit's and a keyless aggregate's single; ``DataFrame.repartition`` and
+``coalesce`` plan a Repartition node into one.  A device exchange under a
+window or a global sort is read through the adaptive coalescing reader
+(``GpuCoalescedShuffleReaderExec``); the merge aggregate and the shuffled
+join coalesce inline.  Whether an exchange splits is decided when it runs
+(``spark.rapids.sql.tpu.exchange.collapseLocal``).  ``Sample`` is a
+device or host exec of its own.
 
 Equi-joins on the device choose their strategy as the JAX package does: a
 side whose estimated size is under ``spark.sql.autoBroadcastJoinThreshold``
@@ -28,7 +38,7 @@ schema's per-column widths; joins and aggregates make no guess.  A file
 scan is estimated by its files' bytes on disk.  A residual join condition
 rides the hash join, which then runs host-driven; a cross join or a join
 without equi-keys is a nested-loop join.  On the host an aggregate, a join,
-a window and a limit take a collapsed host exchange and the host twin
+a window and a limit take a host exchange and the host twin
 (``ops/cpu_exec.py``, ``ops/window.py``).  A window goes through a hash
 exchange by its partition keys (a single-partition one without them) into
 the window exec; an expand is a device or host exec of its own.
@@ -55,9 +65,9 @@ import numpy as np
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.config import (
-    AUTO_BROADCAST_THRESHOLD, EXCHANGE_COLLAPSE_LOCAL, HAS_NANS,
-    SCAN_PUSHDOWN_ENABLED, SCAN_V2_ENABLED, SHUFFLE_PARTITIONS, SQL_ENABLED,
-    STRING_HASH_JOIN, RapidsConf,
+    AUTO_BROADCAST_THRESHOLD, HAS_NANS, SCAN_PUSHDOWN_ENABLED,
+    SCAN_V2_ENABLED, SHUFFLE_PARTITIONS, SQL_ENABLED, STRING_HASH_JOIN,
+    RapidsConf,
 )
 from spark_rapids_tpu_torch.exprs.aggregates import AggregateFunction
 from spark_rapids_tpu_torch.exprs.base import (
@@ -68,6 +78,10 @@ from spark_rapids_tpu_torch.ops import gpu_exec as X
 from spark_rapids_tpu_torch.ops.window import CpuWindowExec, GpuWindowExec
 from spark_rapids_tpu_torch.parallel.exchange import (
     CpuShuffleExchangeExec, GpuShuffleExchangeExec,
+)
+from spark_rapids_tpu_torch.parallel.partitioning import (
+    HashPartitioning, Partitioning, RangePartitioning,
+    RoundRobinPartitioning, SinglePartitioning,
 )
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.physical import (
@@ -253,6 +267,8 @@ class GpuOverrides:
             if node.outer:
                 meta.will_not_work(
                     "explode_outer emits NULL-element rows (host path)")
+        elif isinstance(node, L.Repartition):
+            meta.check_exprs(*node.keys)
 
     def _tag_string_keys(self, meta: PlanMeta, keys, what: str):
         """String keys group and join through device row hashes;
@@ -269,22 +285,33 @@ class GpuOverrides:
     def _refuse(self, node: L.LogicalPlan, reason: str):
         raise UnsupportedPlanError(f"{node.describe()}: {reason}")
 
-    def _check_collapse(self, node: L.LogicalPlan):
-        if not EXCHANGE_COLLAPSE_LOCAL.get(self.conf):
-            self._refuse(node, "a partitioned shuffle is not ported yet; "
-                               "leave spark.rapids.sql.tpu.exchange."
-                               "collapseLocal on")
+    def _shuffle_parts(self) -> int:
+        return SHUFFLE_PARTITIONS.get(self.conf)
 
-    def _exchange(self, node, kind: str, child: PhysicalOp) -> PhysicalOp:
-        self._check_collapse(node)
-        n = 1 if kind == "single" else SHUFFLE_PARTITIONS.get(self.conf)
-        return GpuShuffleExchangeExec(kind, n, child)
+    def _exchange(self, part: Partitioning, child: PhysicalOp,
+                  reader: bool = False) -> PhysicalOp:
+        """A device exchange; ``reader`` reads it through the adaptive
+        coalescing reader (under a window and a global sort)."""
+        ex = GpuShuffleExchangeExec(part, _to_device(child))
+        return X.GpuCoalescedShuffleReaderExec(ex) if reader else ex
 
-    def _host_exchange(self, node, kind: str,
+    def _host_exchange(self, part: Partitioning,
                        child: PhysicalOp) -> PhysicalOp:
-        self._check_collapse(node)
-        n = 1 if kind == "single" else SHUFFLE_PARTITIONS.get(self.conf)
-        return CpuShuffleExchangeExec(kind, n, _to_host(child))
+        return CpuShuffleExchangeExec(part, _to_host(child))
+
+    def _make_partitioning(self, node: L.Repartition) -> Partitioning:
+        if node.mode == "hash":
+            return HashPartitioning(node.keys, node.num_partitions)
+        if node.mode == "roundrobin":
+            return RoundRobinPartitioning(node.num_partitions)
+        if node.mode == "single":
+            return SinglePartitioning()
+        if node.mode == "range":
+            schema = node.children[0].schema
+            return RangePartitioning(
+                node.orders, [schema.index_of(o.child.column)
+                              for o in node.orders], node.num_partitions)
+        raise ValueError(node.mode)
 
     def _convert(self, meta: PlanMeta) -> PhysicalOp:
         node = meta.node
@@ -348,40 +375,55 @@ class GpuOverrides:
             return C.CpuGenerateExec(node.column, node.alias, node.pos,
                                      node.outer, _to_host(conv[0]),
                                      node.schema)
+        if isinstance(node, L.Sample):
+            if on_gpu:
+                return X.GpuSampleExec(node.fraction, node.seed,
+                                       _to_device(conv[0]))
+            return C.CpuSampleExec(node.fraction, node.seed,
+                                   _to_host(conv[0]))
+        if isinstance(node, L.Repartition):
+            part = self._make_partitioning(node)
+            if on_gpu:
+                return self._exchange(part, conv[0])
+            return self._host_exchange(part, conv[0])
         self._refuse(node, "no port of this operator yet")
 
     def _convert_window(self, node: L.Window, child: PhysicalOp,
                         on_gpu: bool) -> PhysicalOp:
         """An exchange by the partition keys (one partition without
         them), then the window exec over each whole partition."""
-        kind = "hash" if node.window_exprs[0].partition_by else "single"
+        keys = node.window_exprs[0].partition_by
+        part = HashPartitioning(keys, self._shuffle_parts()) if keys \
+            else SinglePartitioning()
         if on_gpu:
             return GpuWindowExec(
                 node.window_exprs, node.output_names,
-                self._exchange(node, kind, _to_device(child)), node.schema)
+                self._exchange(part, child, reader=True), node.schema)
         return CpuWindowExec(node.window_exprs, node.output_names,
-                             self._host_exchange(node, kind, child),
-                             node.schema)
+                             self._host_exchange(part, child), node.schema)
 
     def _convert_aggregate(self, node: L.Aggregate, child: PhysicalOp,
                            on_gpu: bool) -> PhysicalOp:
         """On the device: update per batch, an exchange (hash by the keys;
         one partition without keys), then the merge.  On the host: the
         rows through a host exchange, then the whole aggregation."""
-        kind = "hash" if node.keys else "single"
         if not on_gpu:
+            part = HashPartitioning(node.keys, self._shuffle_parts()) \
+                if node.keys else SinglePartitioning()
             return C.CpuAggregateExec(
-                node.keys, node.aggs,
-                self._host_exchange(node, kind, child), node.schema)
+                node.keys, node.aggs, self._host_exchange(part, child),
+                node.schema)
         partial = X.GpuHashAggregateExec(
             "update", node.keys, node.key_names, node.aggs,
             _to_device(child),
             X._buffer_schema(node.key_names, node.keys, node.aggs))
         keys = [ColumnRef(n, k.dtype, k.nullable)
                 for n, k in zip(node.key_names, node.keys)]
+        part = HashPartitioning(keys, self._shuffle_parts()) if keys \
+            else SinglePartitioning()
         return X.GpuHashAggregateExec(
             "merge", keys, node.key_names, node.aggs,
-            self._exchange(node, kind, partial), node.schema)
+            self._exchange(part, partial), node.schema)
 
     def _convert_sort(self, node: L.Sort, child: PhysicalOp,
                       on_gpu: bool) -> PhysicalOp:
@@ -415,17 +457,21 @@ class GpuOverrides:
 
     def _sort(self, node: L.Sort, orders, child: PhysicalOp,
               on_gpu: bool) -> PhysicalOp:
+        schema = child.output_schema
+        ordinals = [schema.index_of(o.child.column) for o in orders]
         if on_gpu:
             child = _to_device(child)
             if node.is_global:
-                child = self._exchange(node, "range", child)
+                child = self._exchange(
+                    RangePartitioning(orders, ordinals,
+                                      self._shuffle_parts()),
+                    child, reader=True)
             return X.GpuSortExec(orders, child)
         if node.is_global:
-            child = self._host_exchange(node, "range", child)
-        schema = child.output_schema
-        return C.CpuSortExec(orders,
-                             [schema.index_of(o.child.column)
-                              for o in orders], _to_host(child))
+            child = self._host_exchange(
+                RangePartitioning(orders, ordinals, self._shuffle_parts()),
+                child)
+        return C.CpuSortExec(orders, ordinals, _to_host(child))
 
     # Heuristic average payload of a string cell when the values are not
     # visible (the JAX package's _VARLEN_CELL_BYTES).
@@ -449,6 +495,9 @@ class GpuOverrides:
         if isinstance(node, L.Limit):
             rows = self._estimate_rows(node.children[0])
             return node.n if rows is None else min(node.n, rows)
+        if isinstance(node, L.Sample):
+            rows = self._estimate_rows(node.children[0])
+            return None if rows is None else int(rows * node.fraction)
         if isinstance(node, (L.Project, L.Filter, L.Sort,
                              L.CachedRelation, L.BroadcastHint)):
             return self._estimate_rows(node.children[0])
@@ -492,14 +541,17 @@ class GpuOverrides:
         cond = None if node.condition is None else _paired_resolve(node)
         left, right = conv
         nested = node.how == "cross" or not node.left_keys
+        n_parts = self._shuffle_parts()
+        lpart = HashPartitioning(node.left_keys, n_parts)
+        rpart = HashPartitioning(node.right_keys, n_parts)
         if not on_gpu:
             if nested:
                 return C.CpuNestedLoopJoinExec(
                     _to_host(left), _to_host(right), node.how, cond,
                     node.schema)
             return C.CpuHashJoinExec(
-                self._host_exchange(node, "hash", left),
-                self._host_exchange(node, "hash", right), node.left_keys,
+                self._host_exchange(lpart, left),
+                self._host_exchange(rpart, right), node.left_keys,
                 node.right_keys, node.how, cond, node.schema)
         left, right = _to_device(left), _to_device(right)
         if nested:
@@ -524,20 +576,26 @@ class GpuOverrides:
             return X.GpuBroadcastHashJoinExec(
                 right, left, node.left_keys, node.right_keys, node.how,
                 "left", cond, node.schema)
+        lex, rex = self._exchange(lpart, left), self._exchange(rpart, right)
+        # the split compares these with the bytes it moved
+        # (aqeEstimateErrorPct)
+        if l_est is not None:
+            lex._aqe_est_bytes = l_est
+        if r_est is not None:
+            rex._aqe_est_bytes = r_est
         return X.GpuShuffledHashJoinExec(
-            self._exchange(node, "hash", left),
-            self._exchange(node, "hash", right), node.left_keys,
-            node.right_keys, node.how, cond, node.schema)
+            lex, rex, node.left_keys, node.right_keys, node.how, cond,
+            node.schema)
 
     def _convert_limit(self, node: L.Limit, child: PhysicalOp,
                        on_gpu: bool) -> PhysicalOp:
         if on_gpu:
             local = X.GpuLocalLimitExec(node.n, _to_device(child))
             return X.GpuLocalLimitExec(
-                node.n, self._exchange(node, "single", local))
+                node.n, self._exchange(SinglePartitioning(), local))
         local = C.CpuLocalLimitExec(node.n, _to_host(child))
         return C.CpuLocalLimitExec(
-            node.n, self._host_exchange(node, "single", local))
+            node.n, self._host_exchange(SinglePartitioning(), local))
 
 
 def _paired_resolve(node: L.Join) -> Expression:

@@ -37,7 +37,11 @@ from spark_rapids_tpu_torch.config import STAGE_READAHEAD_BATCHES, RapidsConf
 #: left slices); readaheadDepthEffective takes the deepest instead
 SUMMED_METRICS = ("scanDecodeWallNs", "scanH2dOverlapNs", "scanBytesDecoded",
                   "scanChunksSkipped", "rowGroupsRead", "rowGroupsTotal",
-                  "nljChunks")
+                  "nljChunks", "shufflePieces", "shuffleSyncs",
+                  "rangeSampleSyncs", "shuffleSplitDispatches",
+                  "shuffleBytes", "shuffleRows", "shuffleElided",
+                  "coalescedTo", "aqeCoalescedPartitions", "aqeSkewSplits",
+                  "skewSplitChunks", "replannedBroadcast")
 
 
 class Metric:
@@ -67,6 +71,10 @@ class ExecContext:
         self.mesh = mesh
         self.metrics: Dict[str, int] = {}
         self.op_metrics: Dict[str, Dict[str, Metric]] = {}
+        #: device batches an operator keeps for the rest of the query (a
+        #: shuffle split's pieces, a switched join's build side), by
+        #: op_id: freed with the context when the query ends
+        self.held: Dict[object, object] = {}
         self._lock = threading.Lock()
 
     def add_metric(self, name: str) -> None:
@@ -115,6 +123,11 @@ class PhysicalOp:
 
     def partitions(self, ctx: ExecContext) -> List[Iterator]:
         raise NotImplementedError
+
+    def num_partitions(self, ctx: ExecContext) -> int:
+        """The partitions :meth:`partitions` will give: the first child's
+        by default."""
+        return self.children[0].num_partitions(ctx) if self.children else 1
 
     def describe(self) -> str:
         return type(self).__name__

@@ -23,8 +23,8 @@ them with the physical plan, and ``spark.rapids.sql.explain`` (ALL or
 NOT_ON_GPU) logs them for every query to this module's ``.explain``
 logger.  With
 ``spark.rapids.sql.test.enabled`` a query fails before it runs if any
-operator other than a scan, a transition or a collapsed host exchange was
-placed on the host.
+operator other than a scan, a transition or a host exchange was placed on
+the host.
 """
 
 from __future__ import annotations

@@ -302,9 +302,8 @@ def test_split_and_corr_through_sql_match_jax():
     assert "StringSplit has no GPU implementation" in psess.last_explain
 
 
-#: the JAX package's functions the next slice ports with TpuSampleExec
-DEFERRED = {"rand", "monotonically_increasing_id", "spark_partition_id",
-            "udf", "pandas_udf"}
+#: the JAX package's functions not ported yet (the Python UDFs)
+DEFERRED = {"udf", "pandas_udf"}
 
 
 def test_functions_have_the_jax_signatures():

@@ -21,8 +21,8 @@ package on the CPU.
   offsets, and an empty device result crosses as no batch;
 * the test mode (``spark.rapids.sql.test.enabled``), the explain output,
   ``session.range`` and ``union`` on the device, a cached relation with
-  ``spark.rapids.sql.enabled`` off, and the one refusal left: a
-  partitioned shuffle.
+  ``spark.rapids.sql.enabled`` off, and a partitioned shuffle, no longer
+  refused.
 """
 
 import logging
@@ -46,7 +46,7 @@ from spark_rapids_tpu_torch.benchmarks import tpch_like as PQ
 from spark_rapids_tpu_torch.config import RapidsConf
 from spark_rapids_tpu_torch.kernels import cuda_tier
 from spark_rapids_tpu_torch.plan.overrides import (
-    GpuOverrides, PlanMeta, UnsupportedPlanError,
+    GpuOverrides, PlanMeta,
 )
 from spark_rapids_tpu_torch.plan.physical import (
     DeviceToHostExec, ExecContext, HostToDeviceExec,
@@ -375,16 +375,26 @@ def test_cached_relation_plans_uncached_on_the_host():
                                            False}],
                          ids=["device", "host"])
 def test_partitioned_shuffle_is_refused(settings):
-    """Neither side has a partitioned exchange: with
-    ``spark.rapids.sql.tpu.exchange.collapseLocal`` off the planner
-    raises, naming the node."""
-    sess = GpuSparkSession(RapidsConf(dict(settings, **{
-        "spark.rapids.sql.tpu.exchange.collapseLocal": False})),
-        device="cpu")
-    df = _small(sess, T)
-    with pytest.raises(UnsupportedPlanError,
-                       match="Aggregate.*partitioned shuffle"):
-        df.group_by("k").agg(PF.count("*").alias("n")).collect()
+    """The refusal is gone: with ``spark.rapids.sql.tpu.exchange.
+    collapseLocal`` off both sides plan and run a partitioned exchange
+    (split into ``spark.sql.shuffle.partitions`` partitions), with the
+    collapsed plan's groups."""
+    def groups(extra):
+        sess = GpuSparkSession(RapidsConf(dict(settings, **extra)),
+                               device="cpu")
+        df = _small(sess, T)
+        rows = df.group_by("k").agg(PF.count("*").alias("n")).collect()
+        return sorted(rows, key=repr), sess
+
+    split, sess = groups({"spark.rapids.sql.tpu.exchange.collapseLocal":
+                          False})
+    assert split == groups({})[0] == [(1, 1), (2, 2), (None, 1)]
+    exchanges = [ln for ln in sess.last_physical_plan.tree_string()
+                 .splitlines() if "ShuffleExchange" in ln]
+    assert exchanges and all("HashPartitioning, 8" in ln
+                             for ln in exchanges)
+    if not settings:  # the device split ran once, one sync
+        assert sess.last_metrics["shuffleSyncs"] == 1
 
 
 def test_float_keys_group_as_the_jax_host_does():

@@ -84,19 +84,13 @@ def plan_shape(op):
     """A physical plan as nested (exec, children) tokens, either
     package's: the class name without its package prefix, plus what tells
     two execs of one class apart (host execs keep their ``Cpu`` prefix;
-    the transitions are ``HostToDevice``/``DeviceToHost``; a window exec
-    names its functions, an expand its number of projections).  The JAX
-    package's coalesced shuffle reader above an exchange (adaptive
-    partition coalescing, not ported) is skipped."""
-    from spark_rapids_tpu_torch.parallel.exchange import PARTITIONINGS
+    the transitions are ``HostToDevice``/``DeviceToHost``; an exchange
+    names its partitioning, a window exec its functions, an expand its
+    number of projections)."""
     name = type(op).__name__
-    if name == "TpuCoalescedShuffleReaderExec":
-        return plan_shape(op.children[0])
     tok = name.replace("Tpu", "").replace("Gpu", "").replace("Exec", "")
     if tok.endswith("ShuffleExchange"):
-        kind = getattr(op, "kind", None)
-        tok += "/" + (PARTITIONINGS[kind] if kind else
-                      type(op.partitioning).__name__)
+        tok += "/" + type(op.partitioning).__name__
     if "HashJoin" in tok:
         tok += f"/{op.how}/{getattr(op, 'broadcast_side', '')}"
     if tok.endswith("NestedLoopJoin"):
