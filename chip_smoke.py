@@ -184,6 +184,30 @@ Phases, in order; any failure exits non-zero:
      collect held to its plain version, rows, collect ms, launches and
      peak device memory on a line (``--etl-only`` runs this phase
      alone);
+   * the memory phase, the spill catalog, the OOM retry and the fault
+     ladder (``--memory-only`` runs it alone, after the build): (a) the
+     out-of-core run at its own settings (``benchmarks/oocore_run.py``):
+     lineitem (60,000,000 rows), orders and customer at SF10, written as
+     parquet into a temporary directory (its free space checked first),
+     cached in one session under a 256 MiB device budget and the 1 GiB
+     host store, its joins' inputs pruned to the columns read above them,
+     SQL Q1 and Q18 twice each against numpy,
+     every recorded gatherScatter and stringHash call held to its plain
+     version, ``spilled_to_host``, ``spilled_to_disk`` and ``unspilled``
+     above 0, and Q1 at the default budget, where nothing spills; (b)
+     Q18 split into 8 partitions under the same budget, its shuffle
+     pieces spilled and read back, its rows those of (a); (c) a real
+     allocator OOM: lineitem at SF1 cached, the caching allocator's cap
+     lowered until Q1 no longer fits beside the cache, the OOM answered
+     by a spill and a replay on the card; (d) Q1 at SF1 under each
+     injected spec of ``FAULT_SPECS``, its counters exact; (e) a sticky
+     CUDA error in a child process (``--sticky-child``): the filter's
+     step indexes out of bounds on the card, and Q1 completes on the host
+     twins with numpy's rows; one line a step with collect ms, the
+     catalog's counters, handles and bytes by tier, the bytes written to
+     disk, peak device memory, the fault counters and the card.  Every
+     collect of every other phase must leave the fault ladder's counters
+     at 0 (``install_fault_guard``);
    each query must launch every kernel of its path, and every path but
    the fallback phase's must plan wholly on the card in the test mode
    (``spark.rapids.sql.test.enabled``: no host exec but a scan, a
@@ -1180,7 +1204,7 @@ def _require(path: dict, label: str, names) -> None:
 
 def cached_column(df, name: str):
     """(data, offsets) of a string column of the first cached batch."""
-    batch = df.plan.holder.partitions[0][0]
+    batch = df.plan.holder.partitions[0][0].get()
     col = batch.column(name)
     return col.data, col.offsets
 
@@ -3934,6 +3958,654 @@ def _windows_numbers(columns, starts, counts, out_cap, byte_caps, device,
     }
 
 
+# ---------------------------------------------------------------------------
+# memory phase: the spill catalog, the OOM retry and the fault ladder
+# ---------------------------------------------------------------------------
+
+#: the out-of-core run's own settings (oocore_run.py main: sf 10, a
+#: 256 MiB device budget, Q1 and Q18), over parquet files
+MEMORY_SF = 10
+MEMORY_BUDGET = 256 << 20
+MEMORY_TABLES = ("lineitem", "orders", "customer")
+#: the SQL phases' hasNans setting keeps Q18's aggregate (a DOUBLE group
+#: key) on the card
+MEMORY_EXTRA = {"spark.rapids.sql.hasNans": False}
+#: the fault ladder's counters: 0 on every collect of a phase that
+#: injects no fault
+FAULT_COUNTERS = ("retryCount", "deviceLostCount", "partitionFallbackCount",
+                  "faultsInjected")
+#: (c)-(e) run Q1 over lineitem at this generator sf (6,000,000 rows)
+FAULT_SF = 100
+#: (d): spec -> the counters it implies (retryCount, deviceLostCount,
+#: partitionFallbackCount, faultsInjected) and the source it runs over
+FAULT_SPECS = {
+    "dispatch:oom@3": ((1, 0, 0, 1), "plain"),
+    "h2d:device_lost@1": ((1, 1, 0, 1), "plain"),
+    "d2h:device_lost@1": ((1, 1, 0, 1), "plain"),
+    "unspill:oom@1": ((1, 0, 0, 1), "cached-small"),
+    "spill:slow=200ms@2": ((0, 0, 0, 1), "cached-small"),
+    "dispatch:device_lost@1+": ((2, 3, 1, 3), "plain"),
+    "exchange:device_lost@1": ((1, 1, 0, 1), "split"),
+    "scan:device_lost@1": ((1, 1, 0, 1), "parquet"),
+    "dispatch:slow=2s@2": ((1, 1, 0, 1), "timeout"),
+}
+#: the timeout's source: lineitem's first batches, so the replay fits
+#: inside the 0.5 s deadline
+TIMEOUT_BATCHES = 2
+#: (d)'s cached source's budget: lineitem's 6,000,000 rows spill
+FAULT_SMALL_BUDGET = 64 << 20
+_GUARD = {"on": True, "collects": 0}
+
+
+def install_fault_guard() -> None:
+    """Every collect of a phase that injects no fault must leave the fault
+    ladder's counters at 0: a failing kernel or device op must fail the
+    run, not complete it on the host.  (c)-(e) turn the guard off."""
+    from spark_rapids_tpu_torch.session import GpuSparkSession
+    execute = GpuSparkSession.execute
+
+    def guarded(self, plan):
+        out = execute(self, plan)
+        if _GUARD["on"]:
+            import torch
+            bad = {k: self.last_metrics[k] for k in FAULT_COUNTERS
+                   if self.last_metrics.get(k)}
+            if bad:
+                raise AssertionError(
+                    f"a collect with no fault injected engaged the fault "
+                    f"ladder: {bad} (its errors are logged above; peak "
+                    f"device memory {torch.cuda.max_memory_allocated()})")
+            _GUARD["collects"] += 1
+        return out
+
+    GpuSparkSession.execute = guarded
+
+
+def q18_reference(data):
+    """Q18's numpy answer (as :func:`sql_references_more` makes it)."""
+    c, o, li = _np(data["customer"]), _np(data["orders"]), \
+        _np(data["lineitem"])
+    n_c, n_o = len(c["c_custkey"]), len(o["o_orderkey"])
+    l_ord = _partner(li["l_orderkey"], n_o)
+    o_cust = _partner(o["o_custkey"], n_c)
+    big_qty = np.bincount(l_ord, weights=li["l_quantity"],
+                          minlength=n_o + 1)[:n_o]
+    idx = np.nonzero((big_qty > 150) & (o_cust < n_c))[0]
+    rows = {"c_name": c["c_name"][o_cust[idx]],
+            "c_custkey": c["c_custkey"][o_cust[idx]],
+            "o_orderkey": o["o_orderkey"][idx],
+            "o_orderdate": o["o_orderdate"][idx],
+            "o_totalprice": o["o_totalprice"][idx],
+            "total_qty": big_qty[idx]}
+    return (list(rows), _ordered(rows, [
+        -rows["o_totalprice"], rows["o_orderdate"], rows["o_orderkey"]],
+        100), ["c_name", "c_custkey", "o_orderkey", "o_orderdate"])
+
+
+def table_device_bytes(table) -> int:
+    """An upper bound of a generator table's bytes on the card: each
+    fixed-width value, a validity byte a row, a string's characters as
+    its numpy width plus four offset bytes."""
+    total = 0
+    for _, values in table.values():
+        v = np.asarray(values)
+        n = len(v)
+        if v.dtype.kind == "U":
+            total += n * (v.dtype.itemsize // 4 + 4 + 1)
+        else:
+            total += n * (v.dtype.itemsize + 1)
+    return total
+
+
+class PrioritySpills:
+    """Counts, while installed, the catalog's device -> host spills and
+    its unspills by the handle's priority band."""
+
+    def __enter__(self):
+        from spark_rapids_tpu_torch.mem import catalog as C
+        self.spilled, self.unspilled = {}, {}
+        self._begin = C.BufferCatalog._begin_spill_locked
+        self._unspill = C.SpillableBatch._unspill
+        begin, unspill = self._begin, self._unspill
+
+        def counted_begin(cat, victim):
+            task = begin(cat, victim)
+            self.spilled[victim.priority] = \
+                self.spilled.get(victim.priority, 0) + 1
+            return task
+
+        def counted_unspill(h, tier):
+            out = unspill(h, tier)
+            self.unspilled[h.priority] = self.unspilled.get(h.priority, 0) + 1
+            return out
+
+        C.BufferCatalog._begin_spill_locked = counted_begin
+        C.SpillableBatch._unspill = counted_unspill
+        return self
+
+    def __exit__(self, *exc):
+        from spark_rapids_tpu_torch.mem import catalog as C
+        C.BufferCatalog._begin_spill_locked = self._begin
+        C.SpillableBatch._unspill = self._unspill
+        return False
+
+
+def memory_line(session, label: str, wall_s: float, card: str) -> dict:
+    """One step's figures on a line: collect ms, the catalog's spill
+    counters and bytes, handles and bytes by tier now, peak device
+    memory and the fault counters."""
+    import torch
+    cat = session.runtime.catalog
+    m = session.last_metrics
+    rec = {"collect_ms": wall_s * 1e3,
+           "spilled_to_host": cat.metrics["spilled_to_host"],
+           "spilled_to_disk": cat.metrics["spilled_to_disk"],
+           "unspilled": cat.metrics["unspilled"],
+           "spill_to_host_bytes": cat.metrics["spill_to_host_bytes"],
+           "disk_bytes_written": cat.metrics["spill_to_disk_bytes"],
+           "oom_spill_bytes": cat.metrics["oom_spill_bytes"],
+           "handles_by_tier": cat.tier_counts(),
+           "bytes_by_tier": cat.tier_bytes(),
+           "query": {k: v for k, v in m.items()
+                     if k in FAULT_COUNTERS or "pill" in k or
+                     k in ("unspilled", "oomSpillBytes")},
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    print(f"memory [{label}]: {json.dumps(rec)}; card {card}", flush=True)
+    return rec
+
+
+def _collect(query, label: str, check):
+    """One collect, timed between device syncs, its rows checked."""
+    import torch
+    from spark_rapids_tpu_torch.kernels import cuda_tier
+    cuda_tier.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    rows = query(None).collect()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    check(rows)
+    return rows, wall
+
+
+#: the memory phase's data process and the directory it writes into
+_MEMORY_DATA = {}
+
+
+def memory_data(root: str) -> int:
+    """``chip_smoke.py --memory-data DIR``: the memory phase's tables
+    (SF10's lineitem, orders and customer) made and written as parquet
+    under ``DIR``, their numpy answers pickled to ``DIR/_refs.pkl``.  It
+    runs in a process of its own, started before the earlier phases, so
+    the ~110 s of host work overlaps them."""
+    import pickle
+    import shutil
+    from spark_rapids_tpu_torch.benchmarks import oocore_run
+    from spark_rapids_tpu_torch.config import (
+        HOST_SPILL_STORAGE_SIZE, RapidsConf,
+    )
+    t0 = time.monotonic()
+    gens = oocore_run._generators()
+    per = oocore_run.GEN_PER_TRUE_SF
+    data = {name: gens[name](MEMORY_SF * per) for name in MEMORY_TABLES}
+    refs = {"q1": q1_reference(data["lineitem"]), "q18": q18_reference(data)}
+    device_bytes = sum(table_device_bytes(t) for t in data.values())
+    host_store = HOST_SPILL_STORAGE_SIZE.get(RapidsConf())
+    to_disk = max(device_bytes - MEMORY_BUDGET - host_store, 0)
+    free = shutil.disk_usage(tempfile.gettempdir()).free
+    counts = ", ".join(f"{k} {len(next(iter(v.values()))[1])}"
+                       for k, v in data.items())
+    print(f"memory phase data: {counts} rows, at most {device_bytes} bytes "
+          f"on the card, ~{to_disk} bytes expected on disk, {free} bytes "
+          f"free in {tempfile.gettempdir()}; generated and answered in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    # the parquet files take at most half the bytes on the card
+    need = 2 * to_disk + device_bytes // 2
+    if free < need:
+        raise AssertionError(
+            f"the spill directory {tempfile.gettempdir()} has {free} bytes "
+            f"free, under the {need} bytes of twice the disk tier's "
+            "expected bytes and the parquet files")
+    t0 = time.monotonic()
+    for name, table in data.items():
+        oocore_run.write_table(table, os.path.join(root, name))
+    with open(os.path.join(root, "_refs.pkl"), "wb") as f:
+        pickle.dump(refs, f)
+    print(f"memory phase data: parquet written in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    return 0
+
+
+def start_memory_data() -> None:
+    """Start the memory phase's data process (:func:`memory_data`)."""
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_oocore_")
+    _MEMORY_DATA["tmp"] = tmp
+    _MEMORY_DATA["proc"] = subprocess.Popen(
+        [sys.executable, "-u", os.path.abspath(__file__), "--memory-data",
+         tmp.name])
+
+
+def wait_memory_data():
+    """(parquet root, numpy answers) once the data process has ended;
+    fails when it failed."""
+    import pickle
+    t0 = time.monotonic()
+    proc = _MEMORY_DATA.pop("proc")
+    rc = proc.wait(timeout=1200)
+    if rc != 0:
+        raise AssertionError(f"the memory phase's data process exited {rc}")
+    root = _MEMORY_DATA["tmp"].name
+    with open(os.path.join(root, "_refs.pkl"), "rb") as f:
+        refs = pickle.load(f)
+    print(f"memory phase: waited {time.monotonic() - t0:.1f} s for its "
+          "data", flush=True)
+    return root, refs
+
+
+def stop_memory_data() -> None:
+    """Kill the data process if it still runs (a run that failed before
+    the memory phase) and remove its directory."""
+    proc = _MEMORY_DATA.pop("proc", None)
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    tmp = _MEMORY_DATA.pop("tmp", None)
+    if tmp is not None:
+        tmp.cleanup()
+
+
+def out_of_core_steps(card: str) -> dict:
+    """(a) Q1 and Q18 over SF10's lineitem, orders and customer, from
+    parquet cached in one session under 256 MiB, two collects each, rows
+    against numpy, every recorded gatherScatter and stringHash call
+    against its plain version; (b) Q18 split into 8 partitions under the
+    same budget, its shuffle pieces spilled and read back; Q1 at the
+    default budget."""
+    import torch
+    from spark_rapids_tpu_torch.benchmarks import oocore_run
+    from spark_rapids_tpu_torch.config import DEVICE_SPILL_BUDGET
+    from spark_rapids_tpu_torch.kernels import cuda_tier
+    from spark_rapids_tpu_torch.mem.catalog import PRIORITY_SHUFFLE_OUTPUT
+    out = {}
+    root, refs = wait_memory_data()
+    q1_names = ["l_returnflag", "l_linestatus", "sum_qty", "sum_base_price",
+                "avg_qty", "avg_price", "avg_disc", "count_order"]
+    checks = {
+        "q1": lambda label: (lambda rows: check_string_rows(
+            rows, q1_names, refs["q1"], label)),
+        "q18": lambda label: (lambda rows: check_sql_rows(
+            rows, refs["q18"], label))}
+    kept = {}
+    session = oocore_run.session(True, root, MEMORY_BUDGET, MEMORY_EXTRA,
+                                 tables=MEMORY_TABLES)
+    if session.runtime.catalog.device_budget != MEMORY_BUDGET:
+        raise AssertionError("the spill budget did not bind")
+    for name in ("q1", "q18"):
+        label = f"out of core {name.upper()} (SF{MEMORY_SF}, 256 MiB)"
+        check = checks[name](label)
+
+        def keep(rows, check=check, name=name):
+            check(rows)
+            kept[name] = rows
+
+        t0 = time.monotonic()
+        rec = run_checked(sql_query(session, name), keep, label,
+                          concats=True)
+        _require(rec["path"], label, ("gatherScatter", "stringHash"))
+        out[label] = dict(memory_line(
+            session, label, rec["path"]["collect2"]["wall_s"], card),
+            path=rec["path"], hash_err=rec["hash_err"],
+            step_s=time.monotonic() - t0)
+        del rec
+    for k in ("spilled_to_host", "spilled_to_disk", "unspilled"):
+        total = session.runtime.catalog.metrics[k]
+        if total <= 0:
+            raise AssertionError(f"out of core: {k} is {total}")
+    # (b) Q18 split into 8 partitions over the same cache and budget, one
+    # collect, every piece's and stringHash call held to its plain version
+    session.conf.set("spark.rapids.sql.tpu.exchange.collapseLocal", False)
+    session.conf.set("spark.sql.shuffle.partitions", 8)
+    label = f"out of core Q18 split into 8 (SF{MEMORY_SF}, 256 MiB)"
+    t0 = time.monotonic()
+    with PrioritySpills() as bands, \
+            Recorder("string_hash_columns") as hashes, \
+            Recorder("pack_column_windows") as windows:
+        _, wall = _collect(sql_query(session, "q18"), label, lambda rows: (
+            checks["q18"](label)(rows),
+            check_same_rows(rows, kept["q18"], f"{label} vs (a)")))
+        launches = {n: cuda_tier.launch_count(n) for n in cuda_tier.SOURCES}
+    for i, (origin, args) in enumerate(windows.calls):
+        check_windows(*args, f"{label}, piece {i} ({origin})")
+    hash_err = max((check_hashes(args[0], f"{label}, {origin}")
+                    for origin, args in hashes.calls), default=0)
+    pieces = session.last_metrics.get("shufflePieces", 0)
+    _require({"collect1": {"launches": launches},
+              "collect2": {"launches": launches}}, label,
+             ("gatherScatter", "stringHash"))
+    if len(windows.calls) < pieces or not pieces or \
+            not bands.spilled.get(PRIORITY_SHUFFLE_OUTPUT) or \
+            not bands.unspilled.get(PRIORITY_SHUFFLE_OUTPUT):
+        raise AssertionError(f"{label}: launches {launches}, {pieces} "
+                             f"pieces, {len(windows.calls)} checked, spills "
+                             f"by band {bands.spilled}, unspills "
+                             f"{bands.unspilled}")
+    print(f"{label}: {len(windows.calls)} pieces and {len(hashes.calls)} "
+          "stringHash calls == plain versions on their own inputs",
+          flush=True)
+    out[label] = dict(memory_line(session, label, wall, card),
+                      path={"collect2": {"wall_s": wall,
+                                         "launches": launches}},
+                      hash_err=hash_err, pieces=pieces,
+                      spilled_by_band=bands.spilled,
+                      unspilled_by_band=bands.unspilled,
+                      step_s=time.monotonic() - t0)
+    del windows, hashes
+    for name in MEMORY_TABLES:
+        session.table(name).unpersist()
+    del session
+    torch.cuda.empty_cache()
+    # Q1 at the default budget: nothing spills, for the cost of spilling
+    label = f"Q1 at the default budget (SF{MEMORY_SF})"
+    session = oocore_run.session(True, root, None, MEMORY_EXTRA,
+                                 tables=("lineitem",))
+    query = sql_query(session, "q1")
+    _collect(query, label, checks["q1"](label))
+    with PrioritySpills() as bands:
+        rows, wall = _collect(query, label, checks["q1"](label))
+    if session.runtime.catalog.metrics["spilled_to_host"] or bands.spilled:
+        raise AssertionError(f"{label} spilled under "
+                             f"{DEVICE_SPILL_BUDGET.get(session.conf)} "
+                             "bytes")
+    out[label] = memory_line(session, label, wall, card)
+    session.table("lineitem").unpersist()
+    del session
+    _MEMORY_DATA.pop("tmp").cleanup()
+    torch.cuda.empty_cache()
+    return out
+
+
+def oom_step(li_parts, check, card: str) -> dict:
+    """(c) A real allocator OOM: lineitem cached under the default budget;
+    the caching allocator's cap lowered (per-process memory fraction)
+    until Q1's working set no longer fits beside the cache.  The collect
+    must hit torch's OutOfMemoryError, spill the cache and replay on the
+    card with the rows right; the cap is put back after each try."""
+    import torch
+    from spark_rapids_tpu_torch.config import (
+        DEVICE_POOL_FRACTION, RapidsConf,
+    )
+    from spark_rapids_tpu_torch.dataframe import DataFrame
+    from spark_rapids_tpu_torch.plan.logical import InMemoryScan
+    from spark_rapids_tpu_torch.session import GpuSparkSession
+    device = torch.device("cuda", 0)
+    session = GpuSparkSession(RapidsConf(SQL_SETTINGS))
+    DataFrame(InMemoryScan(li_parts, li_parts[0].schema, 1), session) \
+        .cache().create_or_replace_temp_view("lineitem")
+    query = sql_query(session, "q1")
+    label = "real OOM Q1"
+    _collect(query, label, check)  # fills the cache
+    torch.cuda.empty_cache()
+    # the cap counts the caching allocator's reserved segments
+    base = torch.cuda.memory_reserved(device)
+    _, wall = _collect(query, label, check)
+    work = torch.cuda.max_memory_reserved(device) - base
+    cached = session.runtime.catalog.device_bytes_in_use()
+    total = torch.cuda.get_device_properties(device).total_memory
+    tries = []
+    rec = None
+    for share in (0.25, 0.35, 0.15, 0.45):
+        cap = base + work - int(share * cached)
+        torch.cuda.empty_cache()
+        torch.cuda.set_per_process_memory_fraction(cap / total, device)
+        try:
+            rows, wall = _collect(query, label, check)
+        finally:
+            torch.cuda.set_per_process_memory_fraction(
+                float(DEVICE_POOL_FRACTION.get(session.conf)), device)
+        m = dict(session.last_metrics)
+        tries.append({"cap": cap, "retry": m.get("retryCount", 0),
+                      "fallback": m.get("partitionFallbackCount", 0),
+                      "oom_spill_bytes": m.get("oomSpillBytes", 0),
+                      "collect_ms": wall * 1e3})
+        print(f"{label}: base {base}, working set {work}, cache {cached}, "
+              f"cap {cap}: {tries[-1]}", flush=True)
+        if m.get("retryCount", 0) >= 1 and \
+                not m.get("partitionFallbackCount"):
+            rec = memory_line(session, label, wall, card)
+            break
+    if rec is None or rec["oom_spill_bytes"] <= 0:
+        raise AssertionError(f"{label}: no cap gave an OOM that the spill "
+                             f"and a replay on the card answered: {tries}")
+    session.table("lineitem").unpersist()
+    del session
+    torch.cuda.empty_cache()
+    return dict(rec, tries=tries, base=base, working_set=work,
+                cache_bytes=cached)
+
+
+def encoded(parts):
+    """Host batches with every string column held as bytes and offsets,
+    so staging them is a copy (no encoding step a batch)."""
+    from spark_rapids_tpu_torch.batch import (
+        HostBatch, _string_host_to_buffers, string_column,
+    )
+    out = []
+    for hb in parts:
+        cols = []
+        for c in hb.columns:
+            if c.dtype.is_string and c.offsets is None:
+                offsets, raw = _string_host_to_buffers(c.values, c.validity)
+                c = string_column(c.dtype, raw, offsets, c.validity)
+            cols.append(c)
+        out.append(HostBatch(hb.schema, cols))
+    return out
+
+
+def fault_steps(lineitem, li_parts, check, card: str) -> dict:
+    """(d) One collect of Q1 a spec, each spec's counters exact, the rows
+    right every time (the timeout's over its own first batches)."""
+    import torch
+    from spark_rapids_tpu_torch.benchmarks import oocore_run
+    from spark_rapids_tpu_torch.config import RapidsConf
+    from spark_rapids_tpu_torch.dataframe import DataFrame
+    from spark_rapids_tpu_torch.plan.logical import InMemoryScan
+    from spark_rapids_tpu_torch.session import GpuSparkSession
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_faults_")
+    pq_dir = oocore_run.write_table(lineitem, os.path.join(tmp.name, "li"))
+
+    li_parts = encoded(li_parts)
+    head = li_parts[:TIMEOUT_BATCHES]
+    n_head = sum(hb.num_rows for hb in head)
+    head_ref = q1_reference({k: (t, np.asarray(v)[:n_head])
+                             for k, (t, v) in lineitem.items()})
+    names = ["l_returnflag", "l_linestatus", "sum_qty", "sum_base_price",
+             "avg_qty", "avg_price", "avg_disc", "count_order"]
+
+    def plain(extra=None, parts=li_parts):
+        s = GpuSparkSession(RapidsConf(dict(SQL_SETTINGS, **(extra or {}))))
+        DataFrame(InMemoryScan(parts, parts[0].schema, 1), s) \
+            .create_or_replace_temp_view("lineitem")
+        return s
+
+    def cached_small():
+        s = GpuSparkSession(RapidsConf(dict(
+            SQL_SETTINGS,
+            **{"spark.rapids.memory.tpu.spillBudgetBytes":
+               FAULT_SMALL_BUDGET})))
+        DataFrame(InMemoryScan(li_parts, li_parts[0].schema, 1), s) \
+            .cache().create_or_replace_temp_view("lineitem")
+        _collect(sql_query(s, "q1"), "faults: cache fill", check)
+        return s
+
+    def parquet():
+        s = GpuSparkSession(RapidsConf(SQL_SETTINGS))
+        s.read.parquet(pq_dir).create_or_replace_temp_view("lineitem")
+        return s
+
+    makers = {
+        "plain": plain, "cached-small": cached_small, "parquet": parquet,
+        "split": lambda: plain({
+            "spark.rapids.sql.tpu.exchange.collapseLocal": False,
+            "spark.sql.shuffle.partitions": 8}),
+        "timeout": lambda: plain({
+            "spark.rapids.sql.tpu.partition.timeoutSec": 0.5}, head)}
+    sessions = {}
+    out = {}
+    for spec, (want, source) in FAULT_SPECS.items():
+        if source not in sessions:
+            sessions[source] = makers[source]()
+        s = sessions[source]
+        s.conf.set("spark.rapids.sql.tpu.faults.spec", spec)
+        label = f"fault {spec} ({source})"
+        chk = check if source != "timeout" else (
+            lambda rows: check_string_rows(rows, names, head_ref, label))
+        try:
+            _, wall = _collect(sql_query(s, "q1"), label, chk)
+        finally:
+            s.conf.set("spark.rapids.sql.tpu.faults.spec", "")
+        got = tuple(s.last_metrics.get(k, 0) for k in FAULT_COUNTERS)
+        out[label] = dict(memory_line(s, label, wall, card),
+                          counters=dict(zip(FAULT_COUNTERS, got)))
+        if got != want:
+            raise AssertionError(f"{label}: counters "
+                                 f"{dict(zip(FAULT_COUNTERS, got))}, the "
+                                 f"spec implies "
+                                 f"{dict(zip(FAULT_COUNTERS, want))}")
+    for s in sessions.values():
+        for name in ("lineitem",):
+            s.table(name).unpersist()
+    del sessions
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sticky_child() -> int:
+    """(e), run as ``chip_smoke.py --sticky-child`` in a process of its
+    own: one device exec's per-batch step (the filter's) is swapped here
+    for one that first indexes out of bounds on the card, a device-side
+    assert that poisons the process's CUDA context.  Q1 over lineitem must
+    complete on the host operators with numpy's rows.  Prints its
+    figures as a JSON line and leaves with ``os._exit`` (no destructor
+    calls into the dead context)."""
+    import torch
+    from spark_rapids_tpu_torch.benchmarks import datagen
+    from spark_rapids_tpu_torch.config import RapidsConf
+    from spark_rapids_tpu_torch.dataframe import DataFrame
+    from spark_rapids_tpu_torch.interop import host_batches
+    from spark_rapids_tpu_torch.ops.gpu_exec import GpuFilterExec
+    from spark_rapids_tpu_torch.plan.logical import InMemoryScan
+    from spark_rapids_tpu_torch.session import GpuSparkSession
+    lineitem = datagen.gen_lineitem(FAULT_SF)
+    ref = q1_reference(lineitem)
+    parts = host_batches(lineitem, 1 << 20)
+    # read-ahead off: no side stream whose events a freed buffer would
+    # record into the dead context
+    session = GpuSparkSession(RapidsConf(dict(
+        SQL_SETTINGS, **{"spark.rapids.sql.tpu.stage.readAheadBatches": 0})))
+    DataFrame(InMemoryScan(parts, parts[0].schema, 1), session) \
+        .create_or_replace_temp_view("lineitem")
+    real = GpuFilterExec._run
+
+    def out_of_bounds(self, batch, *args, **kwargs):
+        # the read syncs, so the assert surfaces here as torch's error (a
+        # kernel launch that met it later would report it as its own
+        # failure, which the ladder never completes on the host)
+        x = torch.zeros(4, device=batch.device)
+        x[torch.full((1,), 1 << 20, dtype=torch.int64,
+                     device=batch.device)].sum().item()
+        return real(self, batch, *args, **kwargs)
+
+    GpuFilterExec._run = out_of_bounds
+    t0 = time.monotonic()
+    rows = session.sql(q1_text()).collect()
+    wall = time.monotonic() - t0
+    names = ["l_returnflag", "l_linestatus", "sum_qty", "sum_base_price",
+             "avg_qty", "avg_price", "avg_disc", "count_order"]
+    check_string_rows(rows, names, ref, "sticky child Q1")
+    from spark_rapids_tpu_torch.benchmarks.oocore_run import _checksum
+    print(json.dumps({"sticky_child": {
+        "rows": len(rows), "checksum": _checksum(rows), "wall_s": wall,
+        "poisoned": session.runtime.poisoned,
+        "counters": {k: session.last_metrics.get(k, 0)
+                     for k in FAULT_COUNTERS}}}), flush=True)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def q1_checksum(ref):
+    """``oocore_run._checksum`` of Q1's numpy answer: the row count and
+    the numeric columns' sums in the text's column order."""
+    cols = [ref["approx"]["sum_qty"], ref["approx"]["sum_base_price"],
+            ref["approx"]["avg_qty"], ref["approx"]["avg_price"],
+            ref["approx"]["avg_disc"], ref["exact"]["count_order"]]
+    return (len(ref["keys"][0]),
+            tuple(round(float(np.sum(c)), 2) for c in cols))
+
+
+def sticky_step(lineitem, card: str) -> dict:
+    """(e) the child's exit code, rows checksum and counters."""
+    from spark_rapids_tpu_torch.benchmarks.oocore_run import checksums_agree
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--sticky-child"], capture_output=True,
+                          text=True, timeout=300)
+    took = time.monotonic() - t0
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith('{"sticky_child"')]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(
+            f"sticky child: exit {proc.returncode}\n{proc.stdout[-4000:]}\n"
+            f"{proc.stderr[-4000:]}")
+    got = json.loads(lines[-1])["sticky_child"]
+    want = q1_checksum(q1_reference(lineitem))
+    counters = got["counters"]
+    if not checksums_agree(got["checksum"], want) or not got["poisoned"] or \
+            counters["deviceLostCount"] < 1 or \
+            counters["partitionFallbackCount"] < 1:
+        raise AssertionError(f"sticky child: {got}")
+    rec = dict(got, process_s=took, numpy_checksum=want)
+    print(f"memory [sticky CUDA error, child process]: {json.dumps(rec)}; "
+          f"card {card}", flush=True)
+    return rec
+
+
+def memory_phase(card: str) -> dict:
+    """(a)-(e) in turn; the fault guard off for (c) and (d), which
+    engage the ladder on purpose."""
+    from spark_rapids_tpu_torch.benchmarks import datagen
+    from spark_rapids_tpu_torch.interop import host_batches
+    t_phase = time.monotonic()
+    steps = out_of_core_steps(card)
+    lineitem = datagen.gen_lineitem(FAULT_SF)
+    ref = q1_reference(lineitem)
+    parts = host_batches(lineitem, 1 << 20)
+    names = ["l_returnflag", "l_linestatus", "sum_qty", "sum_base_price",
+             "avg_qty", "avg_price", "avg_disc", "count_order"]
+
+    def check(rows):
+        check_string_rows(rows, names, ref, "memory phase Q1")
+
+    _GUARD["on"] = False
+    try:
+        t0 = time.monotonic()
+        steps["real OOM Q1"] = oom_step(parts, check, card)
+        print(f"memory phase: real OOM step in {time.monotonic() - t0:.1f} "
+              "s", flush=True)
+        t0 = time.monotonic()
+        steps.update(fault_steps(lineitem, parts, check, card))
+        print(f"memory phase: {len(FAULT_SPECS)} injected specs in "
+              f"{time.monotonic() - t0:.1f} s", flush=True)
+    finally:
+        _GUARD["on"] = True
+    steps["sticky CUDA error"] = sticky_step(lineitem, card)
+    wall = time.monotonic() - t_phase
+    print(f"memory phase: {len(steps)} steps in {wall:.1f} s; card {card}",
+          flush=True)
+    return {"steps": steps, "wall_s": wall}
+
+
 def q1_text() -> str:
     from spark_rapids_tpu_torch.benchmarks.tpch_like import QUERIES
     return QUERIES["q1"]
@@ -3956,6 +4628,9 @@ def main() -> int:
     from spark_rapids_tpu_torch.plan.logical import InMemoryScan
     from spark_rapids_tpu_torch.session import GpuSparkSession
 
+    if "--memory-data" in sys.argv[1:]:
+        # the memory phase's data, in a process of its own
+        return memory_data(sys.argv[sys.argv.index("--memory-data") + 1])
     t_start = time.monotonic()
     card = card_line()
     device = torch.device("cuda", 0)
@@ -3970,6 +4645,21 @@ def main() -> int:
     print(f"build: {time.monotonic() - t0:.1f} s {built}", flush=True)
     for name in cuda_tier.SOURCES:  # every library built and loadable
         cuda_tier.load(name)
+    if "--sticky-child" in sys.argv[1:]:
+        # the memory phase's step (e), in a process of its own
+        return sticky_child()
+    install_fault_guard()
+    only = [a for a in sys.argv[1:] if a.endswith("-only")]
+    if not only or only == ["--memory-only"]:
+        # the memory phase's data is made while the earlier phases run
+        start_memory_data()
+    if "--memory-only" in sys.argv[1:]:
+        # a development run of the memory phase alone; it prints no
+        # result line
+        memory = memory_phase(card)
+        print(f"memory phase: {len(memory['steps'])} steps; wall "
+              f"{time.monotonic() - t_start:.1f} s", flush=True)
+        return 0
     if "--tpcds-only" in sys.argv[1:]:
         # a development run of the TPC-DS phase alone; it prints no
         # result line
@@ -4090,7 +4780,8 @@ def main() -> int:
     _require(q1, "Q1", ["gatherScatter", "stringHash"])
     # gatherScatter over string buffers: a concat of the cached lineitem
     # batches, every column (the string ones among them)
-    li_args = batch_columns(li_df.plan.holder.partitions[0])
+    li_args = batch_columns([h.get() for h in
+                             li_df.plan.holder.partitions[0]])
     check_columns(*li_args, "lineitem batches")
     strings_shape = _concat_numbers(*li_args, device, launches=2)
     strings_shape["shape"] = (
@@ -4501,6 +5192,15 @@ def main() -> int:
           f"GPU, every stringHash, contains and gatherScatter call == its "
           f"plain version, in {time.monotonic() - t0:.1f} s", flush=True)
 
+    # ---- main paths: the spill catalog, the OOM retry, the fault ladder --
+    memory = memory_phase(card)
+    print(f"memory phase: SF{MEMORY_SF} Q1 and Q18 out of core, the split "
+          f"Q18's pieces spilled and read back, a real OOM retried, "
+          f"{len(FAULT_SPECS)} injected specs recovered, the sticky CUDA "
+          f"error completed on the host, in {memory['wall_s']:.1f} s; "
+          f"{_GUARD['collects']} collects of the other phases with every "
+          f"fault counter at 0", flush=True)
+
     # ---- string kernels: matrix and timings at the main paths' shapes ----
     p_type = cached_column(p_df, "p_type")
     p_brand = cached_column(p_df, "p_brand")
@@ -4570,6 +5270,8 @@ def main() -> int:
                   for label, r in etl.items()})
     paths.update({label: r["path"]["collect2"]["launches"]
                   for label, r in exchange["runs"].items()})
+    paths.update({label: r["path"]["collect2"]["launches"]
+                  for label, r in memory["steps"].items() if "path" in r})
     print(f"test mode: {len(ON_GPU_CHECKED)} earlier paths plan wholly on "
           f"the GPU with spark.rapids.sql.test.enabled", flush=True)
 
@@ -4625,7 +5327,8 @@ def main() -> int:
                                            in exchange["runs"].items()},
                                  "methods": exchange["methods"],
                                  "wall_s": exchange["wall_s"],
-                                 "peak_bytes": exchange["peak_bytes"]}},
+                                 "peak_bytes": exchange["peak_bytes"]},
+                             "memory": memory},
                "test_mode_paths": ON_GPU_CHECKED,
                "q3_overflow_reruns": q3_fallbacks,
                "sql_metrics": sql_metrics, "card": card}
@@ -4640,4 +5343,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        stop_memory_data()
+    sys.exit(rc)

@@ -465,6 +465,8 @@ def host_column_to_device(col: HostColumn, capacity: int,
 
 def host_to_device(batch: HostBatch, device,
                    capacity: int = None) -> ColumnBatch:
+    from spark_rapids_tpu_torch.fault import inject
+    inject.maybe_fire("h2d")
     device = torch.device(device)
     cap = capacity if capacity is not None else \
         round_up_capacity(batch.num_rows)
@@ -525,12 +527,17 @@ def _start_to_host(t: torch.Tensor) -> torch.Tensor:
 
 
 def device_to_host_many(batches: Sequence[ColumnBatch],
-                        keep_offsets: bool = False) -> List[HostBatch]:
-    """Bring batches back to numpy: one sizes sync, then every live buffer
+                        keep_offsets: bool = False,
+                        sizes=None) -> List[HostBatch]:
+    """Bring batches back to numpy: one sizes sync (unless ``sizes``, as
+    :func:`host_sizes` gives them, are passed), then every live buffer
     copy enqueued before ONE synchronize.  A string column comes back one
     ``str`` a row, or, with ``keep_offsets``, as its bytes and offsets
     (no Python step a row)."""
-    sizes = host_sizes(batches)
+    from spark_rapids_tpu_torch.fault import inject
+    inject.maybe_fire("d2h")
+    if sizes is None:
+        sizes = host_sizes(batches)
     pending = []
     for b, (n, totals) in zip(batches, sizes):
         bufs, si = [], 0

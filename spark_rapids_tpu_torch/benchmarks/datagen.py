@@ -214,9 +214,31 @@ def to_arrow(data: Dict):
         elif dtype == T.TIMESTAMP:
             cols[name] = pa.array(values.astype(np.int64), pa.int64()).cast(
                 sql_type_to_arrow(dtype))
+        elif dtype == T.STRING and values.dtype.kind == "U":
+            cols[name] = _ascii_string_array(values)
         else:
             cols[name] = pa.array(values, sql_type_to_arrow(dtype))
     return pa.table(cols)
+
+
+def _ascii_string_array(values: np.ndarray):
+    """A numpy str array as a pyarrow utf8 array, built from the array's
+    code points without a Python step a row when every character is
+    ASCII (one byte each in UTF-8) and none is NUL (``pa.array`` ends a
+    string at one); else by ``pa.array``."""
+    import pyarrow as pa
+    width = values.dtype.itemsize // 4
+    codes = values.view(np.uint32).reshape(len(values), width)
+    if width == 0 or len(values) == 0 or codes.max() >= 128:
+        return pa.array(values, pa.string())
+    lengths = np.char.str_len(values)
+    data = codes[np.arange(width) < lengths[:, None]].astype(np.uint8)
+    if not data.all():
+        return pa.array(values, pa.string())
+    offsets = np.zeros(len(values) + 1, dtype=np.int32)
+    np.cumsum(lengths, out=offsets[1:])
+    return pa.StringArray.from_buffers(len(values), pa.py_buffer(offsets),
+                                       pa.py_buffer(data))
 
 
 def write_parquet(data: Dict, path: str, row_group_size=None) -> str:

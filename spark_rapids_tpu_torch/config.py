@@ -267,6 +267,12 @@ SCAN_PUSHDOWN_ENABLED = conf_bool(
     "Push filter conjuncts into file scans: parquet row groups are "
     "skipped on min/max statistics and Hive key=value partition "
     "directories are pruned before any decode.")
+COLUMN_PRUNING_ENABLED = conf_bool(
+    "spark.rapids.sql.tpu.columnPruning.enabled", False,
+    "Project a join's inputs down to the columns the plan above reads, "
+    "so a join does not carry every column of both sides: an out-of-core "
+    "query then holds its working set, not its tables' widths, on the "
+    "device.")
 SCAN_V2_ENABLED = conf_bool(
     "spark.rapids.sql.tpu.scan.v2.enabled", True,
     "Parallel scan pipeline (io/scan_v2): sub-file decode parallelism "
@@ -314,3 +320,69 @@ SCAN_LATE_MAT_ENABLED = conf_bool(
     "conjuncts, and decode the remaining projected columns only when "
     "the chunk has surviving rows; chunks with zero survivors are "
     "skipped entirely (the Filter above re-applies the predicate).")
+
+# ---- memory and faults (mem/catalog.py, fault/) ----
+DEVICE_SPILL_BUDGET = conf_bytes(
+    "spark.rapids.memory.tpu.spillBudgetBytes", 8 << 30,
+    "Device bytes the catalog lets spillable batches occupy before "
+    "spilling lowest-priority ones to host.")
+HOST_SPILL_STORAGE_SIZE = conf_bytes(
+    "spark.rapids.memory.host.spillStorageSize", 1 << 30,
+    "Bytes of host memory used to cache spilled device data before "
+    "overflowing to disk.")
+DEVICE_POOL_FRACTION = conf_float(
+    "spark.rapids.memory.tpu.allocFraction", 0.9,
+    "Fraction of the device's memory the caching allocator may hold "
+    "(torch.cuda.set_per_process_memory_fraction on the session's "
+    "device); past it an allocation raises torch.OutOfMemoryError, which "
+    "the OOM retry answers by spilling.")
+SHUFFLE_COMPRESSION_CODEC = conf_str(
+    "spark.rapids.shuffle.compression.codec", "copy",
+    "Codec for spilled bytes on disk: copy (none) or zlib.")
+SPILL_ASYNC_ENABLED = conf_bool(
+    "spark.rapids.sql.tpu.spill.async.enabled", True,
+    "Run budget-triggered spills on a bounded background writer pool: "
+    "reserve() moves victims to the SPILLING tier under the catalog lock "
+    "and returns at once; the device-to-host copy (on the catalog's own "
+    "stream) and any compress+disk write overlap compute.  A get() racing "
+    "an unstarted spill cancels it; one racing a started spill joins that "
+    "handle's completion.  false: every tier move completes before the "
+    "triggering call returns.  OOM-triggered spills are always "
+    "synchronous.")
+SPILL_WRITER_THREADS = conf_int(
+    "spark.rapids.sql.tpu.spill.writer.threads", 2,
+    "Background writer threads draining the async spill queue.")
+SPILL_CHUNK_BYTES = conf_bytes(
+    "spark.rapids.sql.tpu.spill.chunkBytes", 8 << 20,
+    "Frame size for disk spill files: the serialized batch streams "
+    "through the codec in chunks of this many bytes.  <=0 writes one "
+    "whole-batch frame.")
+RETRY_MAX_ATTEMPTS = conf_int(
+    "spark.rapids.sql.tpu.retry.maxAttempts", 3,
+    "Total attempts (first try included) the retry policy allows a "
+    "retryable operation: OOM spill-retries and device-lost partition "
+    "replays share this bound.  Exhausted device-class errors degrade to "
+    "the per-partition host fallback (fallback.onDeviceError).")
+RETRY_BACKOFF_MS = conf_float(
+    "spark.rapids.sql.tpu.retry.backoffMs", 50.0,
+    "Base backoff milliseconds between retry attempts: backoffMs * "
+    "2^(attempt-1), no jitter, so faulted runs replay identically.")
+PARTITION_TIMEOUT_SEC = conf_float(
+    "spark.rapids.sql.tpu.partition.timeoutSec", 0.0,
+    "Deadline in seconds for driving one partition.  On expiry a watchdog "
+    "thread raises a classified PartitionTimeout into the driving thread, "
+    "which then enters device-lost recovery.  0 disables.")
+FALLBACK_ON_DEVICE_ERROR = conf_bool(
+    "spark.rapids.sql.tpu.fallback.onDeviceError", True,
+    "After retry.maxAttempts device replays of a failed partition (device "
+    "lost, wedged, or an OOM that spilling cannot fix), run just that "
+    "partition through the host operators so the query completes with "
+    "the host engine's rows.  false surfaces the raw device error.")
+FAULTS_SPEC = conf_str(
+    "spark.rapids.sql.tpu.faults.spec", "",
+    "Deterministic fault injection spec, e.g. \"dispatch:oom@3;"
+    "d2h:device_lost@1;spill:slow=200ms@2\": at each named site (dispatch, "
+    "h2d, d2h, spill, unspill, exchange, scan, mesh) the Nth call raises "
+    "the named error class (or stalls, for slow=<dur>); @N+ fires from "
+    "the Nth call onward.  Call counters reset per query.  Empty disables "
+    "injection.")

@@ -19,9 +19,13 @@ surviving row skips the decode of every other column.  The Filter above
 the scan re-applies the predicate, so the skip is chunk-granular and
 exact.
 
+The ``scan`` fault site fires as each chunk's decode is submitted, on the
+thread that drives the scan (the consumer's, or the staging read-ahead
+worker's, whose error the consumer raises).
+
 Not ported: the JAX package's dictionary-encoded string corridor (the
-port's scan always hands over plain strings, as bytes and offsets), the
-scan's fault-injection hook and its spans and time series.
+port's scan always hands over plain strings, as bytes and offsets) and
+the scan's spans and time series.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from spark_rapids_tpu_torch.config import (
     SCAN_READAHEAD_ADAPTIVE, SCAN_READAHEAD_DEPTH, SCAN_READAHEAD_MAX_DEPTH,
     RapidsConf,
 )
+from spark_rapids_tpu_torch.fault import inject
 from spark_rapids_tpu_torch.io.arrow_convert import arrow_to_host_batch
 from spark_rapids_tpu_torch.io.decode_pool import (
     cached_reader, decode_pool_utilization, get_decode_pool,
@@ -418,6 +423,7 @@ class FileScanV2Exec(CpuFileScanExec):
 
             def results():
                 for path, tasks in self._chunk_tasks(files):
+                    inject.maybe_fire("scan")
                     pending.append((path, [pool.submit(t) for t in tasks]))
                     harvest()
                     while len(pending) >= stats["depth"]:

@@ -51,7 +51,7 @@ def write_dataframe(df, fmt: str, path: str, mode: str = "error",
     directories.  Returns {num_files, num_rows, num_bytes, partitions}."""
     from spark_rapids_tpu_torch.ops.cpu_exec import _concat
     from spark_rapids_tpu_torch.plan.physical import (
-        DeviceToHostExec, ExecContext,
+        DeviceToHostExec, ExecContext, iter_partitions,
     )
     if fmt not in _EXT:
         raise ValueError(fmt)
@@ -62,23 +62,32 @@ def write_dataframe(df, fmt: str, path: str, mode: str = "error",
     phys = session.plan_physical(df.plan)
     if phys.is_gpu:
         phys = DeviceToHostExec(phys)
-    ctx = ExecContext(session.conf, session.device, session._shuffle_mesh())
+    # the session's runtime, so the write's spillable batches count
+    # against the session's budget, and a failed partition goes through
+    # the fault ladder as a collect's does
+    ctx = ExecContext(session.conf, session.device, session._shuffle_mesh(),
+                      runtime=session.runtime)
+    ctx.logical_plan = df.plan
     part_dirs = set()
-    with session.runtime.semaphore:
-        for pi, part in enumerate(phys.partitions(ctx)):
-            batches = [hb for hb in part if hb.num_rows]
-            if not batches:
-                continue
-            hb = _concat(batches, phys.output_schema)
-            if partition_by:
-                _write_partitioned(hb, fmt, path, pi, partition_by, stats,
-                                   part_dirs)
-                continue
-            fname = os.path.join(path, f"part-{pi:05d}.{_EXT[fmt]}")
-            _write_table(host_batch_to_arrow(hb), fmt, fname)
-            stats["num_files"] += 1
-            stats["num_rows"] += hb.num_rows
-            stats["num_bytes"] += os.path.getsize(fname)
+    try:
+        with session.runtime.semaphore, \
+                session.runtime.catalog.query_budget():
+            for pi, part in enumerate(iter_partitions(phys, ctx)):
+                batches = [hb for hb in part if hb.num_rows]
+                if not batches:
+                    continue
+                hb = _concat(batches, phys.output_schema)
+                if partition_by:
+                    _write_partitioned(hb, fmt, path, pi, partition_by,
+                                       stats, part_dirs)
+                    continue
+                fname = os.path.join(path, f"part-{pi:05d}.{_EXT[fmt]}")
+                _write_table(host_batch_to_arrow(hb), fmt, fname)
+                stats["num_files"] += 1
+                stats["num_rows"] += hb.num_rows
+                stats["num_bytes"] += os.path.getsize(fname)
+    finally:
+        ctx.close_deferred()
     stats["partitions"] = len(part_dirs)
     if stats["num_files"] == 0 and fmt == "parquet" and not partition_by:
         # an empty file still carries the schema

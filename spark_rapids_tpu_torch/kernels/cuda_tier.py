@@ -17,7 +17,11 @@ Contract of every wrapper here:
 * each call that launches adds to :func:`launch_count` for the kernel's
   name, so a run can show that its path went through the kernel: one per
   launch for gatherScatter, stringHash and strings, one per call for
-  joinProbe (whose call is two launches).
+  joinProbe (whose call is two launches);
+* a launch that returns a CUDA error raises :class:`KernelLaunchError` with
+  the code, which the fault ladder classifies (an allocation failure is
+  retried after a spill; any other code is raised to the caller, never
+  replayed or completed on the host).
 
 Kernels: ``gatherScatter``, the k-way segment pack (:func:`pack_columns`:
 every buffer of ``layout.concat_kway`` in one launch; :func:`pack_segments`:
@@ -43,6 +47,8 @@ from typing import Dict, Sequence
 
 import numpy as np
 import torch
+
+from spark_rapids_tpu_torch.fault.errors import KernelLaunchError
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -342,7 +348,7 @@ def _run_pack(desc, device: torch.device) -> None:
     err = _launch(device, lib.srt_pack_multi, address, words,
                   ctypes.byref(launches))
     if err != 0:
-        raise RuntimeError(f"gatherScatter launch failed: CUDA error {err}")
+        raise KernelLaunchError("gatherScatter", err)
     _launches["gatherScatter"] += launches.value
 
 
@@ -783,10 +789,13 @@ def _checked_cuda(fn: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{fn} inputs must be contiguous")
 
 
-def rows_of_positions(offsets: torch.Tensor, nbytes: int) -> torch.Tensor:
-    """int32[nbytes]: the row owning each byte position (cap for bytes
-    past ``offsets[-1]``), one ``searchsorted`` over the offsets."""
-    pos = torch.arange(nbytes, dtype=torch.int32, device=offsets.device)
+def rows_of_positions(offsets: torch.Tensor, nbytes: int,
+                      start: int = 0) -> torch.Tensor:
+    """int32[nbytes]: the row owning each byte position from ``start``
+    on (cap for bytes past ``offsets[-1]``), one ``searchsorted`` over the
+    offsets."""
+    pos = torch.arange(start, start + nbytes, dtype=torch.int32,
+                       device=offsets.device)
     return torch.searchsorted(offsets[1:].contiguous(), pos, right=True,
                               out_int32=True)
 
@@ -812,13 +821,20 @@ def _pow_table(base: int, n: int, device) -> torch.Tensor:
     return out
 
 
+#: bytes the plain string hash weighs at once, so its int64 temporaries
+#: stay near 2 GB whatever the column's size
+HASH_BYTES_CHUNK = 1 << 26
+
+
 def string_hash_rows_reference(data: torch.Tensor, offsets: torch.Tensor
                                ) -> tuple:
     """Plain PyTorch dual row hashes: the port of the JAX package's XLA
     formulation in ``exprs/strings.py`` ``string_hash2``.  Each byte
     contributes ``byte * base^(end-1-pos)`` to its row (a weighted
-    segment sum), then the row's length times ``0x9E3779B9`` is added,
-    all mod 2^32.  Returns (h1, h2), int64[cap] holding u32 values."""
+    segment sum, ``HASH_BYTES_CHUNK`` bytes at a time; bytes past
+    ``offsets[-1]`` belong to no row), then the row's length times
+    ``0x9E3779B9`` is added, all mod 2^32.  Returns (h1, h2), int64[cap]
+    holding u32 values."""
     cap = int(offsets.numel()) - 1
     nbytes = int(data.numel())
     device = data.device
@@ -826,19 +842,22 @@ def string_hash_rows_reference(data: torch.Tensor, offsets: torch.Tensor
     mix = _mul32(lens, HASH_GOLDEN)
     if cap < 1 or nbytes < 1:
         return mix, mix.clone()
-    rows_c = rows_of_positions(offsets, nbytes).clamp(0, cap - 1).long()
-    ends = offsets[rows_c + 1].long()
-    pos = torch.arange(nbytes, dtype=torch.int64, device=device)
-    in_data = pos < offsets[-1].long()
-    exp = (ends - 1 - pos).clamp(0, nbytes)
-    byte = torch.where(in_data, data.long(), 0)
-    out = []
-    for base in HASH_BASES:
-        contrib = (byte * _pow_table(base, nbytes, device)[exp]) & _M32
-        h = torch.zeros(cap, dtype=torch.int64, device=device)
-        h.index_add_(0, rows_c, contrib)
-        out.append((h + mix) & _M32)
-    return out[0], out[1]
+    live = max(min(nbytes, int(offsets[-1])), 0)
+    # a byte's exponent is under its row's length
+    top = max(min(int((offsets[1:] - offsets[:-1]).max()), live), 0)
+    tables = [_pow_table(base, top, device) for base in HASH_BASES]
+    hs = [torch.zeros(cap, dtype=torch.int64, device=device)
+          for _ in HASH_BASES]
+    for b0 in range(0, live, HASH_BYTES_CHUNK):
+        n = min(HASH_BYTES_CHUNK, live - b0)
+        rows_c = rows_of_positions(offsets, n, start=b0).clamp(
+            0, cap - 1).long()
+        pos = torch.arange(b0, b0 + n, dtype=torch.int64, device=device)
+        exp = (offsets[rows_c + 1].long() - 1 - pos).clamp(0, top)
+        byte = data[b0:b0 + n].long()
+        for h, table in zip(hs, tables):
+            h.index_add_(0, rows_c, (byte * table[exp]) & _M32)
+    return (hs[0] + mix) & _M32, (hs[1] + mix) & _M32
 
 
 def string_hash_columns_reference(columns) -> list:
@@ -885,7 +904,7 @@ def string_hash_columns(columns) -> list:
                   table.buffer_info()[0], len(table), HASH_BASES[0],
                   HASH_BASES[1], HASH_GOLDEN, ctypes.byref(launches))
     if err != 0:
-        raise RuntimeError(f"stringHash launch failed: CUDA error {err}")
+        raise KernelLaunchError("stringHash", err)
     _launches["stringHash"] += launches.value
     return hashes
 
@@ -969,8 +988,7 @@ def rows_with_match(data: torch.Tensor, offsets: torch.Tensor,
                   _device_needle(needle, device).data_ptr(), len(needle),
                   out.data_ptr())
     if err != 0:
-        raise RuntimeError(f"strings (contains) launch failed: CUDA error "
-                           f"{err}")
+        raise KernelLaunchError("strings (contains)", err)
     _launches["strings"] += 1
     return out
 
@@ -1075,6 +1093,6 @@ def probe_join(l_h1, l_mask, r_sorted, perm, a_words, a_valid, b_words,
                   b_valid.data_ptr(), int(a_words.shape[0]), pair_cap,
                   ws.data_ptr())
     if err != 0:
-        raise RuntimeError(f"joinProbe launch failed: CUDA error {err}")
+        raise KernelLaunchError("joinProbe", err)
     _launches["joinProbe"] += 1
     return probe_row, build_row, match, total

@@ -27,6 +27,12 @@ def _count(n, device) -> torch.Tensor:
     return device_scalar(n, device)
 
 
+#: output bytes a string gather resolves at once: its index temporaries
+#: take ~25 bytes a byte, so a wide column gathered over tens of millions
+#: of rows (a join's output) stays within ~1.7 GB of scratch
+GATHER_BYTES_CHUNK = 1 << 26
+
+
 def _gather_string_column(col: DeviceColumn, idx: torch.Tensor,
                           live: torch.Tensor, out_cap: int,
                           out_byte_cap: int) -> DeviceColumn:
@@ -34,7 +40,8 @@ def _gather_string_column(col: DeviceColumn, idx: torch.Tensor,
     already clamped, 0 on dead rows).  New offsets come from one cumsum of
     the gathered lengths (0 on dead rows, so they stay constant past the
     live rows); every output byte finds its row with one ``searchsorted``
-    over the new offsets and copies its source byte.  Bytes past the new
+    over the new offsets and copies its source byte, at most
+    ``GATHER_BYTES_CHUNK`` output bytes at a time.  Bytes past the new
     total are 0, as in the JAX package, so raw buffers compare equal."""
     dev = col.data.device
     src_lens = col.offsets[1:] - col.offsets[:-1]
@@ -42,14 +49,25 @@ def _gather_string_column(col: DeviceColumn, idx: torch.Tensor,
     new_offsets = torch.cat([
         torch.zeros(1, dtype=torch.int32, device=dev),
         torch.cumsum(new_lens, 0, dtype=torch.int32)])
-    pos = torch.arange(out_byte_cap, dtype=torch.int32, device=dev)
-    rows = cuda_tier.rows_of_positions(new_offsets, out_byte_cap)
-    rows_c = rows.clamp(0, out_cap - 1).long()
-    pos_in_row = pos - new_offsets[rows_c]
-    src_pos = col.offsets[idx[rows_c]] + pos_in_row
-    src_pos = src_pos.clamp(0, int(col.data.shape[0]) - 1).long()
-    in_range = pos < new_offsets[-1]
-    data = torch.where(in_range, col.data[src_pos], 0).to(col.data.dtype)
+    last = int(col.data.shape[0]) - 1
+
+    def byte_range(b0: int, n: int) -> torch.Tensor:
+        pos = torch.arange(b0, b0 + n, dtype=torch.int32, device=dev)
+        rows = cuda_tier.rows_of_positions(new_offsets, n, start=b0)
+        rows_c = rows.clamp(0, out_cap - 1).long()
+        pos_in_row = pos - new_offsets[rows_c]
+        src_pos = col.offsets[idx[rows_c]] + pos_in_row
+        src_pos = src_pos.clamp(0, last).long()
+        in_range = pos < new_offsets[-1]
+        return torch.where(in_range, col.data[src_pos], 0).to(col.data.dtype)
+
+    if out_byte_cap <= GATHER_BYTES_CHUNK:
+        data = byte_range(0, out_byte_cap)
+    else:
+        data = torch.empty(out_byte_cap, dtype=col.data.dtype, device=dev)
+        for b0 in range(0, out_byte_cap, GATHER_BYTES_CHUNK):
+            n = min(GATHER_BYTES_CHUNK, out_byte_cap - b0)
+            data[b0:b0 + n] = byte_range(b0, n)
     validity = col.validity[idx] & live
     return DeviceColumn(col.dtype, data, validity, new_offsets)
 

@@ -57,12 +57,15 @@ from spark_rapids_tpu_torch.kernels.hashagg import (
 from spark_rapids_tpu_torch.kernels.join import (
     hash_join, hash_join_static, nested_loop_join, nested_loop_join_streamed,
 )
+from spark_rapids_tpu_torch.mem.catalog import device_batch_bytes
 from spark_rapids_tpu_torch.kernels.layout import (
     compact, concat_kway, gather_rows, row_slices, take_head,
 )
 from spark_rapids_tpu_torch.kernels.sort import sort_batch
 from spark_rapids_tpu_torch.plan import adaptive
-from spark_rapids_tpu_torch.plan.physical import GpuExec, PhysicalOp
+from spark_rapids_tpu_torch.plan.physical import (
+    GpuExec, PhysicalOp, prefetch_spillables,
+)
 
 
 def shrink_to_fit(batch: ColumnBatch, sizes: Optional[tuple] = None
@@ -101,6 +104,16 @@ def _concat_all(batches: List[ColumnBatch], schema: T.Schema,
     byte_caps = [round_up_capacity(max(sum(s[1][j] for s in sizes), 16),
                                    minimum=16) for j in range(n_str)]
     return concat_kway(batches, cap, out_byte_caps=byte_caps or None)
+
+
+def _reserve_for(ctx, batches: List[ColumnBatch], factor: int = 2) -> None:
+    """Budget headroom before a large concatenation: the spill catalog
+    spills lower-priority handles so the input and the output fit (the
+    JAX package's ``_reserve_for``).  Sizes from the buffers' shapes, no
+    sync."""
+    if batches:
+        ctx.catalog.reserve(factor * sum(device_batch_bytes(b)
+                                         for b in batches))
 
 
 def concat_static(batches: List[ColumnBatch], schema: T.Schema
@@ -318,7 +331,10 @@ class GpuSortExec(GpuExec):
 
     def partitions(self, ctx):
         def gen(part):
-            merged = _concat_all(list(part), self.output_schema)
+            batches = list(part)
+            _reserve_for(ctx, batches)
+            merged = _concat_all(batches, self.output_schema)
+            del batches
             if merged is None:
                 return
             ectx = GpuEvalCtx(merged)
@@ -494,7 +510,10 @@ class GpuHashAggregateExec(GpuExec):
         child = self.children[0]
 
         def merge(part):
-            merged = _concat_all(list(part), child.output_schema)
+            batches = list(part)
+            _reserve_for(ctx, batches)
+            merged = _concat_all(batches, child.output_schema)
+            del batches
             if merged is None and self.keyless:
                 # no input at all: still the one row of SQL defaults
                 merged = empty_device_batch(child.output_schema, ctx.device)
@@ -632,8 +651,11 @@ class GpuGenerateExec(GpuExec):
 
 
 class GpuCachedScanExec(GpuExec):
-    """Reads (and on first run fills) a CacheHolder of device batches,
-    each right-sized once as it is cached."""
+    """Reads (and on first run fills) a CacheHolder of spill-catalog
+    handles: each batch is right-sized once and registered at
+    ``PRIORITY_INPUT`` as it comes, so the cache can be larger than the
+    device budget; a read drives the handles with one unspill in flight
+    ahead of the consumer (``prefetch_spillables``)."""
 
     def __init__(self, holder, child: Optional[PhysicalOp],
                  schema: T.Schema):
@@ -643,20 +665,35 @@ class GpuCachedScanExec(GpuExec):
     def describe(self):
         return "GpuCachedScan"
 
+    def num_partitions(self, ctx):
+        if self.holder.is_materialized:
+            return len(self.holder.partitions)
+        return self.children[0].num_partitions(ctx)
+
+    def _materialize(self, ctx):
+        catalog = ctx.catalog
+        parts = []
+        try:
+            for p in self.children[0].partitions(ctx):
+                handles = []
+                parts.append(handles)
+                for b in p:
+                    handles.append(catalog.register(shrink_to_fit(b)))
+        except BaseException:
+            for h in (h for hs in parts for h in hs):
+                h.close()
+            raise
+        self.holder.partitions = parts
+
     def partitions(self, ctx):
         if not self.holder.is_materialized:
-            parts = []
-            for p in self.children[0].partitions(ctx):
-                batches = list(p)
-                parts.append([shrink_to_fit(b, s) for b, s in
-                              zip(batches, host_sizes(batches))])
-            self.holder.partitions = parts
+            self._materialize(ctx)
         for part in self.holder.partitions:
-            for b in part:
-                if b.device != ctx.device:
-                    raise ValueError(f"cached batches live on {b.device}, "
+            for h in part:
+                if h.device != ctx.device:
+                    raise ValueError(f"cached batches live on {h.device}, "
                                      f"the query runs on {ctx.device}")
-        return [iter(p) for p in self.holder.partitions]
+        return [prefetch_spillables(p) for p in self.holder.partitions]
 
 
 class GpuLocalLimitExec(GpuExec):
@@ -808,6 +845,7 @@ class GpuShuffledHashJoinExec(_HashJoinBase):
         fused = self._fusable(ctx)
 
         def host(lbs, rbs):
+            _reserve_for(ctx, lbs + rbs)
             out = self._join_pair(_concat_all(lbs, self.left_schema),
                                   _concat_all(rbs, self.right_schema),
                                   ctx.device)
@@ -884,13 +922,23 @@ class GpuShuffledHashJoinExec(_HashJoinBase):
 
     def _broadcast_partitions(self, ctx, side, build_parts, stream_parts):
         """Join every stream partition against the build side,
-        concatenated once per query (kept on the context)."""
+        concatenated once per query and runtime generation and registered
+        in the spill catalog (fetched again per stream partition)."""
         key = (self.op_id, side)
-        if key not in ctx.held:
-            ctx.held[key] = _concat_all(
-                [b for p in build_parts for b in p],
-                self.right_schema if side == "right" else self.left_schema)
-        build = ctx.held[key]
+        held = ctx.held.get(key)
+        if held is None or held[0] != ctx.generation:
+            bbs = [b for p in build_parts for b in p]
+            _reserve_for(ctx, bbs)
+            bc = _concat_all(bbs, self.right_schema if side == "right"
+                             else self.left_schema)
+            del bbs
+            bh = None
+            if bc is not None:
+                bh = ctx.catalog.register(bc)
+                ctx.defer_close(bh)
+                del bc
+            held = ctx.held[key] = (ctx.generation, bh)
+        bh = held[1]
         ctx.metric(self.op_id, "replannedBroadcast").add(1)
         stream_schema = self.left_schema if side == "right" \
             else self.right_schema
@@ -899,7 +947,9 @@ class GpuShuffledHashJoinExec(_HashJoinBase):
             sbs = list(part)
             if not sbs:
                 return
+            _reserve_for(ctx, sbs)
             sb = _concat_all(sbs, stream_schema)
+            build = bh.get() if bh is not None else None
             pair = (sb, build) if side == "right" else (build, sb)
             out = self._join_pair(*pair, ctx.device)
             if out is not None:
@@ -959,8 +1009,9 @@ class GpuBroadcastHashJoinExec(_HashJoinBase):
     an active mesh when the join has no residual condition, the build
     subtree holds no exchange and it shares no node with the stream
     subtree: then each stream partition is joined whole, with static
-    sizing.  Not ported: registering the build side in
-    a spill catalog."""
+    sizing.  The host path's build side, concatenated once, is registered
+    in the spill catalog and fetched again per stream batch, so a spilled
+    build side frees device memory between batches."""
 
     _FUSABLE_HOWS = {"right": ("inner", "left", "left_semi", "left_anti"),
                      "left": ("inner", "right")}
@@ -976,23 +1027,41 @@ class GpuBroadcastHashJoinExec(_HashJoinBase):
         super().__init__([stream, broadcast], left_keys, right_keys, how,
                          condition, schema, lsch, rsch)
         self.broadcast_side = broadcast_side
-        self._bc_cache = None  # (weakref(ctx), build batches)
+        self._bc_cache = None  # (weakref(ctx), generation, build side)
 
     def describe(self):
         return (f"GpuBroadcastHashJoin({self.how}, "
                 f"bc={self.broadcast_side})")
 
     def _build_side(self, ctx) -> dict:
-        """The build side, materialized once per query: its batches, and
-        (on first use by the host path) their concatenation."""
+        """The build side, materialized once per query and runtime
+        generation: its batches, and (on first use by the host path)
+        their concatenation's spill-catalog handle."""
         import weakref
         cached = self._bc_cache
-        if cached is not None and cached[0]() is ctx:
-            return cached[1]
+        if cached is not None and cached[0]() is ctx and \
+                cached[1] == ctx.generation:
+            return cached[2]
         build = {"batches": [b for p in self.children[1].partitions(ctx)
                              for b in p]}
-        self._bc_cache = (weakref.ref(ctx), build)
+        self._bc_cache = (weakref.ref(ctx), ctx.generation, build)
         return build
+
+    def _build_handle(self, ctx, build: dict, keep_batches: bool):
+        """The build side's concatenation registered in the catalog once
+        (closed when the query ends); the batches go unless the fused path
+        still wants them."""
+        if "handle" not in build:
+            batches = build["batches"]
+            _reserve_for(ctx, batches)
+            bc = _concat_all(batches, self.children[1].output_schema)
+            build["handle"] = None
+            if bc is not None:
+                build["handle"] = ctx.catalog.register(bc)
+                ctx.defer_close(build["handle"])
+            if not keep_batches:
+                build["batches"] = []
+        return build["handle"]
 
     def _fusable(self, ctx) -> bool:
         from spark_rapids_tpu_torch.parallel.exchange import (
@@ -1016,11 +1085,13 @@ class GpuBroadcastHashJoinExec(_HashJoinBase):
         bc_schema = self.children[1].output_schema
         fused = self._fusable(ctx)
 
+        def build_batch():
+            h = self._build_handle(ctx, build, keep_batches=fused)
+            return h.get() if h is not None else \
+                empty_device_batch(bc_schema, ctx.device)
+
         def host(sbs):
-            if "batch" not in build:
-                build["batch"] = _concat_all(build["batches"], bc_schema) \
-                    or empty_device_batch(bc_schema, ctx.device)
-            outs = (self._join_pair(*self._pair(sb, build["batch"]),
+            outs = (self._join_pair(*self._pair(sb, build_batch()),
                                     ctx.device) for sb in sbs)
             return [o for o in outs if o is not None]
 
@@ -1046,8 +1117,9 @@ class GpuNestedLoopJoinExec(GpuExec):
     left, semi and anti joins are exact per slice, since a left row's
     outcome needs only the whole right side; right and full joins gather
     the whole left side into one partition and stream its slices,
-    accumulating which right rows matched.  Never fused.  Not ported:
-    registering the right side in a spill catalog."""
+    accumulating which right rows matched.  Never fused.  The right side
+    is registered in the spill catalog once and fetched again for each
+    join, so it can leave the device between left batches."""
 
     def __init__(self, left: PhysicalOp, right: PhysicalOp, how: str,
                  condition: Optional[Expression], schema: T.Schema):
@@ -1062,11 +1134,21 @@ class GpuNestedLoopJoinExec(GpuExec):
         budget = max(NLJ_PAIR_CAPACITY.get(ctx.conf), 1)
         lsch = self.children[0].output_schema
         rsch = self.children[1].output_schema
-        rb = _concat_all([b for p in self.children[1].partitions(ctx)
-                          for b in p], rsch)
+        rbatches = [b for p in self.children[1].partitions(ctx) for b in p]
+        _reserve_for(ctx, rbatches)
+        rb = _concat_all(rbatches, rsch)
+        del rbatches
         n_r = int(rb.num_rows) if rb is not None else 0
-        if rb is None:
-            rb = empty_device_batch(rsch, ctx.device)
+        rh = None
+        if rb is not None:
+            rh = ctx.catalog.register(rb)
+            ctx.defer_close(rh)
+            del rb
+
+        def rb_local():
+            return rh.get() if rh is not None else \
+                empty_device_batch(rsch, ctx.device)
+
         lparts = self.children[0].partitions(ctx)
         rows_per = max(1, budget // max(n_r, 1))
 
@@ -1076,21 +1158,24 @@ class GpuNestedLoopJoinExec(GpuExec):
             return rows_per
 
         def join(lb):
-            return nested_loop_join(lb, rb, self.how, self.condition,
-                                    self.output_schema)
+            return nested_loop_join(lb, rb_local(), self.how,
+                                    self.condition, self.output_schema)
 
         if self.how in ("right", "full"):
             def gen_all():
-                lb = _concat_all([b for p in lparts for b in p], lsch) or \
+                lbatches = [b for p in lparts for b in p]
+                _reserve_for(ctx, lbatches)
+                lb = _concat_all(lbatches, lsch) or \
                     empty_device_batch(lsch, ctx.device)
+                del lbatches
                 n_l = int(lb.num_rows)
                 if n_l * max(n_r, 1) <= budget:
                     yield join(lb)
                     return
                 yield from nested_loop_join_streamed(
                     row_slices(lb, n_l, slice_rows(n_l)),
-                    empty_device_batch(lsch, ctx.device), rb, self.how,
-                    self.condition, self.output_schema)
+                    empty_device_batch(lsch, ctx.device), rb_local(),
+                    self.how, self.condition, self.output_schema)
 
             return [gen_all()]
 

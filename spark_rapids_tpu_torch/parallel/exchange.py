@@ -22,9 +22,13 @@ per-batch pieces.  Range partitioning samples its bounds first, in three
 host syncs of its own (``rangeSampleSyncs``); single partitioning hands
 over the flat batch list.  The split records
 ``_last_part_rows``/``_last_part_bytes``, host-known sizes the adaptive
-layer (``plan/adaptive.py``) reads, and is memoized per query context:
-its pieces are plain device batches the context holds until the query
-ends (the spill catalog is not ported).
+layer (``plan/adaptive.py``) reads, and is memoized per query context
+and runtime generation: each piece is registered in the spill catalog at
+``PRIORITY_SHUFFLE_OUTPUT`` (closed when the query ends), read back with
+one unspill in flight ahead of the consumer (``prefetch_spillables``),
+and a replay after a device-lost recovery splits again.  The ``exchange``
+fault site fires as a device exchange hands out its partitions, collapsed
+or not.
 :class:`CpuShuffleExchangeExec` is the host twin: one stable ``argsort``
 per batch.
 """
@@ -53,7 +57,11 @@ from spark_rapids_tpu_torch.kernels.layout import (
 from spark_rapids_tpu_torch.parallel.partitioning import (
     Partitioning, RangePartitioning, SinglePartitioning,
 )
-from spark_rapids_tpu_torch.plan.physical import CpuExec, GpuExec, PhysicalOp
+from spark_rapids_tpu_torch.fault import inject
+from spark_rapids_tpu_torch.mem.catalog import PRIORITY_SHUFFLE_OUTPUT
+from spark_rapids_tpu_torch.plan.physical import (
+    CpuExec, GpuExec, PhysicalOp, prefetch_spillables,
+)
 
 
 def _range_sample_limit(ctx) -> int:
@@ -192,23 +200,27 @@ class GpuShuffleExchangeExec(GpuExec):
         return self.partitioning.num_partitions if self._splits(ctx) else 1
 
     def has_materialized_split(self, ctx) -> bool:
-        """True when the split already ran for ``ctx``: :meth:`partitions`
-        would hand back its pieces (kept on the context until the query
-        ends) instead of splitting again."""
-        return self.op_id in ctx.held
+        """True when the split already ran for ``ctx`` in the runtime's
+        current generation: :meth:`partitions` would hand back its pieces
+        (registered until the query ends) instead of splitting again."""
+        held = ctx.held.get(self.op_id)
+        return held is not None and held[0] == ctx.generation
 
     def bypass_partitions(self, ctx):
         """The child's partitions with no split (the adaptive broadcast
         switch's probe side, which joins every batch against a broadcast
         build): no partition ids, no piece gathers, no sync."""
+        inject.maybe_fire("exchange")
         ctx.metric(self.op_id, "shuffleElided").add(1)
         return self.children[0].partitions(ctx)
 
     def partitions(self, ctx):
+        inject.maybe_fire("exchange")
         if not self._splits(ctx):
             return [_flat(self.children[0].partitions(ctx))]
         if self.has_materialized_split(ctx):
-            return [iter([b for b, _, _ in p]) for p in ctx.held[self.op_id]]
+            return [prefetch_spillables([h for h, _, _ in p])
+                    for p in ctx.held[self.op_id][1]]
         all_batches = [list(p) for p in self.children[0].partitions(ctx)]
         if isinstance(self.partitioning, RangePartitioning):
             self._sample_range(ctx, all_batches)
@@ -230,8 +242,8 @@ class GpuShuffleExchangeExec(GpuExec):
             actual = sum(self._last_part_bytes)
             ctx.metric(self.op_id, "aqeEstimateErrorPct").add(
                 abs(est - actual) * 100.0 / max(actual, 1))
-        ctx.held[self.op_id] = out
-        return [iter([b for b, _, _ in p]) for p in out]
+        ctx.held[self.op_id] = (ctx.generation, out)
+        return [prefetch_spillables([h for h, _, _ in p]) for p in out]
 
     def _sample_range(self, ctx, all_batches) -> None:
         """The range bounds from the first rows' keys (three syncs)."""
@@ -275,7 +287,9 @@ class GpuShuffleExchangeExec(GpuExec):
     def _split(self, ctx, all_batches, n, out):
         """Every batch's pid sort dispatched, ONE sync for all counts and
         totals, then one k-way segment gather per target partition (per
-        batch above ``splitCoalesceMaxBytes``)."""
+        batch above ``splitCoalesceMaxBytes``), each piece registered in
+        the spill catalog as it is made."""
+        catalog = ctx.catalog
         bound_words = None
         if isinstance(self.partitioning, RangePartitioning):
             bound_words = self.partitioning.encode_bounds_device(ctx.device)
@@ -318,7 +332,10 @@ class GpuShuffleExchangeExec(GpuExec):
                     [round_up_capacity(max(e, 16), minimum=16) for e in es],
                     inputs=inputs.take(group))
                 ctx.metric(self.op_id, "shuffleSplitDispatches").add(1)
-                out[p].append((piece, rows, self._piece_bytes(rows, es)))
+                h = catalog.register(piece, PRIORITY_SHUFFLE_OUTPUT)
+                ctx.defer_close(h)
+                del piece
+                out[p].append((h, rows, self._piece_bytes(rows, es)))
 
 
 class CpuBroadcastExchangeExec(CpuExec):

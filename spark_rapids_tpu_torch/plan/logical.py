@@ -354,18 +354,23 @@ class WriteFile(LogicalPlan):
 
 class CacheHolder:
     """Materialized cache state shared by every DataFrame over a cached
-    plan: the device batches, one list per partition, once filled.  Plain
-    device memory for now; the spill catalog is not ported yet."""
+    plan: one list per partition of spill-catalog handles
+    (``mem.catalog.SpillableBatch``), once filled, so cached batches move
+    device -> host -> disk under memory pressure."""
 
     def __init__(self):
-        self.partitions = None  # List[List[ColumnBatch]] once filled
+        self.partitions = None  # List[List[SpillableBatch]] once filled
 
     @property
     def is_materialized(self) -> bool:
         return self.partitions is not None
 
     def unpersist(self) -> None:
-        """Drop the device batches; the next query fills them again."""
+        """Close the handles (their device, host and disk copies go); the
+        next query fills the cache again."""
+        for part in self.partitions or ():
+            for h in part:
+                h.close()
         self.partitions = None
 
 

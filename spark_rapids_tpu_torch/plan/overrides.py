@@ -51,8 +51,11 @@ host.
 File scans decode on the host (``io/scan.py`` v1, ``io/scan_v2.py`` v2, the
 default).  Filter conjuncts over a file scan are pushed into it (advisory:
 the Filter stays) so row groups and partition directories that cannot
-match are skipped.  The explain lines say "will run on GPU" or "cannot run
-on GPU because ..." a node.
+match are skipped.  With ``spark.rapids.sql.tpu.columnPruning.enabled``
+a join's inputs are projected down to the columns the plan above it
+reads (a port option; the JAX package carries every column).  The
+explain lines say "will run on GPU" or "cannot run on GPU because ..." a
+node.
 """
 
 from __future__ import annotations
@@ -65,7 +68,8 @@ import numpy as np
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.config import (
-    AUTO_BROADCAST_THRESHOLD, HAS_NANS, SCAN_PUSHDOWN_ENABLED,
+    AUTO_BROADCAST_THRESHOLD, COLUMN_PRUNING_ENABLED, HAS_NANS,
+    SCAN_PUSHDOWN_ENABLED,
     SCAN_V2_ENABLED, SHUFFLE_PARTITIONS, SQL_ENABLED, STRING_HASH_JOIN,
     RapidsConf,
 )
@@ -199,6 +203,8 @@ class GpuOverrides:
     def apply(self, plan: L.LogicalPlan) -> PhysicalOp:
         if SCAN_PUSHDOWN_ENABLED.get(self.conf):
             plan = _pushdown_scan_filters(plan)
+        if COLUMN_PRUNING_ENABLED.get(self.conf):
+            plan = _prune_columns(plan, None)
         meta = PlanMeta(plan, self.conf)
         self.tag(meta)
         self.last_explain = "\n".join(meta.explain_lines())
@@ -615,6 +621,81 @@ def _split_conjuncts(e: Expression) -> List[Expression]:
     return [e]
 
 
+def _column_refs(*exprs) -> set:
+    """The names every ``ColumnRef`` under ``exprs`` reads."""
+    return {r.column for e in exprs if e is not None
+            for r in e.collect(lambda n: isinstance(n, ColumnRef))}
+
+
+def _with_children(plan: L.LogicalPlan, children) -> L.LogicalPlan:
+    if all(n is o for n, o in zip(children, plan.children)):
+        return plan
+    clone = copy.copy(plan)
+    clone.children = tuple(children)
+    return clone
+
+
+def _prune_columns(plan: L.LogicalPlan, required) -> L.LogicalPlan:
+    """``plan`` with its joins' inputs projected down to the columns read
+    above them (a join carries every column of both sides into its
+    output and through the exchanges under it; a project or an
+    aggregate reads only its own expressions' columns).  ``required`` is
+    the set of ``plan``'s output names its parent reads (None: all of
+    them, in order).  The result's output holds every required name; a
+    node this pass does not know keeps its children's outputs whole.  A
+    cached relation is left as it is (its holder is shared across
+    queries), and so is the user's plan: untouched subtrees return the
+    original nodes."""
+    if isinstance(plan, L.Project):
+        return _with_children(plan, [_prune_columns(
+            plan.children[0], _column_refs(*plan.exprs))])
+    if isinstance(plan, L.Aggregate):
+        need = _column_refs(*plan.keys, *(a.fn for a in plan.aggs))
+        return _with_children(plan, [_prune_columns(plan.children[0],
+                                                    need)])
+    if isinstance(plan, (L.Filter, L.Sort, L.Limit, L.BroadcastHint)):
+        if required is not None:
+            if isinstance(plan, L.Filter):
+                required = required | _column_refs(plan.condition)
+            elif isinstance(plan, L.Sort):
+                required = required | _column_refs(
+                    *(o.child for o in plan.orders))
+        return _with_children(plan, [_prune_columns(plan.children[0],
+                                                    required)])
+    if isinstance(plan, L.Join) and plan.how != "cross":
+        left, right = plan.children
+        cond = _column_refs(plan.condition)
+        semi = plan.how in ("left_semi", "left_anti")
+        sides = []
+        for side, keys, semi_side in ((left, plan.left_keys, False),
+                                      (right, plan.right_keys, semi)):
+            names = set(side.schema.names)
+            if required is None and not semi_side:
+                sides.append(_prune_columns(side, None))
+                continue
+            above = set() if semi_side else required & names
+            sides.append(_narrow(side, above | _column_refs(*keys) |
+                                 (cond & names)))
+        return _with_children(plan, sides)
+    if isinstance(plan, (L.CachedRelation, L.InMemoryScan, L.FileScan,
+                         L.Range)):
+        return plan
+    return _with_children(plan, [_prune_columns(c, None)
+                                 for c in plan.children])
+
+
+def _narrow(child: L.LogicalPlan, need: set) -> L.LogicalPlan:
+    """``child`` pruned to ``need``, under a Project of those columns (in
+    ``child``'s order) when it still outputs more; a child none of whose
+    columns is read keeps its output (its rows still count)."""
+    child = _prune_columns(child, need)
+    fields = [f for f in child.schema.fields if f.name in need]
+    if not fields or len(fields) == len(child.schema.fields):
+        return child
+    return L.Project([ColumnRef(f.name, f.dtype, f.nullable)
+                      for f in fields], [f.name for f in fields], child)
+
+
 def _pushdown_scan_filters(plan: L.LogicalPlan) -> L.LogicalPlan:
     """Push Filter conjuncts into a child FileScan so the reader can skip
     row groups on statistics and prune partition directories (the
@@ -624,7 +705,6 @@ def _pushdown_scan_filters(plan: L.LogicalPlan) -> L.LogicalPlan:
     changes."""
     from spark_rapids_tpu_torch.io.scan import extract_pushdown_descriptors
     new_children = [_pushdown_scan_filters(c) for c in plan.children]
-    changed = any(n is not o for n, o in zip(new_children, plan.children))
     if isinstance(plan, L.Filter) and \
             isinstance(new_children[0], L.FileScan):
         scan = new_children[0]
@@ -634,11 +714,7 @@ def _pushdown_scan_filters(plan: L.LogicalPlan) -> L.LogicalPlan:
             return L.Filter(plan.condition, L.FileScan(
                 scan.fmt, scan.paths, scan.schema, scan.options,
                 pushed_filters=pushable, partitions=scan.partitions))
-    if not changed:
-        return plan
-    clone = copy.copy(plan)
-    clone.children = tuple(new_children)
-    return clone
+    return _with_children(plan, new_children)
 
 
 def _string_chars(values) -> int:

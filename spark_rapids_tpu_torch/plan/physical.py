@@ -12,12 +12,22 @@ iterator at a time; the JAX package's whole-stage fusion
 :class:`HostToDeviceExec` stages read-ahead on a worker thread (see its
 docstring), so host decode and the host-to-device copies overlap the
 consumer's device work.
+
+:func:`collect_host` drives one partition at a time under the partition
+deadline and, when a partition fails, takes it through the fault ladder
+(:mod:`spark_rapids_tpu_torch.fault.recovery`: spill and replay on an OOM,
+reset and replay on a device loss, then that partition on the host
+operators); an error outside any partition (the plan's eager work, the
+final copy) replays the whole collect the same way.  Every batch a GPU
+exec produces passes the ``dispatch`` fault site
+(:meth:`GpuExec.__init_subclass__`).
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import threading
 import time
 from typing import Dict, Iterator, List, Optional
@@ -31,6 +41,11 @@ from spark_rapids_tpu_torch.batch import (
     host_batch_bytes, host_to_device,
 )
 from spark_rapids_tpu_torch.config import STAGE_READAHEAD_BATCHES, RapidsConf
+from spark_rapids_tpu_torch.fault import inject
+
+#: Bounded wait slice (seconds) of the read-ahead channel's waits, so the
+#: partition watchdog's exception can land in a waiting consumer.
+_WAIT_SLICE = 0.25
 
 #: per-operator metrics that a query sums over its operators into
 #: ``session.last_metrics`` (the scan lane's, and the nested-loop join's
@@ -60,22 +75,58 @@ class Metric:
 
 class ExecContext:
     """Per-query execution context: conf, the device to run on, the device
-    mesh when one is installed, the query's counts (name -> count,
-    ``add_metric``) and its per-operator metrics (``metric(op_id,
-    name)``)."""
+    mesh when one is installed, the session's runtime (its spill catalog
+    and generation; a context made outside a session, for an exec driven
+    alone, gets a catalog of its own), the query's counts (name -> count,
+    ``add_metric``) and its per-operator metrics
+    (``metric(op_id, name)``)."""
 
     def __init__(self, conf: RapidsConf, device: torch.device,
-                 mesh: Optional[List[torch.device]] = None):
+                 mesh: Optional[List[torch.device]] = None, runtime=None):
         self.conf = conf
         self.device = device
         self.mesh = mesh
+        self.runtime = runtime
+        #: the query's logical plan: the fault ladder's host fallback
+        #: lowers it again with spark.rapids.sql.enabled=false
+        self.logical_plan = None
         self.metrics: Dict[str, int] = {}
         self.op_metrics: Dict[str, Dict[str, Metric]] = {}
-        #: device batches an operator keeps for the rest of the query (a
-        #: shuffle split's pieces, a switched join's build side), by
-        #: op_id: freed with the context when the query ends
+        #: what an operator keeps for the rest of the query (a shuffle
+        #: split's spillable pieces, a broadcast build's handle), by key
         self.held: Dict[object, object] = {}
+        self._deferred: List = []
+        self._catalog = None
         self._lock = threading.Lock()
+
+    @property
+    def catalog(self):
+        """The spill catalog the query's spillable batches register in."""
+        if self.runtime is not None:
+            return self.runtime.catalog
+        if self._catalog is None:
+            from spark_rapids_tpu_torch.mem.catalog import BufferCatalog
+            self._catalog = BufferCatalog(self.conf)
+        return self._catalog
+
+    @property
+    def generation(self) -> int:
+        """The runtime's device-lost recoveries so far (0 without one)."""
+        return self.runtime.generation if self.runtime is not None else 0
+
+    @property
+    def poisoned(self) -> bool:
+        """True once a CUDA error left the device context unusable."""
+        return self.runtime is not None and self.runtime.poisoned
+
+    def defer_close(self, handle) -> None:
+        """Close ``handle`` (a spillable batch) when the query ends."""
+        self._deferred.append(handle)
+
+    def close_deferred(self) -> None:
+        for h in self._deferred:
+            h.close()
+        self._deferred.clear()
 
     def add_metric(self, name: str) -> None:
         self.metrics[name] = self.metrics.get(name, 0) + 1
@@ -140,7 +191,41 @@ class PhysicalOp:
 
 
 class GpuExec(PhysicalOp):
+    """A device exec.  Every subclass's ``partitions`` is wrapped once, here,
+    so each batch it produces passes the ``dispatch`` fault site (the JAX
+    package fires it once per jitted call; the port runs eagerly)."""
+
     is_gpu = True
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        own = cls.__dict__.get("partitions")
+        if own is not None:
+            cls.partitions = _dispatching(own)
+
+
+def _dispatching(partitions):
+    @functools.wraps(partitions)
+    def wrapped(self, ctx):
+        return [_fire_each(p) for p in partitions(self, ctx)]
+    return wrapped
+
+
+def _fire_each(part):
+    for b in part:
+        inject.maybe_fire("dispatch")
+        yield b
+
+
+def prefetch_spillables(handles, depth: int = 1):
+    """Drive spillable handles with overlapped unspill: batch i+1's
+    rehydration is in flight while the consumer computes on batch i
+    (``catalog.prefetch``); the drive loop of the cached scan and the
+    shuffle pieces."""
+    handles = list(handles)
+    if not handles:
+        return iter(())
+    return handles[0]._catalog.prefetch(handles, depth=depth)
 
 
 class CpuExec(PhysicalOp):
@@ -167,7 +252,7 @@ class _ReadAheadChannel:
     def put(self, item) -> bool:
         with self._cond:
             while not self._stopped and len(self._items) >= self._depth:
-                self._cond.wait()
+                self._cond.wait(_WAIT_SLICE)
             if self._stopped:
                 return False
             self._items.append(item)
@@ -177,7 +262,7 @@ class _ReadAheadChannel:
     def get(self):
         with self._cond:
             while not self._stopped and not self._items:
-                self._cond.wait()
+                self._cond.wait(_WAIT_SLICE)
             if self._items:
                 item = self._items.popleft()
                 self._cond.notify_all()
@@ -236,7 +321,9 @@ class HostToDeviceExec(GpuExec):
     marks every tensor of the batch as used on its stream
     (``record_stream``), so the caching allocator does not hand their
     memory out again while the consumer's kernels may still read it.  The
-    device is passed to the worker explicitly.  An exception in the worker
+    device is passed to the worker explicitly.  Each batch is staged under
+    the OOM retry (``mem.catalog.run_with_oom_retry``: an allocator OOM
+    spills the catalog and stages again).  An exception in the worker
     is raised in the consumer; a consumer that stops early (a LIMIT)
     stops the worker, which closes the child's iterator.  The side stream
     is one per device (:func:`_staging_stream`).  With 0 every
@@ -265,9 +352,13 @@ class HostToDeviceExec(GpuExec):
 
         b_metric = ctx.metric(self.op_id, "h2dBytes")
 
+        catalog = ctx.catalog
+
         def stage(hb):
+            from spark_rapids_tpu_torch.mem.catalog import run_with_oom_retry
             t0 = time.monotonic()
-            db = host_to_device(hb, device)
+            db = run_with_oom_retry(catalog,
+                                    lambda: host_to_device(hb, device))
             t_metric.add(time.monotonic() - t0)
             b_metric.add(sum(t.numel() * t.element_size()
                              for t in _batch_tensors(db)))
@@ -381,19 +472,88 @@ def _empty_host_batch(schema: T.Schema) -> HostBatch:
                    np.zeros(0, dtype=np.bool_)) for f in schema.fields])
 
 
+def _host_form(hb: HostBatch) -> HostBatch:
+    """A host batch with its string columns one ``str`` a row."""
+    return HostBatch(hb.schema, [
+        HostColumn(c.dtype, c.string_values(), c.validity)
+        if c.offsets is not None else c for c in hb.columns])
+
+
+def iter_partitions(root: PhysicalOp, ctx: ExecContext):
+    """Every partition of ``root`` driven in turn under the partition
+    deadline, a failed one through the fault ladder
+    (``recovery.run_partition_with_retry``): yields one list of batches a
+    partition, device batches or, where a partition completed on the host,
+    host batches.  Once the device context is poisoned, no later
+    partition touches the device."""
+    from spark_rapids_tpu_torch.fault import recovery
+    from spark_rapids_tpu_torch.fault.errors import DeviceLostError
+    from spark_rapids_tpu_torch.fault.watchdog import partition_deadline
+    with partition_deadline(ctx.conf, "plan-partitions"):
+        # eager per-op work (a split, a build side) runs here
+        parts = root.partitions(ctx)
+    for i, part in enumerate(parts):
+        got: List = []
+        if ctx.poisoned:
+            yield recovery.run_partition_with_retry(
+                root, ctx, i, error=DeviceLostError("device context "
+                                                    "poisoned"))
+            continue
+        try:
+            with partition_deadline(ctx.conf, f"partition:{i}"):
+                for b in part:
+                    got.append(b)
+        except Exception as e:
+            if isinstance(e, MemoryError):
+                raise
+            del got
+            got = recovery.run_partition_with_retry(root, ctx, i, error=e)
+        yield got
+
+
+def _drive_partitions(root: PhysicalOp, ctx: ExecContext) -> List[List]:
+    """:func:`iter_partitions` in a list; once the device context is
+    poisoned, the partitions that left batches on the device run again on
+    the host."""
+    from spark_rapids_tpu_torch.fault import recovery
+    from spark_rapids_tpu_torch.fault.errors import DeviceLostError
+    out = list(iter_partitions(root, ctx))
+    if ctx.poisoned:
+        out = [recovery.run_partition_with_retry(
+            root, ctx, i, error=DeviceLostError("device context poisoned"))
+            if any(isinstance(b, ColumnBatch) for b in got) else got
+            for i, got in enumerate(out)]
+    return out
+
+
+def _collect_once(op: PhysicalOp, ctx: ExecContext) -> List[HostBatch]:
+    """One drive of the plan and the copy of its rows to the host: the
+    device batches with one sizes sync and one copy sync for all of
+    them."""
+    batches = [b for part in _drive_partitions(op, ctx) for b in part]
+    dev = [b for b in batches if isinstance(b, ColumnBatch)]
+    copied = iter(device_to_host_many(dev) if dev else [])
+    return [next(copied) if isinstance(b, ColumnBatch) else _host_form(b)
+            for b in batches]
+
+
 def collect_host(op: PhysicalOp, ctx: ExecContext) -> HostBatch:
     """Drive a plan to completion and concatenate every partition's rows
-    on the host: a device plan's batches with one sizes sync and one copy
-    sync for all of them, a host plan's as they come (strings one ``str``
-    a row either way)."""
-    batches = [b for part in op.partitions(ctx) for b in part]
-    if op.is_gpu:
-        hbs = device_to_host_many(batches)
-    else:
-        hbs = [HostBatch(hb.schema, [
-            HostColumn(c.dtype, c.string_values(), c.validity)
-            if c.offsets is not None else c for c in hb.columns])
-            for hb in batches]
+    on the host (strings one ``str`` a row).  A failure outside any
+    partition's ladder (the plan's eager work, the final copy) replays
+    the whole collect through the same ladder, with the whole query on the
+    host operators as its fallback.  Deferred handles close at the end."""
+    from spark_rapids_tpu_torch.fault import recovery
+    try:
+        try:
+            hbs = _collect_once(op, ctx)
+        except Exception as e:
+            if isinstance(e, MemoryError):
+                raise
+            hbs = recovery.run_plan_with_recovery(
+                ctx, lambda: _collect_once(op, ctx), error=e)
+    finally:
+        ctx.close_deferred()
     hbs = [hb for hb in hbs if hb.num_rows]
     if not hbs:
         return _empty_host_batch(op.output_schema)

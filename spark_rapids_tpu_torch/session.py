@@ -14,7 +14,16 @@ After each query ``last_metrics`` holds the query's counts and the scan
 lane's per-operator metrics summed by name (``scanDecodeWallNs``,
 ``rowGroupsRead``, ...); ``last_op_metrics`` holds every per-operator
 metric by operator (the transitions' ``h2dBytes``, ``d2hBytes``,
-``d2hTime``, the host operators' ``hostTime``).
+``d2hTime``, the host operators' ``hostTime``).  ``last_metrics`` also
+holds the fault ladder's counters for the query (``retryCount``,
+``backoffWallNs``, ``deviceLostCount``, ``partitionFallbackCount``,
+``faultsInjected``; :mod:`spark_rapids_tpu_torch.fault`), the spill
+catalog's per-query deltas (``spilledToHost``, ``spilledToDisk``,
+``unspilled``, ``oomSpillBytes``, ``spillToHostBytes``,
+``spillToDiskBytes``, ...); a count the query did not move is absent.
+``runtime.catalog.metrics`` holds the catalog's cumulative counters
+under the JAX package's names (``spilled_to_host``, ``spilled_to_disk``,
+``unspilled``, ``oom_spill_bytes``).
 
 The planner places each operator on the GPU or the host from its tags and
 the confs (``plan/overrides.py``).  ``last_explain`` holds the last plan's
@@ -38,6 +47,17 @@ from spark_rapids_tpu_torch.config import RapidsConf
 from spark_rapids_tpu_torch.runtime.device import DeviceRuntime
 
 _EXPLAIN_LOGGER = logging.getLogger(__name__ + ".explain")
+
+#: the spill catalog's counters (the JAX package's names) whose deltas a
+#: query's ``last_metrics`` holds
+_SPILL_METRICS = {"spilled_to_host": "spilledToHost",
+                  "spilled_to_disk": "spilledToDisk",
+                  "unspilled": "unspilled",
+                  "oom_spill_bytes": "oomSpillBytes",
+                  "spill_wall_ns": "spillWallNs",
+                  "unspill_prefetch_hits": "unspillPrefetchHits",
+                  "spill_to_host_bytes": "spillToHostBytes",
+                  "spill_to_disk_bytes": "spillToDiskBytes"}
 
 #: the host execs the test mode allows (spark.rapids.sql.test.enabled)
 _TEST_MODE_ALLOWED = ("HostToDeviceExec", "CpuInMemoryScanExec",
@@ -143,15 +163,40 @@ class GpuSparkSession:
         from spark_rapids_tpu_torch.plan.physical import (
             ExecContext, collect_host,
         )
-        from spark_rapids_tpu_torch.config import TEST_ENABLED
+        from spark_rapids_tpu_torch.config import FAULTS_SPEC, TEST_ENABLED
+        from spark_rapids_tpu_torch.fault import inject as fault_inject
+        from spark_rapids_tpu_torch.fault import metrics as fault_metrics
         phys = self.plan_physical(plan)
         self.last_physical_plan = phys
         if TEST_ENABLED.get(self.conf):
             _assert_on_gpu(phys)
-        ctx = ExecContext(self.conf, self.device, self._shuffle_mesh())
-        with self.runtime.semaphore:
-            out = collect_host(phys, ctx)
+        ctx = ExecContext(self.conf, self.device, self._shuffle_mesh(),
+                          runtime=self.runtime)
+        # the fault ladder's host fallback lowers this plan again
+        ctx.logical_plan = plan
+        # the fault registry is installed per query, so "the Nth call"
+        # counts from the query's start, and cleared after it, so a
+        # persistent rule cannot fire outside a query's ladder
+        spec = FAULTS_SPEC.get(self.conf)
+        fault_inject.install(spec)
+        fm_before = fault_metrics.snapshot()
+        catalog = self.runtime.catalog
+        cat_before = dict(catalog.metrics)
+        try:
+            with self.runtime.semaphore, catalog.query_budget():
+                out = collect_host(phys, ctx)
+        finally:
+            if spec:
+                fault_inject.uninstall()
+        fm = fault_metrics.delta(fm_before, fault_metrics.snapshot())
+        cat_now = dict(catalog.metrics)
+        counts = {name: fm[key]
+                  for key, name in fault_metrics.METRIC_NAMES.items()}
+        counts.update({name: cat_now.get(key, 0) - cat_before.get(key, 0)
+                       for key, name in _SPILL_METRICS.items()})
         self.last_metrics = dict(ctx.metrics, **ctx.summed_metrics())
+        # like every count here, one the query did not move is absent
+        self.last_metrics.update({k: v for k, v in counts.items() if v})
         self.last_op_metrics = ctx.op_metric_values()
         return out
 

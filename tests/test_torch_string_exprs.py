@@ -81,6 +81,20 @@ def test_string_gather_matches_jax():
         assert_device_bits(want, got)
 
 
+@pytest.mark.parametrize("chunk", [16, 100, 255])
+def test_string_gather_in_byte_chunks_matches_jax(monkeypatch, chunk):
+    """A gather whose output bytes pass ``GATHER_BYTES_CHUNK`` resolves
+    them a chunk at a time (a join's wide output): the same bits."""
+    monkeypatch.setattr(L, "GATHER_BYTES_CHUNK", chunk)
+    jdev, pdev = _both(STRS)
+    idx = np.tile(np.array([9, 3, 3, 0, 7, 1, 10, 2], dtype=np.int32), 2)
+    kw = {"out_capacity": 16, "out_byte_caps": [1024]}
+    want = jax.jit(lambda b, i: JL.gather_rows(b, i, 13, **kw))(
+        jdev, jnp.asarray(idx))
+    assert_device_bits(want, L.gather_rows(pdev, torch.from_numpy(idx), 13,
+                                           **kw))
+
+
 def _vals(jdev, pdev, names):
     jv = [JaxDevVal.from_column(jdev.column(n)) for n in names]
     pv = [DevVal.from_column(pdev.column(n)) for n in names]
